@@ -1,0 +1,32 @@
+"""tpu_rt_torch: the tpu-rt path tracer on PyTorch and CUDA (NVIDIA Hopper).
+
+A port of ``tpu_rt`` that imports torch and never jax. It mirrors the JAX
+package's layout, module for module:
+
+  core/     SoA scene/camera tensors, vector math, pinhole camera
+  ops/      the attribute table and the path-trace megakernel wrapper
+  csrc/     the hand-written CUDA kernels (built on first use)
+  kernels/  the nvcc build and ctypes loader
+  render/   engine choice, batch render, accumulation, display stack
+  api/      the drop-in object surface (Vector3 ... RayTracer)
+  app/      the headless launcher
+  utils/    numpy converters, CUDA-event timing
+
+Every function takes an explicit ``device``; tensors on the CPU run the
+plain PyTorch version of each kernel, tensors on a CUDA device run the
+kernel itself.
+"""
+
+from .core.types import (  # noqa: F401
+    CameraP,
+    SphereScene,
+    demo_scene,
+    make_camera,
+    make_scene,
+)
+from .render.frame import (  # noqa: F401
+    accumulate,
+    enhance_contrast,
+    render,
+    tone_map,
+)

@@ -1,0 +1,10 @@
+"""Drop-in object surface (Vector3 ... RayTracer) of tpu_rt_torch."""
+
+from .compat import (  # noqa: F401
+    Camera,
+    Material,
+    RayTracer,
+    Scene,
+    Sphere,
+    Vector3,
+)

@@ -1,0 +1,288 @@
+"""Drop-in object surface of the reference's pybind11 module, on PyTorch.
+
+Counterpart of ``tpu_rt/api/compat.py`` for the slice the port carries:
+``Vector3``, ``Material``, ``Sphere``, ``Camera`` (with ``to_params``),
+``Scene`` (with ``to_arrays``) and ``RayTracer`` with ``set_scene``,
+``get_camera``, ``set_camera``, ``move_camera``, ``render`` and
+``render_device``. Scene edits mutate plain Python objects; ``set_scene``
+snapshots them into tensors on the tracer's device, and ``render_device``
+drives the megakernel there.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..core import types as _T
+from ..core.types import CameraP
+from ..render import frame as _F
+
+
+class Vector3:
+    """Mutable 3-vector with the reference's operator set."""
+
+    __slots__ = ("x", "y", "z")
+
+    def __init__(self, x: float = 0.0, y: float = 0.0, z: float = 0.0):
+        self.x = float(x)
+        self.y = float(y)
+        self.z = float(z)
+
+    def __add__(self, o):
+        return Vector3(self.x + o.x, self.y + o.y, self.z + o.z)
+
+    def __sub__(self, o):
+        return Vector3(self.x - o.x, self.y - o.y, self.z - o.z)
+
+    def __mul__(self, o):
+        if isinstance(o, Vector3):
+            return Vector3(self.x * o.x, self.y * o.y, self.z * o.z)
+        return Vector3(self.x * o, self.y * o, self.z * o)
+
+    def __rmul__(self, s):
+        return Vector3(self.x * s, self.y * s, self.z * s)
+
+    def __truediv__(self, s):
+        inv = 1.0 / s
+        return Vector3(self.x * inv, self.y * inv, self.z * inv)
+
+    def __neg__(self):
+        return Vector3(-self.x, -self.y, -self.z)
+
+    def __iadd__(self, o):
+        self.x += o.x
+        self.y += o.y
+        self.z += o.z
+        return self
+
+    def __imul__(self, s):
+        self.x *= s
+        self.y *= s
+        self.z *= s
+        return self
+
+    def dot(self, o) -> float:
+        return self.x * o.x + self.y * o.y + self.z * o.z
+
+    def cross(self, o) -> "Vector3":
+        return Vector3(
+            self.y * o.z - self.z * o.y,
+            self.z * o.x - self.x * o.z,
+            self.x * o.y - self.y * o.x,
+        )
+
+    def length_squared(self) -> float:
+        return self.x * self.x + self.y * self.y + self.z * self.z
+
+    def length(self) -> float:
+        return math.sqrt(self.length_squared())
+
+    def normalize(self) -> "Vector3":
+        n = self.length()
+        if n > 0.0:
+            inv = 1.0 / n
+            return Vector3(self.x * inv, self.y * inv, self.z * inv)
+        # v1 normalize returns zero vectors unchanged
+        return Vector3(self.x, self.y, self.z)
+
+    def __repr__(self):
+        return f"Vector3({self.x:.6f}, {self.y:.6f}, {self.z:.6f})"
+
+    def to_array(self) -> np.ndarray:
+        return np.array([self.x, self.y, self.z], np.float32)
+
+    def copy(self) -> "Vector3":
+        return Vector3(self.x, self.y, self.z)
+
+
+class Material:
+    """Albedo/metallic/roughness/emission/ior with the reference defaults."""
+
+    def __init__(self):
+        self.albedo = Vector3(0.8, 0.8, 0.8)
+        self.metallic = 0.0
+        self.roughness = 0.5
+        self.emission = Vector3(0.0, 0.0, 0.0)
+        self.ior = 1.5
+
+
+class Sphere:
+    """Sphere with a name and object id."""
+
+    def __init__(self):
+        self.center = Vector3(0.0, 0.0, 0.0)
+        self.radius = 1.0
+        self.material = Material()
+        self.object_id = 0
+        self.name = ""
+
+
+class Camera:
+    """v1 camera: position/target/up/fov/aspect; ``aperture`` > 0 (thin
+    lens) is not ported yet and makes a render raise."""
+
+    def __init__(self):
+        self.position = Vector3(0.0, 2.0, 3.0)
+        self.target = Vector3(0.0, 0.0, -3.0)
+        self.up = Vector3(0.0, 1.0, 0.0)
+        self.fov = 45.0
+        self.aspect_ratio = 1.333
+        self.aperture = 0.0
+        self.focus_dist = 0.0
+
+    def move(self, delta: Vector3):
+        self.position = self.position + delta
+
+    def copy(self) -> "Camera":
+        c = Camera()
+        c.position = self.position.copy()
+        c.target = self.target.copy()
+        c.up = self.up.copy()
+        c.fov = self.fov
+        c.aspect_ratio = self.aspect_ratio
+        c.aperture = self.aperture
+        c.focus_dist = self.focus_dist
+        return c
+
+    def to_params(self, device) -> CameraP:
+        return _T.make_camera(
+            position=(self.position.x, self.position.y, self.position.z),
+            target=(self.target.x, self.target.y, self.target.z),
+            up=(self.up.x, self.up.y, self.up.z),
+            fov=self.fov,
+            aspect=self.aspect_ratio,
+            aperture=self.aperture,
+            focus_dist=self.focus_dist,
+            device=device,
+        )
+
+
+class Scene:
+    """Python-side scene container."""
+
+    def __init__(self):
+        self.spheres: list[Sphere] = []
+        self.background_color = Vector3(0.1, 0.1, 0.1)
+        self.use_bvh = True
+        self.debug_mode = False
+
+    def add_sphere(self, sphere: Sphere):
+        self.spheres.append(sphere)
+
+    def remove_sphere(self, object_id: int):
+        self.spheres = [s for s in self.spheres if s.object_id != object_id]
+
+    def to_arrays(self, device, capacity: int | None = None) -> _T.SphereScene:
+        """Snapshot to a bucketed SphereScene on ``device``."""
+        s = self.spheres
+        return _T.make_scene(
+            centers=np.array([x.center.to_array() for x in s],
+                             np.float32).reshape(-1, 3),
+            radii=[x.radius for x in s],
+            albedos=np.array([x.material.albedo.to_array() for x in s],
+                             np.float32).reshape(-1, 3),
+            metallics=[x.material.metallic for x in s],
+            roughnesses=[x.material.roughness for x in s],
+            emissions=np.array([x.material.emission.to_array() for x in s],
+                               np.float32).reshape(-1, 3),
+            iors=[x.material.ior for x in s],
+            object_ids=[x.object_id for x in s],
+            background=self.background_color.to_array(),
+            capacity=capacity,
+            device=device,
+        )
+
+
+def batch_seed(seed_base: int, frame: int) -> int:
+    """The stream seed of progressive batch ``frame``: the JAX package's
+    host-side arithmetic, unchanged (``seed_base`` is the tracer's seed
+    + 1)."""
+    return (seed_base * 1000003 + frame) & 0x7FFFFFFF
+
+
+class RayTracer:
+    """Drop-in RayTracer service on one torch device.
+
+    ``set_scene`` snapshots the scene (later Python-side edits are
+    invisible until the next ``set_scene``). Successive renders advance a
+    frame counter folded into the seed, so progressive batches draw fresh
+    samples. ``device`` must be usable: a CUDA device without CUDA raises
+    here rather than rendering somewhere else.
+    """
+
+    def __init__(self, seed: int = 0, *, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"RayTracer(device={device!r}): CUDA is not "
+                               "available")
+        self.camera = Camera()
+        self.camera.position = Vector3(0, 2, 5)
+        self.camera.target = Vector3(0, 0, -1)
+        self.camera.fov = 45.0
+        self._scene_snapshot = Scene()
+        self._scene_arrays: _T.SphereScene | None = None
+        self._seed_base = int(seed) + 1
+        self._frame = 0
+        # set at set_scene time on the host, so a render pulls nothing back
+        self._n_active: int | None = None
+        self._last_engine: str | None = None
+
+    def set_scene(self, scene: Scene):
+        snap = Scene()
+        snap.background_color = scene.background_color.copy()
+        snap.use_bvh = scene.use_bvh
+        snap.debug_mode = scene.debug_mode
+        for s in scene.spheres:
+            c = Sphere()
+            c.center = s.center.copy()
+            c.radius = s.radius
+            m = Material()
+            m.albedo = s.material.albedo.copy()
+            m.metallic = s.material.metallic
+            m.roughness = s.material.roughness
+            m.emission = s.material.emission.copy()
+            m.ior = s.material.ior
+            c.material = m
+            c.object_id = s.object_id
+            c.name = s.name
+            snap.spheres.append(c)
+        self._scene_snapshot = snap
+        self._scene_arrays = snap.to_arrays(self.device)
+        self._n_active = _F.quantize_count(len(snap.spheres),
+                                           self._scene_arrays.capacity)
+
+    def get_camera(self) -> Camera:
+        return self.camera.copy()
+
+    def set_camera(self, cam: Camera):
+        self.camera = cam
+
+    def move_camera(self, delta: Vector3):
+        self.camera.move(delta)
+
+    def render(self, width: int, height: int, samples_per_pixel: int,
+               max_depth: int) -> np.ndarray:
+        """One progressive batch as a flat (h*w*3,) float32 host array."""
+        img = self.render_device(width, height, samples_per_pixel, max_depth)
+        if img is None:
+            return np.zeros((width * height * 3,), np.float32)
+        return img.cpu().numpy().reshape(-1)
+
+    def render_device(self, width: int, height: int, samples_per_pixel: int,
+                      max_depth: int):
+        """One progressive batch as an (h, w, 3) tensor on the tracer's
+        device, or None for an empty scene."""
+        self.camera.aspect_ratio = width / height
+        if self._scene_arrays is None or not self._scene_snapshot.spheres:
+            return None
+        seed = batch_seed(self._seed_base, self._frame)
+        self._frame += 1
+        self._last_engine = _F.select_engine(self._scene_arrays)
+        return _F.render(
+            self._scene_arrays, self.camera.to_params(self.device), seed,
+            width=width, height=height, spp=samples_per_pixel,
+            max_depth=max_depth, n_active=self._n_active,
+            enable_dof=float(self.camera.aperture) > 0.0)

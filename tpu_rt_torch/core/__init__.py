@@ -1,0 +1,1 @@
+"""core layer of tpu_rt_torch (see the package docstring)."""

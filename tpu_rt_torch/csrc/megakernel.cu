@@ -1,0 +1,273 @@
+// Path-trace megakernel for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel built by tpu_rt/ops/pallas_megakernel.py:_make_kernel
+// (launched by render_pallas) for the configuration the main render path
+// runs: sphere scenes of at most 64 spheres, the v2 estimator, i.i.d. pixel
+// jitter (or pixel centres), sqrt gamma and clamp, and per-tile traced
+// segment counts. Randomness is the counter hash of the JAX kernel's
+// interpret mode (_hash_uniform), drawn in the same order, so this kernel
+// can be held stream for stream against the JAX package and against the
+// plain PyTorch version in tpu_rt_torch/ops/megakernel.py.
+//
+// What bounds it: FP32 throughput and instruction latency. The inputs are a
+// (<= 64, 16) f32 attribute table (4 KB) and 20 camera/background scalars;
+// the only device-memory traffic is the 12 B/pixel colour store. Each thread
+// runs a divergent loop (samples x bounces x spheres) of dependent
+// arithmetic and transcendentals.
+//
+// What the design does about it:
+//   * one thread per pixel, samples and bounces looped inside the thread; a
+//     path that dies leaves the bounce loop, so dead lanes cost nothing once
+//     the whole warp is dead;
+//   * each block stages the attribute table, camera and background into
+//     shared memory once; every thread of a warp reads the same word in the
+//     sphere sweep, which is a broadcast with no bank conflict;
+//   * the sweep keeps only the winner's index and t, and reads the winner's
+//     material from shared memory after the sweep;
+//   * no global state (no __constant__ symbol): a launch writes only its own
+//     output and counts, so renders on two streams cannot race;
+//   * segment counts: a block reduction, then one integer atomicAdd per block
+//     into its tile's slot, which is exact and independent of order.
+//
+// The grid covers n_tiles * 4096 threads, like the TPU grid of 4096-ray
+// tiles: lanes past the last pixel trace and count segments too (so the
+// with_stats scaling is the JAX package's), but store nothing.
+//
+// Build without fast-math: the root selection relies on IEEE compares with
+// the NaN of sqrt(negative) being false.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 4096;  // rays per TPU tile: 32 sublanes x 128 lanes
+constexpr int kBlock = 256;  // threads per block; divides kTile
+constexpr int kMaxSpheres = 64;
+constexpr int kCols = 16;    // attribute columns (ops/intersect.py)
+constexpr int kRRStart = 3;  // Russian roulette after bounce 3
+constexpr float kTMax = 1e10f;
+constexpr float kTwoPi = 6.2831853071795864f;
+
+// Counter hash U[0,1): tpu_rt/ops/pallas_megakernel.py:_hash_uniform in
+// uint32 arithmetic (the JAX version wraps int32; signed overflow is UB in
+// C++, unsigned wrap is not). The multipliers are the int32 constants
+// -1640531527, -2048144789, -1028477387 read as uint32.
+__device__ __forceinline__ float hash_uniform(uint32_t pix_mix, uint32_t salt) {
+  uint32_t h = pix_mix + salt * 40503u;
+  h ^= h >> 16;
+  h *= 2246822507u;
+  h ^= h >> 13;
+  h *= 3266489909u;
+  h ^= h >> 16;
+  return (float)(h >> 8) * (1.0f / 16777216.0f);
+}
+
+__device__ __forceinline__ float inv_len(float x, float y, float z) {
+  // lax.rsqrt(max(., 1e-20)); 1/sqrt keeps the rounding of the CPU versions
+  return 1.0f / sqrtf(fmaxf(x * x + y * y + z * z, 1e-20f));
+}
+
+__global__ void __launch_bounds__(kBlock)
+megakernel(const float* __restrict__ attr_g, int n_spheres,
+           const float* __restrict__ cam_g, const float* __restrict__ bg_g,
+           uint32_t seed, uint32_t pixel_offset, int width, float inv_w,
+           float inv_h, int spp, float inv_spp, int max_depth, int jitter,
+           float* __restrict__ out, int n_pix, int* __restrict__ segs) {
+  __shared__ float attr[kMaxSpheres * kCols];
+  __shared__ float cam[16];
+  __shared__ float bg[3];
+  __shared__ int warp_segs[kBlock / 32];
+
+  for (int i = threadIdx.x; i < n_spheres * kCols; i += kBlock)
+    attr[i] = attr_g[i];
+  if (threadIdx.x < 16) cam[threadIdx.x] = cam_g[threadIdx.x];
+  if (threadIdx.x < 3) bg[threadIdx.x] = bg_g[threadIdx.x];
+  __syncthreads();
+
+  const int gid = blockIdx.x * kBlock + threadIdx.x;
+  const int tile = gid / kTile;
+  const uint32_t flat = pixel_offset + (uint32_t)gid;
+  const float px = (float)(flat % (uint32_t)width);
+  const float py = (float)(flat / (uint32_t)width);
+  // per-tile stream: seed + tile (int32 wrap in the JAX kernel)
+  const uint32_t tile_seed = seed + (uint32_t)tile;
+
+  const float cpx = cam[0], cpy = cam[1], cpz = cam[2];
+  const float fwx = cam[3], fwy = cam[4], fwz = cam[5];
+  const float rix = cam[6], riy = cam[7], riz = cam[8];
+  const float upx = cam[9], upy = cam[10], upz = cam[11];
+  const float tf_aspect = cam[12], tf = cam[13];
+
+  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  int seg_count = 0;
+
+  for (int s = 0; s < spp; ++s) {
+    const uint32_t pix_mix =
+        flat ^ ((tile_seed + (uint32_t)s * 7919u) * 2654435769u);
+    // Salts follow the JAX kernel's call-site counter over its unrolled
+    // trace: jitter draws 1, 2; bounce k draws 3 ball salts, plus one RR
+    // salt first when k > kRRStart. Derived from k, never carried.
+    const uint32_t salt0 = jitter ? 2u : 0u;
+
+    float xu = 0.5f, xv = 0.5f;
+    if (jitter) {
+      xu = hash_uniform(pix_mix, 1u);
+      xv = hash_uniform(pix_mix, 2u);
+    }
+    const float u = (px + xu) * inv_w;
+    const float v = (py + xv) * inv_h;
+    const float vx = (u - 0.5f) * 2.0f * tf_aspect;
+    const float vy = (0.5f - v) * 2.0f * tf;
+    float dx = fwx + rix * vx + upx * vy;
+    float dy = fwy + riy * vx + upy * vy;
+    float dz = fwz + riz * vx + upz * vy;
+    {
+      const float inv = inv_len(dx, dy, dz);
+      dx *= inv; dy *= inv; dz *= inv;
+    }
+    float ox = cpx, oy = cpy, oz = cpz;
+    float tr = 1.f, tg = 1.f, tb = 1.f;
+    float cr = 0.f, cg = 0.f, cb = 0.f;
+
+    for (int k = 1; k <= max_depth; ++k) {
+      ++seg_count;  // only live paths reach this point
+      const int rr_before = k - 1 > kRRStart ? k - 1 - kRRStart : 0;
+      uint32_t salt = salt0 + 3u * (uint32_t)(k - 1) + (uint32_t)rr_before;
+
+      // ---- sweep all spheres; padding rows have inv_radius 0 ----
+      float best_t = kTMax;
+      int best = -1;
+      for (int n = 0; n < n_spheres; ++n) {
+        const float* a = attr + n * kCols;
+        const float ocx = ox - a[0];
+        const float ocy = oy - a[1];
+        const float ocz = oz - a[2];
+        const float half_b = ocx * dx + ocy * dy + ocz * dz;
+        const float cq = (ocx * ocx + ocy * ocy + ocz * ocz) - a[3] * a[3];
+        // sqrt of a negative discriminant is NaN and fails every compare
+        const float sqrtd = sqrtf(half_b * half_b - cq);
+        const float root0 = -half_b - sqrtd;
+        const float root = root0 >= 1e-3f ? root0 : sqrtd - half_b;
+        if (root >= 1e-3f && root < best_t && a[14] > 0.f) {
+          best_t = root;
+          best = n;
+        }
+      }
+
+      if (best < 0) {  // miss: background, path ends
+        cr = cr + tr * bg[0];
+        cg = cg + tg * bg[1];
+        cb = cb + tb * bg[2];
+        break;
+      }
+      const float* w = attr + best * kCols;
+      cr = cr + tr * w[9];
+      cg = cg + tg * w[10];
+      cb = cb + tb * w[11];
+
+      // ---- Russian roulette ----
+      if (k > kRRStart) {
+        const float xi = hash_uniform(pix_mix, ++salt);
+        const float p =
+            fminf(fmaxf(fmaxf(tr, fmaxf(tg, tb)), 0.1f), 0.95f);
+        if (!(xi < p)) break;
+        const float comp = 1.0f / p;
+        tr *= comp; tg *= comp; tb *= comp;
+      }
+
+      // ---- hit point + outward normal ----
+      const float hx = ox + dx * best_t;
+      const float hy = oy + dy * best_t;
+      const float hz = oz + dz * best_t;
+      const float ir = w[14];
+      const float nx = (hx - w[0]) * ir;
+      const float ny = (hy - w[1]) * ir;
+      const float nz = (hz - w[2]) * ir;
+
+      // ---- scatter: uniform point in the unit ball ----
+      const float u1 = hash_uniform(pix_mix, salt + 1u);
+      const float u2 = hash_uniform(pix_mix, salt + 2u);
+      const float u3 = hash_uniform(pix_mix, salt + 3u);
+      const float bz0 = 1.0f - 2.0f * u1;
+      const float r_xy = sqrtf(fmaxf(1.0f - bz0 * bz0, 0.0f));
+      const float phi = kTwoPi * u2;
+      const float rad = expf(logf(fmaxf(u3, 1e-12f)) * (1.0f / 3.0f));
+      const float bx = r_xy * cosf(phi) * rad;
+      const float by = r_xy * sinf(phi) * rad;
+      const float bz = bz0 * rad;
+
+      float ndx, ndy, ndz;
+      if (w[7] > 0.f) {  // metal: mirror + roughness jitter
+        const float d_dot_n = dx * nx + dy * ny + dz * nz;
+        const float rgh = w[8];
+        const float mx = dx - 2.0f * d_dot_n * nx + bx * rgh;
+        const float my = dy - 2.0f * d_dot_n * ny + by * rgh;
+        const float mz = dz - 2.0f * d_dot_n * nz + bz * rgh;
+        const float inv = inv_len(mx, my, mz);
+        ndx = mx * inv; ndy = my * inv; ndz = mz * inv;
+      } else {  // diffuse: normal + ball point flipped into the hemisphere
+        const float sgn = (bx * nx + by * ny + bz * nz) > 0.f ? 1.f : -1.f;
+        const float fx = nx + bx * sgn;
+        const float fy = ny + by * sgn;
+        const float fz = nz + bz * sgn;
+        const float inv = inv_len(fx, fy, fz);
+        ndx = fx * inv; ndy = fy * inv; ndz = fz * inv;
+      }
+
+      tr *= w[4]; tg *= w[5]; tb *= w[6];
+      ox = hx; oy = hy; oz = hz;
+      dx = ndx; dy = ndy; dz = ndz;
+    }
+    acc_r += cr;
+    acc_g += cg;
+    acc_b += cb;
+  }
+
+  if (gid < n_pix) {
+    float* o = out + (size_t)gid * 3;
+    o[0] = fminf(fmaxf(sqrtf(fmaxf(acc_r * inv_spp, 0.f)), 0.f), 1.f);
+    o[1] = fminf(fmaxf(sqrtf(fmaxf(acc_g * inv_spp, 0.f)), 0.f), 1.f);
+    o[2] = fminf(fmaxf(sqrtf(fmaxf(acc_b * inv_spp, 0.f)), 0.f), 1.f);
+  }
+
+  // ---- per-tile segment count: warp sums, block sum, one atomic ----
+  for (int off = 16; off > 0; off >>= 1)
+    seg_count += __shfl_down_sync(0xffffffffu, seg_count, off);
+  if ((threadIdx.x & 31) == 0) warp_segs[threadIdx.x >> 5] = seg_count;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    int v = threadIdx.x < kBlock / 32 ? warp_segs[threadIdx.x] : 0;
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (threadIdx.x == 0) atomicAdd(segs + tile, v);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the megakernel on `stream`. `out` is (n_pix, 3) f32, `segs`
+// (n_tiles,) int32 and zeroed by the caller; `attr` (n_spheres, 16), `cam`
+// (16,) and `bg` (3,) f32 on the device. Allocates nothing and does not
+// synchronise. Returns cudaGetLastError() of the launch.
+int tpurt_megakernel_launch(const float* attr, int n_spheres, const float* cam,
+                            const float* bg, int seed, int pixel_offset,
+                            int width, int height, int spp, int max_depth,
+                            int jitter, int n_tiles, float* out, int n_pix,
+                            int* segs, void* stream) {
+  if (n_spheres < 1 || n_spheres > kMaxSpheres || width < 1 || height < 1 ||
+      spp < 1 || max_depth < 1 || n_tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  const float inv_w = (float)(1.0 / (double)width);
+  const float inv_h = (float)(1.0 / (double)height);
+  const float inv_spp = (float)(1.0 / (double)spp);
+  const int blocks = n_tiles * (kTile / kBlock);
+  megakernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+      attr, n_spheres, cam, bg, (uint32_t)seed, (uint32_t)pixel_offset, width,
+      inv_w, inv_h, spp, inv_spp, max_depth, jitter, out, n_pix, segs);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

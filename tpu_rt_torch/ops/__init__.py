@@ -1,0 +1,1 @@
+"""ops layer of tpu_rt_torch (see the package docstring)."""

@@ -1,0 +1,357 @@
+"""The path-trace megakernel: CUDA kernel wrapper and its plain version.
+
+Counterpart of ``tpu_rt/ops/pallas_megakernel.py`` for the configuration
+the main render path runs: sphere scenes of at most 64 spheres, the v2
+estimator (miss adds throughput x background; emission before Russian
+roulette; RR after bounce 3 with p = clamp(max throughput, 0.1, 0.95) and
+survivor compensation; metal mirrors with roughness jitter, else diffuse
+normalize(normal + hemisphere-flipped ball point)), pixel jitter or pixel
+centres, the spp mean, sqrt gamma and clamp, and per-tile segment counts.
+
+The kernel (``csrc/megakernel.cu``) and the plain PyTorch version here both
+draw from the JAX kernel's interpret-mode counter hash in the same order,
+so either can be compared stream for stream with
+``render_pallas(..., interpret=True)``. Pixels are grouped into tiles of
+4096 as on the TPU: the per-tile seed and segment count depend on it.
+
+``render_megakernel`` runs the plain version for scenes on the CPU and the
+CUDA kernel for scenes on a CUDA device; there is no other path.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import camera as cammod
+from ..core import vecmath as vm
+from ..core.types import CameraP, SphereScene, T_MAX
+from ..kernels import build
+from .intersect import attribute_matrix
+
+TILE = 4096          # rays per TPU tile (32 sublanes x 128 lanes)
+RR_START = 3         # Russian roulette after this many bounces
+MAX_SPHERES = 64     # size of the kernel's shared-memory attribute table
+
+_M32 = 0xFFFFFFFF
+# int32 multipliers of the JAX hash (-1640531527, -2048144789,
+# -1028477387) read as uint32
+_C_SEED = 2654435769
+_C_MIX1 = 2246822507
+_C_MIX2 = 3266489909
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded to f32, as JAX rounds weak-typed scalars."""
+    return float(np.float32(x))
+
+
+_TWO_PI = _f32(6.2831853071795864)
+_THIRD = _f32(1.0 / 3.0)
+_T_MAX = _f32(T_MAX)
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 ``a`` in [0, 2^32): split ``c`` in 16-bit
+    halves so no intermediate leaves the int64 range."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _u32(x) -> torch.Tensor:
+    return torch.as_tensor(x).to(torch.int64) & _M32
+
+
+def _uniform_from_mix(mix: torch.Tensor, salt: int) -> torch.Tensor:
+    """Finish the hash of ``mix = pix ^ (seed * C)`` for one call site."""
+    h = (mix + salt * 40503) & _M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, _C_MIX1)
+    h = h ^ (h >> 13)
+    h = _mul32(h, _C_MIX2)
+    h = h ^ (h >> 16)
+    return (h >> 8).to(torch.float32) * (1.0 / 16777216.0)
+
+
+def _hash_uniform(pix, seed, salt: int) -> torch.Tensor:
+    """Counter-hash U[0,1): the JAX kernel's ``_hash_uniform`` (murmur3-style
+    finalizer over pixel id, stream seed and call salt), bit for bit. The
+    JAX version wraps in int32; this one works on uint32 values held in
+    int64."""
+    return _uniform_from_mix(_u32(pix) ^ _mul32(_u32(seed), _C_SEED), salt)
+
+
+def _pack_camera(cam: CameraP) -> torch.Tensor:
+    """[pos3, fwd3, right3, up3, tf*aspect, tf, aperture, focus] as (16,)
+    f32; focus <= 0 resolves to the look-at distance."""
+    forward, right, up = cammod.basis(cam)
+    tf = cammod.tan_half_fov(cam)
+    look = vm.length(cam.target - cam.position)
+    focus = torch.where(cam.focus_dist > 0.0, cam.focus_dist, look)
+    return torch.cat([
+        cam.position, forward, right, up,
+        torch.stack([tf * cam.aspect, tf, cam.aperture, focus]),
+    ]).to(torch.float32)
+
+
+def _prepare(scene: SphereScene, cam: CameraP, n_active, width, height,
+             spp, max_depth, rows, row_offset):
+    """Validate a call and pack the kernel's inputs on the scene's device."""
+    if rows is not None or row_offset != 0:
+        raise NotImplementedError(
+            "rows/row_offset bands are not ported to tpu_rt_torch yet "
+            "(ROADMAP.md: K1-rows)")
+    for name, val in (("width", width), ("height", height), ("spp", spp),
+                      ("max_depth", max_depth)):
+        if int(val) < 1:
+            raise ValueError(f"{name} must be >= 1, got {val}")
+    n_spheres = scene.capacity if n_active is None else max(1, int(n_active))
+    if n_spheres > min(MAX_SPHERES, scene.capacity):
+        raise ValueError(f"n_active={n_spheres} exceeds the scene bucket "
+                         f"({scene.capacity}) or the kernel's {MAX_SPHERES}")
+    dev = scene.device
+    # the kernel reads f32, contiguous, on the scene's device
+    attr = attribute_matrix(scene)[:n_spheres].to(torch.float32).contiguous()
+    cam_packed = _pack_camera(cam).to(dev).contiguous()
+    bg = scene.background.to(torch.float32).contiguous()
+    n_tiles = -(-width * height // TILE)
+    return attr, cam_packed, bg, n_tiles
+
+
+def _finish(img, segs, n_pix, n_tiles, with_stats):
+    """Optionally add the segment count over real pixels: padding lanes
+    trace too, so the total is scaled by n_pix / (n_tiles * TILE) as in the
+    JAX package (exact when n_pix is a multiple of TILE)."""
+    if not with_stats:
+        return img
+    total = segs.sum(dtype=torch.int32).to(torch.float32)
+    scale = _f32(n_pix / (n_tiles * TILE))
+    return img, (total * scale).to(torch.int32)
+
+
+def _normalize3(x, y, z):
+    inv = torch.rsqrt(torch.clamp_min(x * x + y * y + z * z, 1e-20))
+    return x * inv, y * inv, z * inv
+
+
+def _trace_plain(attr, cam, bg, seed, width, height, spp, max_depth, jitter,
+                 n_tiles):
+    """The kernel's computation as whole-tensor PyTorch ops over every lane
+    of every tile, in the JAX kernel's order of operations.
+
+    Returns ((n_pix, 3) f32 image, (n_tiles,) int32 segment counts)."""
+    dev = attr.device
+    f32 = torch.float32
+    n = n_tiles * TILE
+    flat = torch.arange(n, dtype=torch.int64, device=dev)
+    tile = flat // TILE
+    px = (flat % width).to(f32)
+    py = (flat // width).to(f32)
+    inv_w = _f32(1.0 / width)
+    inv_h = _f32(1.0 / height)
+    (cpx, cpy, cpz, fwx, fwy, fwz, rix, riy, riz, upx, upy, upz,
+     tf_aspect, tf) = cam.unbind(0)[:14]
+    bgx, bgy, bgz = bg.unbind(0)
+    rows = [attr[i].unbind(0) for i in range(attr.shape[0])]
+    tile_seed = (tile + (int(seed) & _M32)) & _M32
+
+    acc = [torch.zeros(n, dtype=f32, device=dev) for _ in range(3)]
+    segs = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    for s in range(spp):
+        mix = flat ^ _mul32((tile_seed + s * 7919) & _M32, _C_SEED)
+        salt = 0
+
+        def U():
+            # the JAX kernel's salt: a counter over its unrolled call sites
+            nonlocal salt
+            salt += 1
+            return _uniform_from_mix(mix, salt)
+
+        if jitter:
+            xu = U()
+            xv = U()
+        else:
+            xu = xv = 0.5
+        u = (px + xu) * inv_w
+        v = (py + xv) * inv_h
+        vx = (u - 0.5) * 2.0 * tf_aspect
+        vy = (0.5 - v) * 2.0 * tf
+        dx, dy, dz = _normalize3(fwx + rix * vx + upx * vy,
+                                 fwy + riy * vx + upy * vy,
+                                 fwz + riz * vx + upz * vy)
+        ox, oy, oz = cpx.expand(n), cpy.expand(n), cpz.expand(n)
+        tr = torch.ones(n, dtype=f32, device=dev)
+        tg, tb = tr, tr
+        cr = torch.zeros(n, dtype=f32, device=dev)
+        cg, cb = cr, cr
+        act = torch.ones(n, dtype=torch.bool, device=dev)
+
+        for depth_idx in range(1, max_depth + 1):
+            segs += act.view(n_tiles, TILE).sum(1, dtype=torch.int32)
+
+            best_t = torch.full((n,), _T_MAX, dtype=f32, device=dev)
+            zero = torch.zeros(n, dtype=f32, device=dev)
+            b = [zero] * 12  # cx cy cz inv_r ar ag ab met rgh er eg eb
+            for a in rows:
+                ocx, ocy, ocz = ox - a[0], oy - a[1], oz - a[2]
+                half_b = ocx * dx + ocy * dy + ocz * dz
+                cq = (ocx * ocx + ocy * ocy + ocz * ocz) - a[3] * a[3]
+                # sqrt of a negative discriminant is NaN: every compare on
+                # it is False, so misses fall out without a disc >= 0 test
+                sqrtd = torch.sqrt(half_b * half_b - cq)
+                root0 = -half_b - sqrtd
+                root = torch.where(root0 >= 1e-3, root0, sqrtd - half_b)
+                better = (root >= 1e-3) & (root < best_t) & (a[14] > 0.0)
+                best_t = torch.where(better, root, best_t)
+                b = [torch.where(better, a[c], bc) for c, bc in
+                     zip((0, 1, 2, 14, 4, 5, 6, 7, 8, 9, 10, 11), b)]
+            b_cx, b_cy, b_cz, b_ir, b_ar, b_ag, b_ab, b_met, b_rgh = b[:9]
+            b_er, b_eg, b_eb = b[9:]
+
+            hit = best_t < _T_MAX
+            missf = (act & ~hit).to(f32)
+            cr = cr + missf * tr * bgx
+            cg = cg + missf * tg * bgy
+            cb = cb + missf * tb * bgz
+            act = act & hit
+            emitf = act.to(f32)
+            cr = cr + emitf * tr * b_er
+            cg = cg + emitf * tg * b_eg
+            cb = cb + emitf * tb * b_eb
+
+            if depth_idx > RR_START:
+                xi_rr = U()
+                p = torch.clamp(torch.maximum(tr, torch.maximum(tg, tb)),
+                                0.1, 0.95)
+                act = act & (xi_rr < p)
+                comp = torch.where(act, 1.0 / p, 1.0)
+                tr, tg, tb = tr * comp, tg * comp, tb * comp
+
+            hx, hy, hz = ox + dx * best_t, oy + dy * best_t, oz + dz * best_t
+            nx = (hx - b_cx) * b_ir
+            ny = (hy - b_cy) * b_ir
+            nz = (hz - b_cz) * b_ir
+
+            # uniform point in the unit ball: direction x cbrt radius
+            u1, u2, u3 = U(), U(), U()
+            z = 1.0 - 2.0 * u1
+            r_xy = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+            phi = _TWO_PI * u2
+            r = torch.exp(torch.log(torch.clamp_min(u3, 1e-12)) * _THIRD)
+            bx = r_xy * torch.cos(phi) * r
+            by = r_xy * torch.sin(phi) * r
+            bz = z * r
+
+            d_dot_n = dx * nx + dy * ny + dz * nz
+            mx, my, mz = _normalize3(dx - 2.0 * d_dot_n * nx + bx * b_rgh,
+                                     dy - 2.0 * d_dot_n * ny + by * b_rgh,
+                                     dz - 2.0 * d_dot_n * nz + bz * b_rgh)
+            sgn = torch.where(bx * nx + by * ny + bz * nz > 0.0, 1.0, -1.0)
+            fx, fy, fz = _normalize3(nx + bx * sgn, ny + by * sgn,
+                                     nz + bz * sgn)
+            is_metal = b_met > 0.0
+            tr, tg, tb = tr * b_ar, tg * b_ag, tb * b_ab
+            ox = torch.where(act, hx, ox)
+            oy = torch.where(act, hy, oy)
+            oz = torch.where(act, hz, oz)
+            dx = torch.where(act, torch.where(is_metal, mx, fx), dx)
+            dy = torch.where(act, torch.where(is_metal, my, fy), dy)
+            dz = torch.where(act, torch.where(is_metal, mz, fz), dz)
+
+        acc = [acc[0] + cr, acc[1] + cg, acc[2] + cb]
+
+    inv_spp = _f32(1.0 / spp)
+    img = torch.stack([
+        torch.clamp(torch.sqrt(torch.clamp_min(a * inv_spp, 0.0)), 0.0, 1.0)
+        for a in acc], dim=-1)
+    return img[:width * height], segs
+
+
+def render_megakernel_reference(
+    scene: SphereScene,
+    cam: CameraP,
+    seed: int,
+    *,
+    width: int = 1920,
+    height: int = 1080,
+    spp: int = 4,
+    max_depth: int = 4,
+    jitter: bool = True,
+    n_active: int | None = None,
+    with_stats: bool = False,
+    rows: int | None = None,
+    row_offset: int = 0,
+):
+    """The plain PyTorch version of the megakernel, on any device.
+
+    Same contract as :func:`render_megakernel`: (height, width, 3) f32 in
+    [0, 1], plus the real-pixel segment count when ``with_stats``."""
+    attr, cam_packed, bg, n_tiles = _prepare(
+        scene, cam, n_active, width, height, spp, max_depth, rows, row_offset)
+    img, segs = _trace_plain(attr, cam_packed, bg, seed, width, height, spp,
+                             max_depth, jitter, n_tiles)
+    return _finish(img.reshape(height, width, 3), segs, width * height,
+                   n_tiles, with_stats)
+
+
+def _signed32(x: int) -> int:
+    x = int(x) & _M32
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def render_megakernel(
+    scene: SphereScene,
+    cam: CameraP,
+    seed: int,
+    *,
+    width: int = 1920,
+    height: int = 1080,
+    spp: int = 4,
+    max_depth: int = 4,
+    jitter: bool = True,
+    n_active: int | None = None,
+    with_stats: bool = False,
+    rows: int | None = None,
+    row_offset: int = 0,
+):
+    """Render one batch of ``spp`` samples through the megakernel.
+
+    Returns (height, width, 3) f32 in [0, 1], and with ``with_stats`` also
+    the traced segment count over real pixels (an int32 0-dim tensor).
+    ``seed`` is an int taken modulo 2^32 (int32 wrap, as in the JAX
+    package); ``n_active`` the number of leading scene rows to sweep
+    (default: the whole bucket).
+
+    A scene on the CPU runs the plain version; a scene on a CUDA device
+    launches the CUDA kernel (built on first use) and raises if the launch
+    fails. ``render_megakernel.launches`` counts kernel launches.
+    """
+    dev = scene.device
+    if dev.type == "cpu":
+        return render_megakernel_reference(
+            scene, cam, seed, width=width, height=height, spp=spp,
+            max_depth=max_depth, jitter=jitter, n_active=n_active,
+            with_stats=with_stats, rows=rows, row_offset=row_offset)
+    if dev.type != "cuda":
+        raise ValueError(f"render_megakernel runs on cpu or cuda, not {dev}")
+
+    attr, cam_packed, bg, n_tiles = _prepare(
+        scene, cam, n_active, width, height, spp, max_depth, rows, row_offset)
+    lib = build.load()
+    n_pix = width * height
+    with torch.cuda.device(dev):
+        out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+        segs = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
+        err = lib.tpurt_megakernel_launch(
+            attr.data_ptr(), attr.shape[0], cam_packed.data_ptr(),
+            bg.data_ptr(), _signed32(seed), 0, width, height, spp, max_depth,
+            int(bool(jitter)), n_tiles, out.data_ptr(), n_pix,
+            segs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+    render_megakernel.launches += 1
+    return _finish(out, segs, n_pix, n_tiles, with_stats)
+
+
+render_megakernel.launches = 0

@@ -1,0 +1,1 @@
+"""render layer of tpu_rt_torch (see the package docstring)."""

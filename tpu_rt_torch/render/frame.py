@@ -1,0 +1,141 @@
+"""Frame rendering: engine choice, batch render, tone map, accumulation.
+
+Counterpart of ``tpu_rt/render/frame.py`` for the slice the port carries:
+the megakernel engine. Every configuration the slice does not carry raises
+``NotImplementedError`` naming its ROADMAP.md item; no other engine is ever
+used in its place.
+
+Outputs match the reference contract: a batch is the sample mean,
+sqrt-gamma'd and clamped to [0, 1].
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.types import CameraP, SphereScene
+from ..ops.megakernel import MAX_SPHERES, render_megakernel
+
+ENGINES = ("auto", "megakernel", "lax", "cluster")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to tpu_rt_torch yet (ROADMAP.md: {item})")
+
+
+def select_engine(scene: SphereScene, mode="v2", enable_refraction=False,
+                  gamma=True, mesh=None, engine="auto") -> str:
+    """Resolve the engine ``render`` uses: "megakernel" wherever the JAX
+    package resolves to its fused "pallas" engine (v2, sqrt gamma, at most
+    64 spheres, no mesh). Everything else raises NotImplementedError."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "lax":
+        raise _not_ported("engine='lax'", "Queue 1, lax integrator")
+    if engine == "cluster" or scene.capacity > MAX_SPHERES:
+        raise _not_ported("the cluster engine (more than 64 spheres)", "K2")
+    if mode != "v2":
+        raise _not_ported(f"mode={mode!r}", "Queue 1, lax integrator")
+    if not gamma:
+        raise _not_ported("linear (gamma=False) output", "K1-linear")
+    if mesh is not None:
+        raise _not_ported("triangle meshes", "K1-tri")
+    if enable_refraction:
+        raise _not_ported("refraction", "K1-refract-dof")
+    return "megakernel"
+
+
+def quantize_count(n: int, capacity: int) -> int:
+    """Quantize an active-primitive count to a multiple of 4 (65-256: 16;
+    above: 512), capped at the bucket, as the JAX package's static kernel
+    parameter does, so both sweep the same rows."""
+    if not n:
+        return 1
+    n = int(n)
+    if n > 256:
+        return min(capacity, -512 * (-n // 512))
+    if n > 64:
+        return min(capacity, -16 * (-n // 16))
+    return min(capacity, -4 * (-n // 4))
+
+
+def render(
+    scene: SphereScene,
+    cam: CameraP,
+    seed: int,
+    width: int = 640,
+    height: int = 480,
+    spp: int = 8,
+    max_depth: int = 4,
+    mode: str = "v2",
+    enable_refraction: bool = False,
+    gamma: bool = True,
+    jitter: bool = True,
+    with_stats: bool = False,
+    mesh=None,
+    engine: str = "auto",
+    n_active: int | None = None,
+    enable_dof: bool | None = None,
+    nee: bool = False,
+    stratify: bool = False,
+    tile_mask=None,
+):
+    """Render one batch of ``spp`` samples; returns (height, width, 3) f32
+    on the scene's device (plus the traced segment count with
+    ``with_stats``).
+
+    ``seed`` is the int stream seed (the JAX package derives it from a key
+    or takes it from ``seed=``). ``jitter=False`` shoots pixel centres, the
+    deterministic mode of the golden-image tests. ``n_active``: the
+    quantized active sphere count (:func:`quantize_count`); None pulls
+    ``scene.valid`` to the host once.
+    """
+    select_engine(scene, mode, enable_refraction, gamma, mesh, engine)
+    if nee:
+        raise _not_ported("next-event estimation (nee)", "K1-nee-stratify")
+    if stratify:
+        raise _not_ported("stratified sampling", "K1-nee-stratify")
+    if tile_mask is not None:
+        raise _not_ported("tile_mask adaptive sampling", "K1-tile-mask")
+    if enable_dof or (enable_dof is None and float(cam.aperture) > 0.0):
+        raise _not_ported("thin-lens depth of field", "K1-refract-dof")
+    if n_active is None:
+        n_active = quantize_count(int(scene.valid.sum()), scene.capacity)
+    return render_megakernel(
+        scene, cam, seed, width=width, height=height, spp=spp,
+        max_depth=max_depth, jitter=jitter, n_active=n_active,
+        with_stats=with_stats)
+
+
+def tone_map(image: torch.Tensor, exposure: float) -> torch.Tensor:
+    """Reinhard tone map x*e / (1 + x*e), clamped."""
+    image = image * exposure
+    image = image / (1.0 + image)
+    return torch.clamp(image, 0.0, 1.0)
+
+
+def enhance_contrast(image: torch.Tensor) -> torch.Tensor:
+    """Percentile 2-98 contrast stretch.
+
+    ``torch.quantile`` interpolates linearly, as ``jnp.percentile`` does.
+    It takes at most 2^24 elements (5.59 M RGB pixels): 1080p (6.2 M
+    values) fits, 4K UHD (24.9 M values) raises."""
+    q = torch.tensor([0.02, 0.98], dtype=image.dtype, device=image.device)
+    lo, hi = torch.quantile(image.reshape(-1), q)
+    stretched = torch.clamp((image - lo) / torch.clamp_min(hi - lo, 1e-12),
+                            0.0, 1.0)
+    return torch.where(hi > lo, stretched, image)
+
+
+def accumulate(accumulated: torch.Tensor | None, total_samples: int,
+               batch: torch.Tensor, batch_samples: int):
+    """Progressive weighted merge old*w0 + new*w1.
+
+    Exactly the reference's accumulation, including its averaging of
+    post-gamma batches. Returns (accumulator, total samples)."""
+    if accumulated is None or total_samples == 0:
+        return batch, batch_samples
+    total_new = total_samples + batch_samples
+    return (accumulated * (total_samples / total_new)
+            + batch * (batch_samples / total_new)), total_new
