@@ -1,17 +1,27 @@
-"""Run the PyTorch/CUDA port's main render path once on an NVIDIA GPU.
+"""Run the PyTorch/CUDA port's render paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from tpu_rt_torch/csrc, checks it against the
-C++ golden image and against its plain PyTorch version, drives the main
-path (RayTracer.render_device -> accumulate -> display_stack) at the
-interactive settings, checks the 1/sqrt(N) convergence of its means, and
-times the kernel and the plain version. Every phase raises on failure.
+Builds the port's CUDA kernels from tpu_rt_torch/csrc, then for each engine
+checks the kernel against golden images and against its plain PyTorch
+version, drives its main path through the user's entry points with launch
+counts, checks the 1/sqrt(N) convergence of its means, and times it:
 
-The last line of standard output is one JSON object naming the card; the
-line before it holds the card's name and power limit, and the one before
-that the per-kernel JSON summary. Without CUDA, or without the repository
-beside it, the script exits non-zero and prints no result.
+* the megakernel (at most 64 spheres): the demo scene through
+  RayTracer.render_device -> accumulate -> display_stack at 640x480/8spp/d4;
+* the cluster engine (larger sphere scenes): random_spheres(10000, seed=1,
+  spread=30) through the same chain, entered as Scene/Sphere objects, and
+  timed at 1080p/4spp/d4, at 640x480/8spp/d4 and at 100k spheres.
+
+Each kernel must agree with its plain version bit for bit, segment counts
+included. Every phase raises on failure. The last line of standard output
+is one JSON object naming the card; the line before it holds the card's
+name and power limit, and the one before that the per-kernel JSON summary:
+there ``ms`` is the kernel's device time per frame as torch.profiler
+records it, ``frame_ms`` the frame time over chained frames (CUDA events),
+and ``plain_ms`` the plain version's frame time. Without
+CUDA, or without the repository beside it, the script exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -33,6 +43,29 @@ INTERACTIVE = dict(width=640, height=480, spp=8, max_depth=4)
 BENCH = dict(width=1920, height=1080, spp=4, max_depth=4)
 N_ACTIVE = 12  # quantize_count(9, 16): the demo scene's swept rows
 
+# the cluster engine's scenes and camera (the JAX bench's large-scene row)
+BIG = dict(n=10000, seed=1, spread=30.0)
+HUGE = dict(n=100000, seed=1, spread=95.0)
+BIG_CAM = dict(position=(0, 6, 40), target=(0, 0, -18))
+PLAIN_SHAPE = dict(width=256, height=128, spp=4, max_depth=4)
+
+# Bounds: the least time the card could take for a kernel's work, the larger
+# of its bytes over the memory rate and its f32 operations over the f32 rate
+# (one NVIDIA H100 SXM: 3.35 TB/s, 67 TFLOP/s with an FMA counted as 2).
+# The operations are counted from the CUDA sources, one for each add, mul,
+# compare, min/max, sqrt, division or transcendental (the kernels contract
+# no FMA); the hash's integer operations are not counted.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+SPHERE_TEST_OPS = 24  # oc 3, half_b 5, |oc|^2 - r^2 7, disc 2, sqrt, 2 roots,
+                      # 4 compares
+SLAB_TEST_OPS = 26    # flag, 6 sub, 6 mul, 6 min/max, enter 3, exit 3, compare
+RAY_SETUP_OPS = 12    # the walk's 3 safe reciprocals
+SHADE_OPS = 62        # shade_hit without roulette: emission 6, hit point 6,
+                      # normal 6, unit ball 18, scatter 23, throughput 3
+PRIMARY_OPS = 33      # jitter to a unit camera ray
+PIXEL_OPS = 15        # mean, sqrt gamma and clamp of 3 channels
+
 
 def check(ok: bool, what: str):
     if not ok:
@@ -50,15 +83,53 @@ def compare(kernel: torch.Tensor, plain: torch.Tensor) -> dict:
     d = (kernel - plain).abs()
     return {"frac_within_1e-4": float((d <= 1e-4).float().mean()),
             "mean_abs": float(d.mean()), "max_abs": float(d.max()),
-            "mean_diff": float(kernel.mean() - plain.mean())}
+            "mean_diff": float(kernel.mean() - plain.mean()),
+            "n_differ": int((d > 0).sum())}
 
 
-def check_stream(stats: dict, where: str):
-    """Kernel vs plain on the card: nvcc contracts multiply-adds into FMAs,
-    so thresholds (RR, silhouettes, root >= 1e-3) may flip a few paths."""
-    check(stats["frac_within_1e-4"] >= 0.99, f"{where}: {stats}")
-    check(stats["mean_abs"] <= 1e-3, f"{where}: {stats}")
-    check(abs(stats["mean_diff"]) <= 1e-3, f"{where}: {stats}")
+def check_exact(stats: dict, where: str, segs=None):
+    """Kernel vs plain on the card: the kernels contract no FMA
+    (``--fmad=false``) and the plain versions divide where the kernels do,
+    so both must agree bit for bit, and so must their segment counts
+    (``segs``: the two counts) where they are given."""
+    check(stats["n_differ"] == 0, f"{where}: bit for bit: {stats}")
+    if segs is not None:
+        check(int(segs[0]) == int(segs[1]), f"{where}: segments {segs}")
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms, what bounds it) for ``ops`` f32 operations and ``nbytes``
+    bytes moved."""
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def path_ops(segments: int, n_pix: int, spp: int, per_segment: int) -> int:
+    """f32 operations every traced segment needs whatever the data, plus the
+    full shading of the hits at bounces before the last: with roulette only
+    at the last bounce, those are at least segments - rays."""
+    rays = n_pix * spp
+    return (segments * per_segment + max(segments - rays, 0) * SHADE_OPS
+            + rays * PRIMARY_OPS + n_pix * PIXEL_OPS)
+
+
+def kernel_ms(by_kernel: dict, name: str) -> float:
+    return sum(v for k, v in by_kernel.items() if name in k)
+
+
+def device_line(what: str, by_kernel: dict, frame_ms: float,
+                name: str) -> str:
+    if not by_kernel:
+        return (f"{what}: not measured (no device activity recorded by "
+                "torch.profiler)")
+    busy = sum(by_kernel.values())
+    return (f"{what}: device busy {busy:.4f} ms/frame of {frame_ms:.4f} "
+            f"(idle share {1 - busy / frame_ms:.3f}); {name} "
+            f"{kernel_ms(by_kernel, name):.4f} ms, {len(by_kernel)} kernel "
+            "names, top: " + ", ".join(
+                f"{k[:40]} {v:.4f}" for k, v in sorted(
+                    by_kernel.items(), key=lambda kv: -kv[1])[:3]))
 
 
 def main() -> int:
@@ -69,13 +140,18 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     import tpu_rt_torch
-    from tpu_rt_torch.api.compat import RayTracer, batch_seed
+    from tpu_rt_torch.api.compat import (
+        Material, RayTracer, Scene, Sphere, Vector3, batch_seed)
     from tpu_rt_torch.app.run import EXPOSURE, demo_api_scene
+    from tpu_rt_torch.core.scenes import random_spheres
     from tpu_rt_torch.kernels import build
+    from tpu_rt_torch.ops.cluster import (
+        build_clusters, order_clusters, render_cluster,
+        render_cluster_reference)
     from tpu_rt_torch.ops.megakernel import (
         render_megakernel, render_megakernel_reference)
     from tpu_rt_torch.render.display import display_stack
-    from tpu_rt_torch.render.frame import accumulate
+    from tpu_rt_torch.render.frame import accumulate, render
     from tpu_rt_torch.utils.profiling import (
         cuda_frame_ms, device_ms_by_kernel, traced_mrays_per_s)
 
@@ -95,13 +171,14 @@ def main() -> int:
     build.load()
     print(f"[2 build] {lib_path.name} in {time.perf_counter() - t0:.2f} s")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line
+                or "Compiling entry" in line):
             print(f"[2 build] {line.strip()}")
 
     scene = tpu_rt_torch.demo_scene(device=dev)
 
-    def cam_for(w, h):
-        return tpu_rt_torch.make_camera(aspect=w / h, device=dev)
+    def cam_for(w, h, **pose):
+        return tpu_rt_torch.make_camera(aspect=w / h, device=dev, **pose)
 
     # ---- 3. kernel vs the C++ depth-1 golden ----
     gold = np.load(GOLDENS / "ref_depth1_160x120.npy")
@@ -122,16 +199,14 @@ def main() -> int:
         a, seg_a = render_megakernel(scene, cam4, seed, **kw)
         b, seg_b = render_megakernel_reference(scene, cam4, seed, **kw)
         stats = compare(a, b)
-        seg_rel = abs(int(seg_a) - int(seg_b)) / int(seg_b)
         print(f"[4 kernel vs plain] 256x128/4spp/d4 seed {seed}: {stats}, "
               f"segments {int(seg_a)} vs {int(seg_b)}")
-        check_stream(stats, f"256x128 seed {seed}")
-        check(seg_rel <= 0.005, f"segments within 0.5%: {seg_rel}")
+        check_exact(stats, f"256x128 seed {seed}", (seg_a, seg_b))
 
     # ---- 5. main path ----
     rt = RayTracer(seed=0, device=dev)
     rt.set_scene(demo_api_scene())
-    render_megakernel.launches = 0
+    render_megakernel.launches = render_cluster.launches = 0
     acc, total, stack = None, 0, None
     for _ in range(4):
         batch = rt.render_device(INTERACTIVE["width"], INTERACTIVE["height"],
@@ -139,11 +214,13 @@ def main() -> int:
         acc, total = accumulate(acc, total, batch, INTERACTIVE["spp"])
         stack = display_stack(acc, EXPOSURE, as_uint8=True)
     torch.cuda.synchronize(dev)
-    launches = render_megakernel.launches
+    mega_launches = render_megakernel.launches
     print(f"[5 main path] RayTracer.render_device x4 at 640x480/8spp/d4 -> "
           f"accumulate -> display_stack: stack {tuple(stack.shape)} "
-          f"{stack.dtype}; megakernel launches {launches}")
-    check(launches == 4, "the main path launched the megakernel 4 times")
+          f"{stack.dtype}; megakernel launches {mega_launches}, cluster "
+          f"launches {render_cluster.launches}")
+    check(mega_launches == 4, "the main path launched the megakernel 4 times")
+    check(render_cluster.launches == 0, "the demo scene skips the cluster")
     check(tuple(stack.shape) == (2, 480, 640, 3), "stack shape")
     check(stack.dtype == torch.uint8, "uint8 stack")
     check(bool(torch.isfinite(acc).all()), "finite accumulator")
@@ -159,40 +236,46 @@ def main() -> int:
     stack_p = display_stack(acc_p, EXPOSURE, as_uint8=True)
     lsb = (stack.int() - stack_p.int()).abs()
     frac = float((lsb <= 1).float().mean())
-    print(f"[5 main path] vs plain: accumulator {compare(acc, acc_p)}; "
+    stats = compare(acc, acc_p)
+    print(f"[5 main path] vs plain: accumulator {stats}; "
           f"uint8 within 1 LSB {frac:.6f}")
     check(frac >= 0.99, "main path vs plain: uint8 within 1 LSB for 99%")
+    check_exact(stats, "main path accumulator")
 
     # ---- 6. statistics: RMSE of means falls as 1/sqrt(N) ----
     oracle = np.load(GOLDENS / "tpurt_v2lax_mean_64x48_512spp_d4_N4096.npy")
     cam48 = cam_for(64, 48)
     stride = 1 << 16
 
-    def mean_of(n, seed0):
-        acc_m = torch.zeros((48, 64, 3), dtype=torch.float64, device=dev)
-        for i in range(n):
-            acc_m += render_megakernel(scene, cam48, (seed0 + i) * stride,
-                                       width=64, height=48, spp=512,
-                                       max_depth=4, n_active=N_ACTIVE)
-        return (acc_m / n).float().cpu().numpy()
+    def rmse_scaling(frame_fn, seeds, where):
+        def mean_of(n, seed0):
+            acc_m = torch.zeros((48, 64, 3), dtype=torch.float64, device=dev)
+            for i in range(n):
+                acc_m += frame_fn((seed0 + i) * stride)
+            return (acc_m / n).float().cpu().numpy()
 
-    r8 = float(np.sqrt(((mean_of(8, 9000) - oracle) ** 2).mean()))
-    r32 = float(np.sqrt(((mean_of(32, 9600) - oracle) ** 2).mean()))
-    print(f"[6 statistics] RMSE vs lax-v2 N=4096 mean: N=8 {r8:.6f}, "
-          f"N=32 {r32:.6f}, ratio {r8 / r32:.3f}")
-    check(r32 < r8 and 1.4 < r8 / r32 < 2.8 and r32 < 0.012,
-          "1/sqrt(N) scaling")
+        r8 = float(np.sqrt(((mean_of(8, seeds[0]) - oracle) ** 2).mean()))
+        r32 = float(np.sqrt(((mean_of(32, seeds[1]) - oracle) ** 2).mean()))
+        print(f"[{where}] RMSE vs lax-v2 N=4096 mean: N=8 {r8:.6f}, "
+              f"N=32 {r32:.6f}, ratio {r8 / r32:.3f}")
+        check(r32 < r8 and 1.4 < r8 / r32 < 2.8 and r32 < 0.012,
+              f"{where}: 1/sqrt(N) scaling")
+
+    rmse_scaling(lambda seed: render_megakernel(
+        scene, cam48, seed, width=64, height=48, spp=512, max_depth=4,
+        n_active=N_ACTIVE), (9000, 9600), "6 statistics")
 
     # ---- 7. timing: kernel and plain, in turns ----
-    summary = None
+    mega = None
     for name, shape in (("640x480/8spp/d4", INTERACTIVE),
                         ("1080p/4spp/d4", BENCH)):
         cam_t = cam_for(shape["width"], shape["height"])
         kw = dict(n_active=N_ACTIVE, **shape)
         a, segs = render_megakernel(scene, cam_t, 1, with_stats=True, **kw)
-        b = render_megakernel_reference(scene, cam_t, 1, **kw)
+        b, segs_b = render_megakernel_reference(scene, cam_t, 1,
+                                                with_stats=True, **kw)
         stats = compare(a, b)
-        check_stream(stats, name)
+        check_exact(stats, name, (segs, segs_b))
         segs = int(segs)
         fns = {"kernel": lambda i: render_megakernel(scene, cam_t, 100 + i,
                                                      **kw),
@@ -208,30 +291,230 @@ def main() -> int:
               f"{traced_mrays_per_s(segs, ms['kernel']):.1f}, plain "
               f"{traced_mrays_per_s(segs, ms['plain']):.1f}; kernel vs "
               f"plain {stats}")
-        mega = {}
+        dev_ms = {}
         for which in ("kernel", "plain"):
             by_kernel = device_ms_by_kernel(fns[which], 5, device=dev)
-            busy = sum(by_kernel.values())
-            mega[which] = sum(v for k, v in by_kernel.items()
-                              if "megakernel" in k)
-            print(f"[7 device] {name} {which}: " + (
-                f"device busy {busy:.4f} ms/frame of {ms[which]:.4f} "
-                f"(idle share {1 - busy / ms[which]:.3f}); megakernel "
-                f"{mega[which]:.4f} ms, {len(by_kernel)} kernel names, top: "
-                + ", ".join(f"{k[:40]} {v:.4f}" for k, v in sorted(
-                    by_kernel.items(), key=lambda kv: -kv[1])[:3])
-                if by_kernel else "not measured (no device activity "
-                "recorded by torch.profiler)"))
-        if summary is None:  # the interactive shape is the main path's
-            summary = {"name": "megakernel", "route": "cuda",
-                       "source": "tpu_rt_torch/csrc/megakernel.cu",
-                       "replaces": "tpu_rt/ops/pallas_megakernel.py:143",
-                       "launches": launches,
-                       "max_abs_err": stats["max_abs"],
-                       "ms": ms["kernel"], "plain_ms": ms["plain"],
-                       "kernel_device_ms": mega["kernel"]}
+            dev_ms[which] = kernel_ms(by_kernel, "megakernel")
+            print("[7 device] " + device_line(f"{name} {which}", by_kernel,
+                                              ms[which], "megakernel"))
+        n_pix = shape["width"] * shape["height"]
+        ops = path_ops(segs, n_pix, shape["spp"],
+                       N_ACTIVE * SPHERE_TEST_OPS)
+        nbytes = (N_ACTIVE * 16 + 16 + 3) * 4 + n_pix * 12 + (
+            -(-n_pix // 4096)) * 4
+        b_ms, b_by = bound(ops, nbytes)
+        k_ms = dev_ms["kernel"]
+        check(k_ms > 0, f"{name}: torch.profiler recorded the megakernel")
+        print(f"[7 bound] {name}: {ops / 1e9:.3f} G f32 ops, {nbytes} bytes "
+              f"-> bound {b_ms:.4f} ms ({b_by}); kernel {k_ms:.4f} ms, "
+              f"{b_ms / k_ms:.3f} of the bound's rate")
+        if mega is None:  # the interactive shape is the main path's
+            mega = {"name": "megakernel", "route": "cuda",
+                    "source": "tpu_rt_torch/csrc/megakernel.cu",
+                    "replaces": "tpu_rt/ops/pallas_megakernel.py:143",
+                    "launches": mega_launches,
+                    "max_abs_err": stats["max_abs"],
+                    "ms": k_ms, "plain_ms": ms["plain"],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "shape": f"demo scene {name}", "plain_shape": name,
+                    "frame_ms": ms["kernel"]}
 
-    print(json.dumps({"kernels": [summary]}))
+    # ================= the cluster engine (more than 64 spheres) ===========
+    # ---- 8. exactness: depth 1, pixel centres ----
+    s200 = random_spheres(200, seed=3, device=dev)
+    cam8 = cam_for(160, 96, position=(0, 3, 14), target=(0, 0, -6))
+    kw = dict(width=160, height=96, spp=1, max_depth=1, jitter=False,
+              n_active=200)
+    a = render_cluster(s200, cam8, 0, **kw)
+    b = render_cluster_reference(s200, cam8, 0, **kw)
+    d = (a - b).abs().amax(dim=-1)
+    n_off = int((d > 1e-6).sum())
+    print(f"[8 cluster exact] random_spheres(200, seed=3) 160x96 depth 1, "
+          f"pixel centres: {n_off} of {d.numel()} pixels beyond 1e-6 "
+          f"(max abs {float(d.max()):.3g})")
+    check_exact(compare(a, b), "cluster depth 1")
+
+    # ---- 9. kernel vs plain on the 10k scene ----
+    big = random_spheres(BIG["n"], seed=BIG["seed"], spread=BIG["spread"],
+                         device=dev)
+    cam9 = cam_for(PLAIN_SHAPE["width"], PLAIN_SHAPE["height"], **BIG_CAM)
+    cluster_err = 0.0
+    for seed in (7, 2**31 - 2):
+        kw = dict(n_active=BIG["n"], with_stats=True, **PLAIN_SHAPE)
+        a, seg_a = render_cluster(big, cam9, seed, **kw)
+        b, seg_b = render_cluster_reference(big, cam9, seed, **kw)
+        stats = compare(a, b)
+        cluster_err = max(cluster_err, stats["max_abs"])
+        print(f"[9 cluster vs plain] 10k spheres 256x128/4spp/d4 seed "
+              f"{seed}: {stats}, segments {int(seg_a)} vs {int(seg_b)}")
+        check_exact(stats, f"cluster 256x128 seed {seed}", (seg_a, seg_b))
+
+    # ---- 10. main path on 10k spheres entered as Scene/Sphere objects ----
+    host = random_spheres(BIG["n"], seed=BIG["seed"], spread=BIG["spread"],
+                          device="cpu")
+    api_scene = Scene()
+    api_scene.background_color = Vector3(*host.background.tolist())
+    for i in range(BIG["n"]):
+        s = Sphere()
+        s.center = Vector3(*host.center[i].tolist())
+        s.radius = float(host.radius[i])
+        m = Material()
+        m.albedo = Vector3(*host.albedo[i].tolist())
+        m.metallic = float(host.metallic[i])
+        m.roughness = float(host.roughness[i])
+        m.emission = Vector3(*host.emission[i].tolist())
+        s.material = m
+        s.object_id = i
+        api_scene.add_sphere(s)
+    rt = RayTracer(seed=5, device=dev)
+    t0 = time.perf_counter()
+    rt.set_scene(api_scene)
+    torch.cuda.synchronize(dev)
+    set_scene_s = time.perf_counter() - t0
+    cam_api = rt.get_camera()
+    cam_api.position, cam_api.target = (Vector3(*BIG_CAM["position"]),
+                                        Vector3(*BIG_CAM["target"]))
+    rt.set_camera(cam_api)
+    render_megakernel.launches = render_cluster.launches = 0
+    acc, total, stack = None, 0, None
+    for _ in range(4):
+        batch = rt.render_device(INTERACTIVE["width"], INTERACTIVE["height"],
+                                 INTERACTIVE["spp"], INTERACTIVE["max_depth"])
+        acc, total = accumulate(acc, total, batch, INTERACTIVE["spp"])
+        stack = display_stack(acc, EXPOSURE, as_uint8=True)
+    torch.cuda.synchronize(dev)
+    cluster_launches = render_cluster.launches
+    print(f"[10 cluster main path] RayTracer.set_scene(10k spheres) "
+          f"{set_scene_s:.3f} s; render_device x4 at 640x480/8spp/d4 -> "
+          f"accumulate -> display_stack: stack {tuple(stack.shape)} "
+          f"{stack.dtype}; cluster launches {cluster_launches}, megakernel "
+          f"launches {render_megakernel.launches}")
+    check(cluster_launches == 4, "the main path launched the cluster 4 times")
+    check(render_megakernel.launches == 0, "10k spheres skip the megakernel")
+    check(tuple(stack.shape) == (2, 480, 640, 3), "stack shape")
+    check(stack.dtype == torch.uint8, "uint8 stack")
+    check(bool(torch.isfinite(acc).all()), "finite accumulator")
+    check(int(stack.max()) - int(stack.min()) > 64, "nonblank image")
+    cam_main = rt.camera.to_params(dev)
+    # the plain chain builds its own tables from the tracer's snapshot
+    tables = order_clusters(build_clusters(rt._scene_arrays,
+                                           n_active=rt._n_active),
+                            cam_main.position)
+    acc_p, total_p = None, 0
+    for f in range(4):
+        b = render_cluster_reference(
+            None, cam_main, batch_seed(5 + 1, f), prebuilt=tables,
+            pre_ordered=True, **INTERACTIVE)
+        acc_p, total_p = accumulate(acc_p, total_p, b, INTERACTIVE["spp"])
+    stack_p = display_stack(acc_p, EXPOSURE, as_uint8=True)
+    lsb = (stack.int() - stack_p.int()).abs()
+    frac = float((lsb <= 1).float().mean())
+    stats = compare(acc, acc_p)
+    print(f"[10 cluster main path] vs plain: accumulator {stats}; uint8 "
+          f"within 1 LSB {frac:.6f}")
+    check(frac >= 0.99, "cluster main path vs plain: 99% within 1 LSB")
+    check_exact(stats, "cluster main path accumulator")
+
+    # ---- 11. statistics: the demo scene through the cluster engine ----
+    pre9 = order_clusters(build_clusters(scene, n_active=9), cam48.position)
+    rmse_scaling(lambda seed: render(
+        scene, cam48, seed, width=64, height=48, spp=512, max_depth=4,
+        engine="cluster", prebuilt=pre9, pre_ordered=True),
+        (11000, 11600), "11 cluster statistics")
+
+    # ---- 12. timing ----
+    def cluster_timing(label, fn, seg_fn, n_pix, spp, tables_):
+        """Frame ms over chained frames, cluster device ms, idle share,
+        segments/frame and traced Mrays/s of ``fn``; returns the kernel's
+        device ms, segments and bound."""
+        frame = statistics.median(cuda_frame_ms(fn, 7, device=dev)
+                                  + cuda_frame_ms(fn, 7, device=dev))
+        by_kernel = device_ms_by_kernel(fn, 5, device=dev)
+        k_ms = kernel_ms(by_kernel, "cluster_kernel")
+        check(k_ms > 0, f"{label}: torch.profiler recorded the cluster kernel")
+        segs = int(seg_fn())
+        per_segment = (tables_.n_global * SPHERE_TEST_OPS + RAY_SETUP_OPS
+                       + tables_.n_ss * SLAB_TEST_OPS)
+        ops = path_ops(segs, n_pix, spp, per_segment)
+        nbytes = (sum(t.numel() * t.element_size() for t in tables_)
+                  + 16 * 4 + n_pix * 12)
+        b_ms, b_by = bound(ops, nbytes)
+        print(f"[12 timing] {label} on {card}: frame {frame:.4f} ms (median "
+              f"of 2x7 chained frames), cluster kernel {k_ms:.4f} ms; "
+              f"{segs} segments/frame; traced Mrays/s frame "
+              f"{traced_mrays_per_s(segs, frame):.1f}, kernel "
+              f"{traced_mrays_per_s(segs, k_ms):.1f}; bound {b_ms:.4f} ms "
+              f"({b_by}; G {tables_.n_global}, S2 {tables_.n_ss}: loose, the "
+              f"walk below the super-supers depends on the data)")
+        print("[12 device] " + device_line(label, by_kernel, frame,
+                                           "cluster_kernel"))
+        return k_ms, frame, b_ms, b_by
+
+    # (a) the JAX bench's large-scene row, tables built and ordered once
+    cam_a = cam_for(BENCH["width"], BENCH["height"], **BIG_CAM)
+    tab_a = order_clusters(build_clusters(big, n_active=BIG["n"]),
+                           cam_a.position)
+    kw_a = dict(prebuilt=tab_a, pre_ordered=True, **BENCH)
+    cluster_timing(
+        "(a) 10k spheres 1080p/4spp/d4",
+        lambda i: render_cluster(None, cam_a, 200 + i, **kw_a),
+        lambda: render_cluster(None, cam_a, 0, with_stats=True, **kw_a)[1],
+        BENCH["width"] * BENCH["height"], BENCH["spp"], tab_a)
+    # (b) the main path at the GUI's settings
+    tab_b = tables
+    k_b, frame_b, bound_b, bound_by_b = cluster_timing(
+        "(b) RayTracer 10k spheres 640x480/8spp/d4",
+        lambda i: rt.render_device(INTERACTIVE["width"],
+                                   INTERACTIVE["height"], INTERACTIVE["spp"],
+                                   INTERACTIVE["max_depth"]),
+        lambda: render_cluster(None, rt.camera.to_params(dev), 0,
+                               prebuilt=tab_b, pre_ordered=True,
+                               with_stats=True, **INTERACTIVE)[1],
+        INTERACTIVE["width"] * INTERACTIVE["height"], INTERACTIVE["spp"],
+        tab_b)
+    # (c) 100k spheres, kernel only
+    huge = random_spheres(HUGE["n"], seed=HUGE["seed"],
+                          spread=HUGE["spread"], device=dev)
+    tab_c = order_clusters(build_clusters(huge, n_active=HUGE["n"]),
+                           cam_a.position)
+    print(f"[12 timing] (c) 100k spheres: K {tab_c.n_clusters}, S "
+          f"{tab_c.n_supers}, S2 {tab_c.n_ss}, attr "
+          f"{tab_c.attr.numel() * 4 / 1e6:.2f} MB")
+    kw_c = dict(prebuilt=tab_c, pre_ordered=True, **BENCH)
+    cluster_timing(
+        "(c) 100k spheres 1080p/4spp/d4",
+        lambda i: render_cluster(None, cam_a, 300 + i, **kw_c),
+        lambda: render_cluster(None, cam_a, 0, with_stats=True, **kw_c)[1],
+        BENCH["width"] * BENCH["height"], BENCH["spp"], tab_c)
+    # the plain version, at 256x128 only: its sweep is O(N) per ray
+    tab_p = order_clusters(build_clusters(big, n_active=BIG["n"]),
+                           cam9.position)
+    kw_p = dict(prebuilt=tab_p, pre_ordered=True, **PLAIN_SHAPE)
+    fns = {"kernel": lambda i: render_cluster(None, cam9, 400 + i, **kw_p),
+           "plain": lambda i: render_cluster_reference(None, cam9, 400 + i,
+                                                       **kw_p)}
+    times = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        times[which] += cuda_frame_ms(fns[which], 3, device=dev)
+    ms_p = {k: statistics.median(v) for k, v in times.items()}
+    print(f"[12 timing] 10k spheres 256x128/4spp/d4 (the plain version's "
+          f"shape: its brute-force sweep is O(N) per ray and would not "
+          f"finish the full sizes in this script's time): kernel "
+          f"{ms_p['kernel']:.4f} ms, plain {ms_p['plain']:.4f} ms (median "
+          f"of 2x3 chained frames each, in turns)")
+
+    cluster = {"name": "cluster", "route": "cuda",
+               "source": "tpu_rt_torch/csrc/cluster.cu",
+               "replaces": "tpu_rt/ops/pallas_cluster.py:567",
+               "launches": cluster_launches, "max_abs_err": cluster_err,
+               "ms": k_b, "plain_ms": ms_p["plain"],
+               "bound_ms": bound_b, "bound_by": bound_by_b,
+               "library_ms": None,
+               "shape": "RayTracer 10k spheres 640x480/8spp/d4",
+               "frame_ms": frame_b, "plain_shape": "10k spheres "
+               "256x128/4spp/d4", "frame_ms_at_plain_shape": ms_p["kernel"]}
+
+    print(json.dumps({"kernels": [mega, cluster]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

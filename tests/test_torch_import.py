@@ -80,13 +80,29 @@ def test_build_without_nvcc_raises():
         build.find_nvcc()
 
 
-def test_library_name_follows_sources_and_flags(monkeypatch):
+def test_library_name_follows_sources_and_flags(monkeypatch, tmp_path):
     first = build.library_path()
     assert first == build.library_path()
     assert first.parent == build.BUILD_DIR
+    assert [s.name for s in build.sources()] == ["cluster.cu",
+                                                 "megakernel.cu"]
+    assert [h.name for h in build.headers()] == ["path_common.cuh"]
+    # a copy of the sources names the same library; a changed header or
+    # source names another, so the next load builds anew
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert build.library_path() == first
+    header = csrc / "path_common.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    assert build.library_path() != first
+    shutil.copy(ROOT / "tpu_rt_torch" / "csrc" / "path_common.cuh", header)
+    assert build.library_path() == first
+    (csrc / "cluster.cu").write_text("// changed\n")
+    assert build.library_path() != first
+    monkeypatch.setattr(build, "CSRC", ROOT / "tpu_rt_torch" / "csrc")
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-DX=1"])
     assert build.library_path() != first
-    assert [s.name for s in build.sources()] == ["megakernel.cu"]
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

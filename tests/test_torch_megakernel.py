@@ -134,9 +134,14 @@ def test_wrapper_rejects_other_devices():
 
 def test_cuda_source_constants_match_python():
     """The kernel cannot run here; its tiling, RR start, table size and
-    hash multipliers must be the ones the plain version uses."""
-    src = open(os.path.join(os.path.dirname(mk.__file__), os.pardir,
-                            "csrc", "megakernel.cu")).read()
+    hash multipliers must be the ones the plain version uses; the build
+    contracts no FMA, so products and sums round as in the plain version.
+    """
+    csrc = os.path.join(os.path.dirname(mk.__file__), os.pardir, "csrc")
+    # the kernel and the header of helpers it shares with the cluster kernel
+    src = "".join(open(os.path.join(csrc, name)).read()
+                  for name in ("megakernel.cu", "path_common.cuh"))
+    assert '#include "path_common.cuh"' in src
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
@@ -151,3 +156,4 @@ def test_cuda_source_constants_match_python():
         assert c - (1 << 32) == signed
     assert not any("fast_math" in f or "fast-math" in f
                    for f in build.NVCC_FLAGS)
+    assert "--fmad=false" in build.NVCC_FLAGS

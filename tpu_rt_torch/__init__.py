@@ -3,8 +3,10 @@
 A port of ``tpu_rt`` that imports torch and never jax. It mirrors the JAX
 package's layout, module for module:
 
-  core/     SoA scene/camera tensors, vector math, pinhole camera
-  ops/      the attribute table and the path-trace megakernel wrapper
+  core/     SoA scene/camera tensors, vector math, pinhole camera, the
+            random-spheres scene
+  ops/      the attribute table, Morton codes, and the wrappers of the
+            path-trace megakernel and the cluster engine
   csrc/     the hand-written CUDA kernels (built on first use)
   kernels/  the nvcc build and ctypes loader
   render/   engine choice, batch render, accumulation, display stack

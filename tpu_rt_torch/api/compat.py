@@ -6,7 +6,7 @@ Counterpart of ``tpu_rt/api/compat.py`` for the slice the port carries:
 ``get_camera``, ``set_camera``, ``move_camera``, ``render`` and
 ``render_device``. Scene edits mutate plain Python objects; ``set_scene``
 snapshots them into tensors on the tracer's device, and ``render_device``
-drives the megakernel there.
+drives the megakernel there, or the cluster engine past 64 spheres.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from ..core import types as _T
 from ..core.types import CameraP
+from ..ops import cluster as _C
 from ..render import frame as _F
 
 
@@ -211,6 +212,10 @@ class RayTracer:
     frame counter folded into the seed, so progressive batches draw fresh
     samples. ``device`` must be usable: a CUDA device without CUDA raises
     here rather than rendering somewhere else.
+
+    A scene that resolves to the cluster engine has its tables built once
+    at ``set_scene`` and ordered once per camera position (keyed by the
+    position's Python floats), so no frame rebuilds or reorders them.
     """
 
     def __init__(self, seed: int = 0, *, device="cuda"):
@@ -229,6 +234,10 @@ class RayTracer:
         # set at set_scene time on the host, so a render pulls nothing back
         self._n_active: int | None = None
         self._last_engine: str | None = None
+        # cluster engine tables: built per snapshot, ordered per position
+        self._clustered: _C.ClusteredScene | None = None
+        self._ordered: _C.ClusteredScene | None = None
+        self._ordered_at: tuple | None = None
 
     def set_scene(self, scene: Scene):
         snap = Scene()
@@ -253,6 +262,10 @@ class RayTracer:
         self._scene_arrays = snap.to_arrays(self.device)
         self._n_active = _F.quantize_count(len(snap.spheres),
                                            self._scene_arrays.capacity)
+        self._clustered = self._ordered = self._ordered_at = None
+        if snap.spheres and _F.select_engine(self._scene_arrays) == "cluster":
+            self._clustered = _C.build_clusters(self._scene_arrays,
+                                                n_active=self._n_active)
 
     def get_camera(self) -> Camera:
         return self.camera.copy()
@@ -281,8 +294,18 @@ class RayTracer:
         seed = batch_seed(self._seed_base, self._frame)
         self._frame += 1
         self._last_engine = _F.select_engine(self._scene_arrays)
+        cam = self.camera.to_params(self.device)
+        kw = {}
+        if self._last_engine == "cluster":
+            pos = self.camera.position
+            at = (pos.x, pos.y, pos.z)
+            if at != self._ordered_at:
+                self._ordered = _C.order_clusters(self._clustered,
+                                                  cam.position)
+                self._ordered_at = at
+            kw = dict(prebuilt=self._ordered, pre_ordered=True)
         return _F.render(
-            self._scene_arrays, self.camera.to_params(self.device), seed,
-            width=width, height=height, spp=samples_per_pixel,
-            max_depth=max_depth, n_active=self._n_active,
-            enable_dof=float(self.camera.aperture) > 0.0)
+            self._scene_arrays, cam, seed, width=width, height=height,
+            spp=samples_per_pixel, max_depth=max_depth,
+            n_active=self._n_active,
+            enable_dof=float(self.camera.aperture) > 0.0, **kw)

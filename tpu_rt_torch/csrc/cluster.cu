@@ -1,0 +1,289 @@
+// Cluster-engine path tracer for large sphere scenes, NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel built by tpu_rt/ops/pallas_cluster.py:567
+// _make_kernel (launched by render_cluster) for sphere scenes: the v2
+// estimator, pixel jitter or pixel centres, sqrt gamma and clamp, per-tile
+// traced segment counts, and the implicit 3-level Morton hierarchy of
+// tpu_rt_torch/ops/cluster.py:build_clusters (super-supers -> supers of 8 ->
+// clusters of C spheres, plus G "global" spheres swept for every ray).
+// Randomness is the JAX kernel's interpret-mode counter hash, drawn in the
+// same order over the same 32 x 128 screen blocks (stream id
+// pyi * width + pxi over the padded grid, seed + tile * spp + s), so the
+// kernel can be held stream for stream against the plain PyTorch version.
+//
+// What bounds it: instruction issue of a divergent per-ray walk. Per bounce
+// every ray tests the G globals and the S2 super-super boxes; what it tests
+// beyond that depends on the scene and the ray (crossed supers x 8 child
+// boxes, crossed clusters x C spheres). The tables are small (10k spheres:
+// 0.9 MB; 100k: 7.4 MB) and stay in L2; device-memory traffic is the
+// 12 B/pixel colour store. At frames of a few waves of blocks, the slowest
+// blocks (rays that cross the most clusters) set the time, since each
+// thread loops over all of its pixel's samples.
+//
+// What the design does about it, simply:
+//   * one thread per lane of the padded screen-block grid; samples and
+//     bounces loop inside the thread, and a dead path leaves the loop;
+//   * a stackless walk: for each super-super whose box the ray crosses
+//     (slab test bounded by the ray's running best t, AND the box's
+//     validity flag), each crossed super, each crossed cluster (box from the
+//     last row of the cluster's block), sweep its C spheres. Visiting in
+//     storage order (near to far, from order_clusters) lets early hits prune
+//     later boxes, and resolves ties as the TPU kernel does;
+//   * a block is a 16 x 16 pixel patch and a warp an 8 x 4 patch of one
+//     screen block, so the rays of a warp cross mostly the same boxes and
+//     read the same table words (broadcast loads);
+//   * globals, camera and background in shared memory; the tables read-only
+//     from device memory through the read-only cache; the winner is kept as
+//     a pointer to its packed row and unpacked (bf16 pairs: << 16 and
+//     & 0xFFFF0000) once, after the walk;
+//   * segment counts: one integer atomic per block into its tile's slot.
+//
+// Not done here, and left to later work: warp-cooperative traversal (one
+// box or sphere per lane), and staging cluster blocks into shared memory
+// with cp.async or TMA.
+
+#include "path_common.cuh"
+
+namespace {
+
+constexpr int kSublanes = 32;  // rows of a screen block
+constexpr int kLanes = 128;    // columns of a screen block
+constexpr int kBlock = 256;    // a 16 x 16 patch; 16 blocks per screen block
+constexpr int kFanout = 8;
+constexpr int kMaxGlobal = 64;
+constexpr int kCols = 16;      // words of a packed sphere row
+
+struct Ray {
+  float ox, oy, oz;
+  float ix, iy, iz;  // 1 / direction, with |d| clamped to >= 1e-20
+};
+
+__device__ __forceinline__ float safe_inv(float d) {
+  return 1.0f / (fabsf(d) > 1e-20f ? d : (d >= 0.f ? 1e-20f : -1e-20f));
+}
+
+// Slab test of the box at b = [lo xyz, hi xyz, flag] against one ray,
+// bounded by [1e-3, best_t] (pallas_cluster.py slab6); an empty box (flag 0,
+// inverted bounds) is never crossed.
+__device__ __forceinline__ bool crosses(const float* __restrict__ b,
+                                        const Ray& r, float best_t) {
+  if (!(__ldg(b + 6) > 0.f)) return false;
+  const float tx0 = (__ldg(b + 0) - r.ox) * r.ix;
+  const float tx1 = (__ldg(b + 3) - r.ox) * r.ix;
+  const float ty0 = (__ldg(b + 1) - r.oy) * r.iy;
+  const float ty1 = (__ldg(b + 4) - r.oy) * r.iy;
+  const float tz0 = (__ldg(b + 2) - r.oz) * r.iz;
+  const float tz1 = (__ldg(b + 5) - r.oz) * r.iz;
+  const float enter = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                            fmaxf(fminf(tz0, tz1), 1e-3f));
+  const float exit = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                           fminf(fmaxf(tz0, tz1), best_t));
+  return exit >= enter;
+}
+
+template <bool kReadOnly>
+__device__ __forceinline__ float word(const int* p) {
+  if constexpr (kReadOnly) return __int_as_float(__ldg(p));
+  return __int_as_float(*p);
+}
+
+// Sphere test of the packed row at ``row`` (word f at row[f * stride]):
+// the NaN-propagating root select and the inv_r > 0 validity test. A
+// strictly nearer root replaces the winner, so the first of equal roots
+// in visit order wins.
+template <bool kReadOnly>
+__device__ __forceinline__ void test_sphere(const int* row, int stride,
+                                            const Path& p, float& best_t,
+                                            const int*& best_row,
+                                            int& best_stride) {
+  const float ocx = p.ox - word<kReadOnly>(row);
+  const float ocy = p.oy - word<kReadOnly>(row + stride);
+  const float ocz = p.oz - word<kReadOnly>(row + 2 * stride);
+  const float rad = word<kReadOnly>(row + 3 * stride);
+  const float half_b = ocx * p.dx + ocy * p.dy + ocz * p.dz;
+  const float cq = (ocx * ocx + ocy * ocy + ocz * ocz) - rad * rad;
+  // sqrt of a negative discriminant is NaN and fails every compare
+  const float sqrtd = sqrtf(half_b * half_b - cq);
+  const float root0 = -half_b - sqrtd;
+  const float root = root0 >= 1e-3f ? root0 : sqrtd - half_b;
+  if (root >= 1e-3f && root < best_t &&
+      word<kReadOnly>(row + 4 * stride) > 0.f) {
+    best_t = root;
+    best_row = row;
+    best_stride = stride;
+  }
+}
+
+__global__ void __launch_bounds__(kBlock)
+cluster_kernel(const int* __restrict__ glob_g, int n_global,
+               const float* __restrict__ ss_boxes, int n_ss,
+               const float* __restrict__ super_boxes,
+               const int* __restrict__ attr, int C,
+               const float* __restrict__ cam_g, const float* __restrict__ bg_g,
+               uint32_t seed, int width, int height, int blocks_x,
+               float inv_w, float inv_h, int spp, float inv_spp,
+               int max_depth, int jitter, float* __restrict__ out,
+               int* __restrict__ segs) {
+  __shared__ int glob[kMaxGlobal * kCols];
+  __shared__ float cam[16];
+  __shared__ float bg[3];
+
+  for (int i = threadIdx.x; i < n_global * kCols; i += kBlock)
+    glob[i] = glob_g[i];
+  if (threadIdx.x < 16) cam[threadIdx.x] = cam_g[threadIdx.x];
+  if (threadIdx.x < 3) bg[threadIdx.x] = bg_g[threadIdx.x];
+  __syncthreads();
+
+  // thread -> (tile, sub, lane): block b of a tile covers rows
+  // (b / 8) * 16 + [0, 16) and lanes (b % 8) * 16 + [0, 16); warp w of the
+  // block rows (w / 2) * 4 + [0, 4) and lanes (w % 2) * 8 + [0, 8)
+  const int tile = blockIdx.x / 16;
+  const int patch = blockIdx.x % 16;
+  const int warp = threadIdx.x >> 5;
+  const int i = threadIdx.x & 31;
+  const int sub = (patch / 8) * 16 + (warp / 2) * 4 + i / 8;
+  const int lane = (patch % 8) * 16 + (warp % 2) * 8 + i % 8;
+  const int pxi = (tile % blocks_x) * kLanes + lane;
+  const int pyi = (tile / blocks_x) * kSublanes + sub;
+  const uint32_t flat = (uint32_t)pyi * (uint32_t)width + (uint32_t)pxi;
+  const float px = (float)pxi;
+  const float py = (float)pyi;
+
+  const int block_words = (C * kCols / kLanes + 1) * kLanes;
+  const int box_word = C * kCols;  // the cluster box: first word of the last row
+
+  const float cpx = cam[0], cpy = cam[1], cpz = cam[2];
+  const float fwx = cam[3], fwy = cam[4], fwz = cam[5];
+  const float rix = cam[6], riy = cam[7], riz = cam[8];
+  const float upx = cam[9], upy = cam[10], upz = cam[11];
+  const float tf_aspect = cam[12], tf = cam[13];
+
+  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  int seg_count = 0;
+
+  for (int s = 0; s < spp; ++s) {
+    // per-tile, per-sample stream seed (int32 wrap in the JAX kernel)
+    const uint32_t seed_s = seed + (uint32_t)tile * (uint32_t)spp + (uint32_t)s;
+    const uint32_t pix_mix = flat ^ (seed_s * 2654435769u);
+
+    float xu = 0.5f, xv = 0.5f;
+    if (jitter) {
+      xu = hash_uniform(pix_mix, 1u);
+      xv = hash_uniform(pix_mix, 2u);
+    }
+    const float u = (px + xu) * inv_w;
+    const float v = (py + xv) * inv_h;
+    const float vx = (u - 0.5f) * 2.0f * tf_aspect;
+    const float vy = (0.5f - v) * 2.0f * tf;
+    const float dx = fwx + rix * vx + upx * vy;
+    const float dy = fwy + riy * vx + upy * vy;
+    const float dz = fwz + riz * vx + upz * vy;
+    const float inv = inv_len(dx, dy, dz);
+    Path p{cpx, cpy, cpz, dx * inv, dy * inv, dz * inv,
+           1.f, 1.f, 1.f, 0.f, 0.f, 0.f};
+
+    for (int k = 1; k <= max_depth; ++k) {
+      ++seg_count;  // only live paths reach this point
+
+      float best_t = kTMax;
+      const int* best_row = nullptr;
+      int best_stride = 1;
+      // ---- globals: dense sweep from shared memory ----
+      for (int g = 0; g < n_global; ++g)
+        test_sphere<false>(glob + g * kCols, 1, p, best_t, best_row,
+                           best_stride);
+
+      // ---- the hierarchy, in storage order, with no stack ----
+      const Ray r{p.ox, p.oy, p.oz, safe_inv(p.dx), safe_inv(p.dy),
+                  safe_inv(p.dz)};
+      for (int a = 0; a < n_ss; ++a) {
+        if (!crosses(ss_boxes + a * 8, r, best_t)) continue;
+        for (int sp = a * kFanout; sp < (a + 1) * kFanout; ++sp) {
+          if (!crosses(super_boxes + sp * 8, r, best_t)) continue;
+          for (int c = sp * kFanout; c < (sp + 1) * kFanout; ++c) {
+            const int* blk = attr + (size_t)c * block_words;
+            if (!crosses(reinterpret_cast<const float*>(blk + box_word), r,
+                         best_t))
+              continue;
+            for (int j = 0; j < C; ++j)
+              test_sphere<true>(blk + j, C, p, best_t, best_row,
+                                best_stride);
+          }
+        }
+      }
+
+      if (best_row == nullptr) {  // miss: background, path ends
+        p.cr = p.cr + p.tr * bg[0];
+        p.cg = p.cg + p.tg * bg[1];
+        p.cb = p.cb + p.tb * bg[2];
+        break;
+      }
+      // unpack the winner's packed row (generic loads: shared or global)
+      const int ws = best_stride;
+      const uint32_t p0 = (uint32_t)best_row[5 * ws];
+      const uint32_t p1 = (uint32_t)best_row[6 * ws];
+      const uint32_t p2 = (uint32_t)best_row[7 * ws];
+      const uint32_t p3 = (uint32_t)best_row[8 * ws];
+      const uint32_t p4 = (uint32_t)best_row[9 * ws];
+      const Surface surf{
+          __int_as_float(best_row[0]), __int_as_float(best_row[ws]),
+          __int_as_float(best_row[2 * ws]), __int_as_float(best_row[4 * ws]),
+          __uint_as_float(p0 << 16), __uint_as_float(p0 & 0xFFFF0000u),
+          __uint_as_float(p1 << 16), __uint_as_float(p1 & 0xFFFF0000u),
+          __uint_as_float(p2 << 16),
+          __uint_as_float(p3 << 16), __uint_as_float(p3 & 0xFFFF0000u),
+          __uint_as_float(p4 << 16)};
+      if (!shade_hit(p, surf, best_t, k, pix_mix, bounce_salt(jitter, k)))
+        break;
+    }
+    acc_r += p.cr;
+    acc_g += p.cg;
+    acc_b += p.cb;
+  }
+
+  if (pxi < width && pyi < height) {
+    float* o = out + ((size_t)pyi * width + pxi) * 3;
+    o[0] = fminf(fmaxf(sqrtf(fmaxf(acc_r * inv_spp, 0.f)), 0.f), 1.f);
+    o[1] = fminf(fmaxf(sqrtf(fmaxf(acc_g * inv_spp, 0.f)), 0.f), 1.f);
+    o[2] = fminf(fmaxf(sqrtf(fmaxf(acc_b * inv_spp, 0.f)), 0.f), 1.f);
+  }
+
+  // ---- per-tile segment count: one atomic per block ----
+  add_block_count<kBlock>(seg_count, segs, tile);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the cluster kernel on `stream`. `glob` is (n_global, 16) int32
+// words, `ss_boxes` (n_ss, 8) and `super_boxes` (8 n_ss, 8) f32, `attr`
+// (64 n_ss, C/8 + 1, 128) int32 words, `cam` (16,) and `bg` (3,) f32, all on
+// the device. `out` is (height, width, 3) f32; `segs` (n_tiles,) int32,
+// zeroed by the caller, with n_tiles = ceil(width/128) * ceil(height/32).
+// Allocates nothing and does not synchronise. Returns cudaGetLastError() of
+// the launch.
+int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
+                         int n_ss, const float* super_boxes, const int* attr,
+                         int cluster_size, const float* cam, const float* bg,
+                         int seed, int width, int height, int spp,
+                         int max_depth, int jitter, float* out, int* segs,
+                         void* stream) {
+  if (n_global < 0 || n_global > kMaxGlobal || n_ss < 1 ||
+      cluster_size < 8 || cluster_size % 8 != 0 || width < 1 || height < 1 ||
+      spp < 1 || max_depth < 1)
+    return (int)cudaErrorInvalidValue;
+  const int blocks_x = (width + kLanes - 1) / kLanes;
+  const int blocks_y = (height + kSublanes - 1) / kSublanes;
+  const float inv_w = (float)(1.0 / (double)width);
+  const float inv_h = (float)(1.0 / (double)height);
+  const float inv_spp = (float)(1.0 / (double)spp);
+  const int blocks = blocks_x * blocks_y * (kTile / kBlock);
+  cluster_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+      glob, n_global, ss_boxes, n_ss, super_boxes, attr, cluster_size, cam,
+      bg, (uint32_t)seed, width, height, blocks_x, inv_w, inv_h, spp, inv_spp,
+      max_depth, jitter, out, segs);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -36,37 +36,13 @@
 // Build without fast-math: the root selection relies on IEEE compares with
 // the NaN of sqrt(negative) being false.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "path_common.cuh"
 
 namespace {
 
-constexpr int kTile = 4096;  // rays per TPU tile: 32 sublanes x 128 lanes
 constexpr int kBlock = 256;  // threads per block; divides kTile
 constexpr int kMaxSpheres = 64;
 constexpr int kCols = 16;    // attribute columns (ops/intersect.py)
-constexpr int kRRStart = 3;  // Russian roulette after bounce 3
-constexpr float kTMax = 1e10f;
-constexpr float kTwoPi = 6.2831853071795864f;
-
-// Counter hash U[0,1): tpu_rt/ops/pallas_megakernel.py:_hash_uniform in
-// uint32 arithmetic (the JAX version wraps int32; signed overflow is UB in
-// C++, unsigned wrap is not). The multipliers are the int32 constants
-// -1640531527, -2048144789, -1028477387 read as uint32.
-__device__ __forceinline__ float hash_uniform(uint32_t pix_mix, uint32_t salt) {
-  uint32_t h = pix_mix + salt * 40503u;
-  h ^= h >> 16;
-  h *= 2246822507u;
-  h ^= h >> 13;
-  h *= 3266489909u;
-  h ^= h >> 16;
-  return (float)(h >> 8) * (1.0f / 16777216.0f);
-}
-
-__device__ __forceinline__ float inv_len(float x, float y, float z) {
-  // lax.rsqrt(max(., 1e-20)); 1/sqrt keeps the rounding of the CPU versions
-  return 1.0f / sqrtf(fmaxf(x * x + y * y + z * z, 1e-20f));
-}
 
 __global__ void __launch_bounds__(kBlock)
 megakernel(const float* __restrict__ attr_g, int n_spheres,
@@ -77,7 +53,6 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
   __shared__ float attr[kMaxSpheres * kCols];
   __shared__ float cam[16];
   __shared__ float bg[3];
-  __shared__ int warp_segs[kBlock / 32];
 
   for (int i = threadIdx.x; i < n_spheres * kCols; i += kBlock)
     attr[i] = attr_g[i];
@@ -105,10 +80,6 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
   for (int s = 0; s < spp; ++s) {
     const uint32_t pix_mix =
         flat ^ ((tile_seed + (uint32_t)s * 7919u) * 2654435769u);
-    // Salts follow the JAX kernel's call-site counter over its unrolled
-    // trace: jitter draws 1, 2; bounce k draws 3 ball salts, plus one RR
-    // salt first when k > kRRStart. Derived from k, never carried.
-    const uint32_t salt0 = jitter ? 2u : 0u;
 
     float xu = 0.5f, xv = 0.5f;
     if (jitter) {
@@ -122,28 +93,22 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
     float dx = fwx + rix * vx + upx * vy;
     float dy = fwy + riy * vx + upy * vy;
     float dz = fwz + riz * vx + upz * vy;
-    {
-      const float inv = inv_len(dx, dy, dz);
-      dx *= inv; dy *= inv; dz *= inv;
-    }
-    float ox = cpx, oy = cpy, oz = cpz;
-    float tr = 1.f, tg = 1.f, tb = 1.f;
-    float cr = 0.f, cg = 0.f, cb = 0.f;
+    const float inv = inv_len(dx, dy, dz);
+    Path p{cpx, cpy, cpz, dx * inv, dy * inv, dz * inv,
+           1.f, 1.f, 1.f, 0.f, 0.f, 0.f};
 
     for (int k = 1; k <= max_depth; ++k) {
       ++seg_count;  // only live paths reach this point
-      const int rr_before = k - 1 > kRRStart ? k - 1 - kRRStart : 0;
-      uint32_t salt = salt0 + 3u * (uint32_t)(k - 1) + (uint32_t)rr_before;
 
       // ---- sweep all spheres; padding rows have inv_radius 0 ----
       float best_t = kTMax;
       int best = -1;
       for (int n = 0; n < n_spheres; ++n) {
         const float* a = attr + n * kCols;
-        const float ocx = ox - a[0];
-        const float ocy = oy - a[1];
-        const float ocz = oz - a[2];
-        const float half_b = ocx * dx + ocy * dy + ocz * dz;
+        const float ocx = p.ox - a[0];
+        const float ocy = p.oy - a[1];
+        const float ocz = p.oz - a[2];
+        const float half_b = ocx * p.dx + ocy * p.dy + ocz * p.dz;
         const float cq = (ocx * ocx + ocy * ocy + ocz * ocz) - a[3] * a[3];
         // sqrt of a negative discriminant is NaN and fails every compare
         const float sqrtd = sqrtf(half_b * half_b - cq);
@@ -156,72 +121,21 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
       }
 
       if (best < 0) {  // miss: background, path ends
-        cr = cr + tr * bg[0];
-        cg = cg + tg * bg[1];
-        cb = cb + tb * bg[2];
+        p.cr = p.cr + p.tr * bg[0];
+        p.cg = p.cg + p.tg * bg[1];
+        p.cb = p.cb + p.tb * bg[2];
         break;
       }
+      // the winner's material is read from shared memory after the sweep
       const float* w = attr + best * kCols;
-      cr = cr + tr * w[9];
-      cg = cg + tg * w[10];
-      cb = cb + tb * w[11];
-
-      // ---- Russian roulette ----
-      if (k > kRRStart) {
-        const float xi = hash_uniform(pix_mix, ++salt);
-        const float p =
-            fminf(fmaxf(fmaxf(tr, fmaxf(tg, tb)), 0.1f), 0.95f);
-        if (!(xi < p)) break;
-        const float comp = 1.0f / p;
-        tr *= comp; tg *= comp; tb *= comp;
-      }
-
-      // ---- hit point + outward normal ----
-      const float hx = ox + dx * best_t;
-      const float hy = oy + dy * best_t;
-      const float hz = oz + dz * best_t;
-      const float ir = w[14];
-      const float nx = (hx - w[0]) * ir;
-      const float ny = (hy - w[1]) * ir;
-      const float nz = (hz - w[2]) * ir;
-
-      // ---- scatter: uniform point in the unit ball ----
-      const float u1 = hash_uniform(pix_mix, salt + 1u);
-      const float u2 = hash_uniform(pix_mix, salt + 2u);
-      const float u3 = hash_uniform(pix_mix, salt + 3u);
-      const float bz0 = 1.0f - 2.0f * u1;
-      const float r_xy = sqrtf(fmaxf(1.0f - bz0 * bz0, 0.0f));
-      const float phi = kTwoPi * u2;
-      const float rad = expf(logf(fmaxf(u3, 1e-12f)) * (1.0f / 3.0f));
-      const float bx = r_xy * cosf(phi) * rad;
-      const float by = r_xy * sinf(phi) * rad;
-      const float bz = bz0 * rad;
-
-      float ndx, ndy, ndz;
-      if (w[7] > 0.f) {  // metal: mirror + roughness jitter
-        const float d_dot_n = dx * nx + dy * ny + dz * nz;
-        const float rgh = w[8];
-        const float mx = dx - 2.0f * d_dot_n * nx + bx * rgh;
-        const float my = dy - 2.0f * d_dot_n * ny + by * rgh;
-        const float mz = dz - 2.0f * d_dot_n * nz + bz * rgh;
-        const float inv = inv_len(mx, my, mz);
-        ndx = mx * inv; ndy = my * inv; ndz = mz * inv;
-      } else {  // diffuse: normal + ball point flipped into the hemisphere
-        const float sgn = (bx * nx + by * ny + bz * nz) > 0.f ? 1.f : -1.f;
-        const float fx = nx + bx * sgn;
-        const float fy = ny + by * sgn;
-        const float fz = nz + bz * sgn;
-        const float inv = inv_len(fx, fy, fz);
-        ndx = fx * inv; ndy = fy * inv; ndz = fz * inv;
-      }
-
-      tr *= w[4]; tg *= w[5]; tb *= w[6];
-      ox = hx; oy = hy; oz = hz;
-      dx = ndx; dy = ndy; dz = ndz;
+      const Surface surf{w[0], w[1], w[2], w[14], w[4], w[5], w[6], w[7],
+                         w[8], w[9], w[10], w[11]};
+      if (!shade_hit(p, surf, best_t, k, pix_mix, bounce_salt(jitter, k)))
+        break;
     }
-    acc_r += cr;
-    acc_g += cg;
-    acc_b += cb;
+    acc_r += p.cr;
+    acc_g += p.cg;
+    acc_b += p.cb;
   }
 
   if (gid < n_pix) {
@@ -231,17 +145,8 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
     o[2] = fminf(fmaxf(sqrtf(fmaxf(acc_b * inv_spp, 0.f)), 0.f), 1.f);
   }
 
-  // ---- per-tile segment count: warp sums, block sum, one atomic ----
-  for (int off = 16; off > 0; off >>= 1)
-    seg_count += __shfl_down_sync(0xffffffffu, seg_count, off);
-  if ((threadIdx.x & 31) == 0) warp_segs[threadIdx.x >> 5] = seg_count;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int v = threadIdx.x < kBlock / 32 ? warp_segs[threadIdx.x] : 0;
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (threadIdx.x == 0) atomicAdd(segs + tile, v);
-  }
+  // ---- per-tile segment count: one atomic per block ----
+  add_block_count<kBlock>(seg_count, segs, tile);
 }
 
 }  // namespace

@@ -1,0 +1,149 @@
+// Device helpers shared by the path-trace kernels (megakernel.cu,
+// cluster.cu): the JAX kernels' interpret-mode counter hash, the v2 bounce
+// after a nearest hit (emission, Russian roulette, metal or diffuse
+// scatter), and the salt order both kernels draw in.
+//
+// Build without fast-math: the sphere test's root selection relies on IEEE
+// compares with the NaN of sqrt(negative) being false. Build without FMA
+// contraction (--fmad=false, kernels/build.py), so each product and sum
+// rounds as in the plain PyTorch versions.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 4096;  // rays per TPU tile: 32 sublanes x 128 lanes
+constexpr int kRRStart = 3;  // Russian roulette after bounce 3
+constexpr float kTMax = 1e10f;
+constexpr float kTwoPi = 6.2831853071795864f;
+
+// Counter hash U[0,1): tpu_rt/ops/pallas_megakernel.py:_hash_uniform in
+// uint32 arithmetic (the JAX version wraps int32; signed overflow is UB in
+// C++, unsigned wrap is not). The multipliers are the int32 constants
+// -1640531527, -2048144789, -1028477387 read as uint32. ``pix_mix`` is
+// pix ^ (seed * 2654435769u).
+__device__ __forceinline__ float hash_uniform(uint32_t pix_mix, uint32_t salt) {
+  uint32_t h = pix_mix + salt * 40503u;
+  h ^= h >> 16;
+  h *= 2246822507u;
+  h ^= h >> 13;
+  h *= 3266489909u;
+  h ^= h >> 16;
+  return (float)(h >> 8) * (1.0f / 16777216.0f);
+}
+
+__device__ __forceinline__ float inv_len(float x, float y, float z) {
+  // lax.rsqrt(max(., 1e-20)); 1/sqrt keeps the rounding of the CPU versions
+  return 1.0f / sqrtf(fmaxf(x * x + y * y + z * z, 1e-20f));
+}
+
+// Salts follow the JAX kernels' call-site counter over their unrolled
+// trace: jitter draws 1, 2; bounce k draws 3 ball salts, plus one RR salt
+// first when k > kRRStart. Returns the salt drawn last before bounce k.
+// Derived from k, never carried, so a path that ends early cannot shift
+// another's stream.
+__device__ __forceinline__ uint32_t bounce_salt(int jitter, int k) {
+  const int rr_before = k - 1 > kRRStart ? k - 1 - kRRStart : 0;
+  return (jitter ? 2u : 0u) + 3u * (uint32_t)(k - 1) + (uint32_t)rr_before;
+}
+
+struct Path {
+  float ox, oy, oz;  // origin
+  float dx, dy, dz;  // unit direction
+  float tr, tg, tb;  // throughput
+  float cr, cg, cb;  // radiance gathered so far
+};
+
+// The winner of a nearest-hit search: centre, 1/radius, shading attributes.
+struct Surface {
+  float cx, cy, cz, ir;
+  float ar, ag, ab, met, rgh;
+  float er, eg, eb;
+};
+
+// Bounce k of a path whose ray hit ``w`` at ``t``: emission, Russian
+// roulette after bounce kRRStart (p = clamp(max throughput, 0.1, 0.95),
+// survivors compensated), then a metal mirror with roughness jitter or a
+// diffuse normal + hemisphere-flipped unit-ball point. Returns false when
+// roulette ends the path.
+__device__ __forceinline__ bool shade_hit(Path& p, const Surface& w, float t,
+                                          int k, uint32_t pix_mix,
+                                          uint32_t salt) {
+  p.cr = p.cr + p.tr * w.er;
+  p.cg = p.cg + p.tg * w.eg;
+  p.cb = p.cb + p.tb * w.eb;
+
+  if (k > kRRStart) {
+    const float xi = hash_uniform(pix_mix, ++salt);
+    const float q = fminf(fmaxf(fmaxf(p.tr, fmaxf(p.tg, p.tb)), 0.1f), 0.95f);
+    if (!(xi < q)) return false;
+    const float comp = 1.0f / q;
+    p.tr *= comp; p.tg *= comp; p.tb *= comp;
+  }
+
+  // hit point + outward normal
+  const float hx = p.ox + p.dx * t;
+  const float hy = p.oy + p.dy * t;
+  const float hz = p.oz + p.dz * t;
+  const float nx = (hx - w.cx) * w.ir;
+  const float ny = (hy - w.cy) * w.ir;
+  const float nz = (hz - w.cz) * w.ir;
+
+  // uniform point in the unit ball: direction x cbrt radius
+  const float u1 = hash_uniform(pix_mix, salt + 1u);
+  const float u2 = hash_uniform(pix_mix, salt + 2u);
+  const float u3 = hash_uniform(pix_mix, salt + 3u);
+  const float bz0 = 1.0f - 2.0f * u1;
+  const float r_xy = sqrtf(fmaxf(1.0f - bz0 * bz0, 0.0f));
+  const float phi = kTwoPi * u2;
+  const float rad = expf(logf(fmaxf(u3, 1e-12f)) * (1.0f / 3.0f));
+  const float bx = r_xy * cosf(phi) * rad;
+  const float by = r_xy * sinf(phi) * rad;
+  const float bz = bz0 * rad;
+
+  float ndx, ndy, ndz;
+  if (w.met > 0.f) {  // metal: mirror + roughness jitter
+    const float d_dot_n = p.dx * nx + p.dy * ny + p.dz * nz;
+    const float mx = p.dx - 2.0f * d_dot_n * nx + bx * w.rgh;
+    const float my = p.dy - 2.0f * d_dot_n * ny + by * w.rgh;
+    const float mz = p.dz - 2.0f * d_dot_n * nz + bz * w.rgh;
+    const float inv = inv_len(mx, my, mz);
+    ndx = mx * inv; ndy = my * inv; ndz = mz * inv;
+  } else {  // diffuse: normal + ball point flipped into the hemisphere
+    const float sgn = (bx * nx + by * ny + bz * nz) > 0.f ? 1.f : -1.f;
+    const float fx = nx + bx * sgn;
+    const float fy = ny + by * sgn;
+    const float fz = nz + bz * sgn;
+    const float inv = inv_len(fx, fy, fz);
+    ndx = fx * inv; ndy = fy * inv; ndz = fz * inv;
+  }
+
+  p.tr *= w.ar; p.tg *= w.ag; p.tb *= w.ab;
+  p.ox = hx; p.oy = hy; p.oz = hz;
+  p.dx = ndx; p.dy = ndy; p.dz = ndz;
+  return true;
+}
+
+// Adds each thread's count into segs[tile] with one atomic per block: warp
+// shuffles, then the first warp sums the warp totals. Every thread of the
+// block must call it. Integer sums, so the result is exact and independent
+// of order.
+template <int kBlock>
+__device__ __forceinline__ void add_block_count(int count, int* segs, int tile) {
+  __shared__ int warp_counts[kBlock / 32];
+  for (int off = 16; off > 0; off >>= 1)
+    count += __shfl_down_sync(0xffffffffu, count, off);
+  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = count;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    int v = threadIdx.x < kBlock / 32 ? warp_counts[threadIdx.x] : 0;
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (threadIdx.x == 0) atomicAdd(segs + tile, v);
+  }
+}
+
+}  // namespace

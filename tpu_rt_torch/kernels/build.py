@@ -1,13 +1,19 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 ``nvcc`` compiles every ``tpu_rt_torch/csrc/*.cu`` into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds).
+with a plain C interface (no PyTorch headers, so a build takes seconds):
+one compiler process per source, all started together, then one link.
 The library lands in ``build/tpu_rt_torch/`` beside the package, named by a
-hash of the sources and flags: a changed source builds anew, an unchanged
-one is reused. The compiler writes to a temporary file that is renamed into
-place, so concurrent processes never load a half-written library.
+hash of the sources, the headers they include (``csrc/*.cuh``) and the
+flags: a changed file builds anew, an unchanged tree is reused. The linker
+writes to a temporary file that is renamed into place, so concurrent
+processes never load a half-written library.
 
-Fast-math is never used: the kernels rely on IEEE NaN compares.
+Fast-math is never used: the kernels rely on IEEE NaN compares. Nor is
+multiply-add contraction (``--fmad=false``): every product and sum rounds
+as in the plain PyTorch versions, so a kernel and its plain version agree
+bit for bit on the card. (Contracted FMAs round hit points differently by
+an ulp, which turns a fraction of a percent of paths at silhouettes.)
 """
 
 from __future__ import annotations
@@ -26,8 +32,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tpu_rt_torch"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-                           "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "--fmad=false", "-Xptxas",
+                           "-v", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +41,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "tpurt_megakernel_launch": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _P, _I, _P, _P],
+    "tpurt_cluster_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -56,16 +64,38 @@ def find_nvcc() -> str:
 
 
 def sources() -> list[Path]:
+    """The compiled sources, one object each."""
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    """The headers the sources include."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtpurt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(procs) -> str:
+    """Wait for every (command, process); raise with the compiler's output
+    if one failed. Returns the collected output."""
+    log, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(log)
 
 
 def build() -> Path:
@@ -76,20 +106,24 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(str(s) for s in sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources()]
+        compiles = []
+        for src, obj in zip(sources(), objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            compiles.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = _run(compiles)
+        lib = Path(tmp) / out.name
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
+               *(str(o) for o in objs)]
+        log += _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))])
+        out.with_suffix(".log").write_text(log)
+        os.replace(lib, out)
     return out
 
 

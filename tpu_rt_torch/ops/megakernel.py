@@ -131,8 +131,78 @@ def _finish(img, segs, n_pix, n_tiles, with_stats):
 
 
 def _normalize3(x, y, z):
-    inv = torch.rsqrt(torch.clamp_min(x * x + y * y + z * z, 1e-20))
+    n2 = torch.clamp_min(x * x + y * y + z * z, 1e-20)
+    # The kernels take 1.0f / sqrtf. torch.rsqrt rounds as that on the CPU
+    # (and as XLA:CPU's rsqrt), but on CUDA it is rsqrtf, up to 2 ulp off,
+    # which turns paths at silhouettes; there the plain version divides.
+    inv = torch.rsqrt(n2) if n2.device.type == "cpu" else 1.0 / torch.sqrt(n2)
     return x * inv, y * inv, z * inv
+
+
+def shade_plain(state, best_t, w, bg, depth_idx, U):
+    """One v2 bounce of the plain versions after the nearest-hit search,
+    in the JAX kernels' order of operations: background on a miss,
+    emission, Russian roulette after bounce RR_START, then the metal or
+    diffuse scatter from one unit-ball draw.
+
+    ``state`` is (ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, act);
+    ``w`` the winner's (cx, cy, cz, inv_r, ar, ag, ab, met, rgh, er, eg,
+    eb) planes; ``U()`` draws the next salt's uniforms. Returns the new
+    state."""
+    ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, act = state
+    b_cx, b_cy, b_cz, b_ir, b_ar, b_ag, b_ab, b_met, b_rgh = w[:9]
+    b_er, b_eg, b_eb = w[9:]
+    bgx, bgy, bgz = bg
+    f32 = torch.float32
+
+    hit = best_t < _T_MAX
+    missf = (act & ~hit).to(f32)
+    cr = cr + missf * tr * bgx
+    cg = cg + missf * tg * bgy
+    cb = cb + missf * tb * bgz
+    act = act & hit
+    emitf = act.to(f32)
+    cr = cr + emitf * tr * b_er
+    cg = cg + emitf * tg * b_eg
+    cb = cb + emitf * tb * b_eb
+
+    if depth_idx > RR_START:
+        xi_rr = U()
+        p = torch.clamp(torch.maximum(tr, torch.maximum(tg, tb)), 0.1, 0.95)
+        act = act & (xi_rr < p)
+        comp = torch.where(act, 1.0 / p, 1.0)
+        tr, tg, tb = tr * comp, tg * comp, tb * comp
+
+    hx, hy, hz = ox + dx * best_t, oy + dy * best_t, oz + dz * best_t
+    nx = (hx - b_cx) * b_ir
+    ny = (hy - b_cy) * b_ir
+    nz = (hz - b_cz) * b_ir
+
+    # uniform point in the unit ball: direction x cbrt radius
+    u1, u2, u3 = U(), U(), U()
+    z = 1.0 - 2.0 * u1
+    r_xy = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = _TWO_PI * u2
+    r = torch.exp(torch.log(torch.clamp_min(u3, 1e-12)) * _THIRD)
+    bx = r_xy * torch.cos(phi) * r
+    by = r_xy * torch.sin(phi) * r
+    bz = z * r
+
+    d_dot_n = dx * nx + dy * ny + dz * nz
+    mx, my, mz = _normalize3(dx - 2.0 * d_dot_n * nx + bx * b_rgh,
+                             dy - 2.0 * d_dot_n * ny + by * b_rgh,
+                             dz - 2.0 * d_dot_n * nz + bz * b_rgh)
+    sgn = torch.where(bx * nx + by * ny + bz * nz > 0.0, 1.0, -1.0)
+    fx, fy, fz = _normalize3(nx + bx * sgn, ny + by * sgn, nz + bz * sgn)
+    is_metal = b_met > 0.0
+    tr, tg, tb = tr * b_ar, tg * b_ag, tb * b_ab
+    ox = torch.where(act, hx, ox)
+    oy = torch.where(act, hy, oy)
+    oz = torch.where(act, hz, oz)
+    dx = torch.where(act, torch.where(is_metal, mx, fx), dx)
+    dy = torch.where(act, torch.where(is_metal, my, fy), dy)
+    dz = torch.where(act, torch.where(is_metal, mz, fz), dz)
+    return ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, act
 
 
 def _trace_plain(attr, cam, bg, seed, width, height, spp, max_depth, jitter,
@@ -206,58 +276,11 @@ def _trace_plain(attr, cam, bg, seed, width, height, spp, max_depth, jitter,
                 best_t = torch.where(better, root, best_t)
                 b = [torch.where(better, a[c], bc) for c, bc in
                      zip((0, 1, 2, 14, 4, 5, 6, 7, 8, 9, 10, 11), b)]
-            b_cx, b_cy, b_cz, b_ir, b_ar, b_ag, b_ab, b_met, b_rgh = b[:9]
-            b_er, b_eg, b_eb = b[9:]
 
-            hit = best_t < _T_MAX
-            missf = (act & ~hit).to(f32)
-            cr = cr + missf * tr * bgx
-            cg = cg + missf * tg * bgy
-            cb = cb + missf * tb * bgz
-            act = act & hit
-            emitf = act.to(f32)
-            cr = cr + emitf * tr * b_er
-            cg = cg + emitf * tg * b_eg
-            cb = cb + emitf * tb * b_eb
-
-            if depth_idx > RR_START:
-                xi_rr = U()
-                p = torch.clamp(torch.maximum(tr, torch.maximum(tg, tb)),
-                                0.1, 0.95)
-                act = act & (xi_rr < p)
-                comp = torch.where(act, 1.0 / p, 1.0)
-                tr, tg, tb = tr * comp, tg * comp, tb * comp
-
-            hx, hy, hz = ox + dx * best_t, oy + dy * best_t, oz + dz * best_t
-            nx = (hx - b_cx) * b_ir
-            ny = (hy - b_cy) * b_ir
-            nz = (hz - b_cz) * b_ir
-
-            # uniform point in the unit ball: direction x cbrt radius
-            u1, u2, u3 = U(), U(), U()
-            z = 1.0 - 2.0 * u1
-            r_xy = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
-            phi = _TWO_PI * u2
-            r = torch.exp(torch.log(torch.clamp_min(u3, 1e-12)) * _THIRD)
-            bx = r_xy * torch.cos(phi) * r
-            by = r_xy * torch.sin(phi) * r
-            bz = z * r
-
-            d_dot_n = dx * nx + dy * ny + dz * nz
-            mx, my, mz = _normalize3(dx - 2.0 * d_dot_n * nx + bx * b_rgh,
-                                     dy - 2.0 * d_dot_n * ny + by * b_rgh,
-                                     dz - 2.0 * d_dot_n * nz + bz * b_rgh)
-            sgn = torch.where(bx * nx + by * ny + bz * nz > 0.0, 1.0, -1.0)
-            fx, fy, fz = _normalize3(nx + bx * sgn, ny + by * sgn,
-                                     nz + bz * sgn)
-            is_metal = b_met > 0.0
-            tr, tg, tb = tr * b_ar, tg * b_ag, tb * b_ab
-            ox = torch.where(act, hx, ox)
-            oy = torch.where(act, hy, oy)
-            oz = torch.where(act, hz, oz)
-            dx = torch.where(act, torch.where(is_metal, mx, fx), dx)
-            dy = torch.where(act, torch.where(is_metal, my, fy), dy)
-            dz = torch.where(act, torch.where(is_metal, mz, fz), dz)
+            (ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb,
+             act) = shade_plain((ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg,
+                                 cb, act), best_t, b, (bgx, bgy, bgz),
+                                depth_idx, U)
 
         acc = [acc[0] + cr, acc[1] + cg, acc[2] + cb]
 

@@ -1,7 +1,8 @@
 """Frame rendering: engine choice, batch render, tone map, accumulation.
 
-Counterpart of ``tpu_rt/render/frame.py`` for the slice the port carries:
-the megakernel engine. Every configuration the slice does not carry raises
+Counterpart of ``tpu_rt/render/frame.py`` for the engines the port
+carries: the megakernel (at most 64 spheres) and the cluster engine (larger
+sphere scenes). Every configuration the port does not carry raises
 ``NotImplementedError`` naming its ROADMAP.md item; no other engine is ever
 used in its place.
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..core.types import CameraP, SphereScene
+from ..ops.cluster import ClusteredScene, render_cluster
 from ..ops.megakernel import MAX_SPHERES, render_megakernel
 
 ENGINES = ("auto", "megakernel", "lax", "cluster")
@@ -26,24 +28,27 @@ def _not_ported(what: str, item: str):
 
 def select_engine(scene: SphereScene, mode="v2", enable_refraction=False,
                   gamma=True, mesh=None, engine="auto") -> str:
-    """Resolve the engine ``render`` uses: "megakernel" wherever the JAX
-    package resolves to its fused "pallas" engine (v2, sqrt gamma, at most
-    64 spheres, no mesh). Everything else raises NotImplementedError."""
+    """Resolve the engine ``render`` uses, as the JAX package does on a
+    TPU: "cluster" when asked for or past the megakernel's 64-sphere
+    bucket, else "megakernel" (its fused "pallas" engine). Configurations
+    neither engine carries yet raise NotImplementedError."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "lax":
         raise _not_ported("engine='lax'", "Queue 1, lax integrator")
-    if engine == "cluster" or scene.capacity > MAX_SPHERES:
-        raise _not_ported("the cluster engine (more than 64 spheres)", "K2")
     if mode != "v2":
         raise _not_ported(f"mode={mode!r}", "Queue 1, lax integrator")
+    cluster = engine == "cluster" or (engine == "auto"
+                                      and scene.capacity > MAX_SPHERES)
+    k = "K2" if cluster else "K1"
     if not gamma:
-        raise _not_ported("linear (gamma=False) output", "K1-linear")
+        raise _not_ported("linear (gamma=False) output", f"{k}-linear")
     if mesh is not None:
-        raise _not_ported("triangle meshes", "K1-tri")
+        raise _not_ported("triangle meshes", f"{k}-tri")
     if enable_refraction:
-        raise _not_ported("refraction", "K1-refract-dof")
-    return "megakernel"
+        raise _not_ported("refraction", f"{k}-refract-dof" if k == "K1"
+                          else "K2-dof-refract")
+    return "cluster" if cluster else "megakernel"
 
 
 def quantize_count(n: int, capacity: int) -> int:
@@ -80,6 +85,8 @@ def render(
     nee: bool = False,
     stratify: bool = False,
     tile_mask=None,
+    prebuilt: ClusteredScene | None = None,
+    pre_ordered: bool = False,
 ):
     """Render one batch of ``spp`` samples; returns (height, width, 3) f32
     on the scene's device (plus the traced segment count with
@@ -89,19 +96,30 @@ def render(
     or takes it from ``seed=``). ``jitter=False`` shoots pixel centres, the
     deterministic mode of the golden-image tests. ``n_active``: the
     quantized active sphere count (:func:`quantize_count`); None pulls
-    ``scene.valid`` to the host once.
+    ``scene.valid`` to the host once. ``prebuilt``/``pre_ordered`` pass the
+    cluster engine tables built once per scene and ordered once per camera
+    position (``ops/cluster.py``); without them the cluster engine builds
+    and orders its tables in every call.
     """
-    select_engine(scene, mode, enable_refraction, gamma, mesh, engine)
+    resolved = select_engine(scene, mode, enable_refraction, gamma, mesh,
+                             engine)
+    k = "K2" if resolved == "cluster" else "K1"
     if nee:
-        raise _not_ported("next-event estimation (nee)", "K1-nee-stratify")
+        raise _not_ported("next-event estimation (nee)", f"{k}-nee-stratify")
     if stratify:
-        raise _not_ported("stratified sampling", "K1-nee-stratify")
+        raise _not_ported("stratified sampling", f"{k}-nee-stratify")
     if tile_mask is not None:
-        raise _not_ported("tile_mask adaptive sampling", "K1-tile-mask")
+        raise _not_ported("tile_mask adaptive sampling", f"{k}-tile-mask")
     if enable_dof or (enable_dof is None and float(cam.aperture) > 0.0):
-        raise _not_ported("thin-lens depth of field", "K1-refract-dof")
-    if n_active is None:
+        raise _not_ported("thin-lens depth of field",
+                          "K1-refract-dof" if k == "K1" else "K2-dof-refract")
+    if n_active is None and prebuilt is None:
         n_active = quantize_count(int(scene.valid.sum()), scene.capacity)
+    if resolved == "cluster":
+        return render_cluster(
+            scene, cam, seed, width=width, height=height, spp=spp,
+            max_depth=max_depth, jitter=jitter, with_stats=with_stats,
+            n_active=n_active, prebuilt=prebuilt, pre_ordered=pre_ordered)
     return render_megakernel(
         scene, cam, seed, width=width, height=height, spp=spp,
         max_depth=max_depth, jitter=jitter, n_active=n_active,

@@ -1,10 +1,11 @@
 """Carry scenes and cameras across from the JAX package.
 
 This system has no weights: its parameters are the scene and camera
-arrays. Both functions take the fields of ``tpu_rt``'s ``SphereScene`` or
-``CameraP`` as numpy arrays, e.g.
+arrays, and for the cluster engine the clustered tables built from them.
+Each function takes the fields of ``tpu_rt``'s ``SphereScene``,
+``CameraP`` or ``ClusteredScene`` as numpy arrays, e.g.
 ``{k: np.asarray(v) for k, v in scene._asdict().items()}``, so the two
-packages can render the very same scene.
+packages can render the very same scene from the very same tables.
 """
 
 from __future__ import annotations
@@ -15,8 +16,12 @@ import numpy as np
 import torch
 
 from ..core.types import CameraP, SphereScene, host_tensor
+from ..ops.cluster import ClusteredScene
 
 _SCENE_DTYPES = {"object_id": torch.int32, "valid": torch.bool}
+# the word tables stay int32 at rest: their bf16-pair words can be f32
+# denormals, which a float conversion could flush
+_CLUSTER_DTYPES = {"glob_attr": torch.int32, "attr": torch.int32}
 
 
 def scene_from_numpy(fields: Mapping[str, np.ndarray], device) -> SphereScene:
@@ -38,4 +43,16 @@ def camera_from_numpy(fields: Mapping[str, np.ndarray], device) -> CameraP:
     return CameraP(**{
         k: host_tensor(get(k), torch.float32, device)
         for k in CameraP._fields
+    })
+
+
+def clustered_from_numpy(fields: Mapping[str, np.ndarray],
+                         device) -> ClusteredScene:
+    """ClusteredScene on ``device`` from numpy fields: the word tables
+    (``glob_attr``, ``attr``) as int32 bit for bit, the boxes and the
+    background as f32."""
+    return ClusteredScene(**{
+        k: host_tensor(np.asarray(fields[k]),
+                       _CLUSTER_DTYPES.get(k, torch.float32), device)
+        for k in ClusteredScene._fields
     })
