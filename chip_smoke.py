@@ -11,7 +11,12 @@ counts, checks the 1/sqrt(N) convergence of its means, and times it:
   RayTracer.render_device -> accumulate -> display_stack at 640x480/8spp/d4;
 * the cluster engine (larger sphere scenes): random_spheres(10000, seed=1,
   spread=30) through the same chain, entered as Scene/Sphere objects, and
-  timed at 1080p/4spp/d4, at 640x480/8spp/d4 and at 100k spheres.
+  timed at 1080p/4spp/d4, at 640x480/8spp/d4 and at 100k spheres;
+* triangle meshes: the Cornell box (12 triangles) through the megakernel
+  and terrain_mesh(n=72) (10,082 triangles) through the cluster engine,
+  each through RayTracer.set_mesh and the same chain, an OBJ file through
+  the headless app's --obj, and timings of the Cornell box, of 10k and
+  100k terrain triangles and of the terrain's main path.
 
 Each kernel must agree with its plain version bit for bit, segment counts
 included. Every phase raises on failure. The last line of standard output
@@ -30,6 +35,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -63,6 +69,16 @@ SLAB_TEST_OPS = 26    # flag, 6 sub, 6 mul, 6 min/max, enter 3, exit 3, compare
 RAY_SETUP_OPS = 12    # the walk's 3 safe reciprocals
 SHADE_OPS = 62        # shade_hit without roulette: emission 6, hit point 6,
                       # normal 6, unit ball 18, scatter 23, throughput 3
+TRI_TEST_OPS = 53     # Moller-Trumbore (mt_test): pvec 9, det 5, |det| test 2,
+                      # 1/det, tvec 3, u 6, qvec 9, v 6, t 6, 6 compares/adds
+
+# the mesh scenes and cameras (the JAX bench's terrain rows,
+# benchmarks/bench_scenes.py:123-167)
+CORNELL_CAM = dict(position=(0, 2, 2.5), target=(0, 2, -3))
+CORNELL_ACTIVE = dict(n_active=4, n_tri_active=12)
+TERRAIN_CAM = dict(position=(0, 6, 6), target=(0, 0, -10))
+TERRAIN_10K = 72    # terrain_mesh(n=72): 10,082 triangles
+TERRAIN_100K = 226  # terrain_mesh(n=226): 101,250 triangles
 PRIMARY_OPS = 33      # jitter to a unit camera ray
 PIXEL_OPS = 15        # mean, sqrt gamma and clamp of 3 channels
 
@@ -503,7 +519,7 @@ def main() -> int:
           f"{ms_p['kernel']:.4f} ms, plain {ms_p['plain']:.4f} ms (median "
           f"of 2x3 chained frames each, in turns)")
 
-    cluster = {"name": "cluster", "route": "cuda",
+    cluster = {"name": "cluster-spheres", "route": "cuda",
                "source": "tpu_rt_torch/csrc/cluster.cu",
                "replaces": "tpu_rt/ops/pallas_cluster.py:567",
                "launches": cluster_launches, "max_abs_err": cluster_err,
@@ -514,7 +530,368 @@ def main() -> int:
                "frame_ms": frame_b, "plain_shape": "10k spheres "
                "256x128/4spp/d4", "frame_ms_at_plain_shape": ms_p["kernel"]}
 
-    print(json.dumps({"kernels": [mega, cluster]}))
+    # ================= triangle meshes =====================================
+    import tpu_rt_torch.ops.cluster as cluster_mod
+    from tpu_rt_torch.app import run as app_run
+    from tpu_rt_torch.core.scenes import cornell_box, terrain_mesh
+    from tpu_rt_torch.ops.cluster import build_tri_clusters
+    from tpu_rt_torch.utils.objio import load_obj, save_obj
+
+    cs, cm = cornell_box(device=dev)
+
+    def cornell_cam(w, h):
+        return cam_for(w, h, **CORNELL_CAM)
+
+    # ---- 13. K1-tri exactness: the Cornell box through the megakernel ----
+    cam13 = cornell_cam(PLAIN_SHAPE["width"], PLAIN_SHAPE["height"])
+    mesh_err = 0.0
+    for label, kw in (
+            ("256x128/4spp/d4 seed 7", dict(seed=7, **PLAIN_SHAPE)),
+            ("256x128/4spp/d4 seed 2^31-2", dict(seed=2**31 - 2,
+                                                 **PLAIN_SHAPE)),
+            ("256x128 depth 1, pixel centres", dict(
+                seed=0, width=256, height=128, spp=1, max_depth=1,
+                jitter=False))):
+        seed = kw.pop("seed")
+        kw.update(mesh=cm, with_stats=True, **CORNELL_ACTIVE)
+        a, seg_a = render_megakernel(cs, cam13, seed, **kw)
+        b, seg_b = render_megakernel_reference(cs, cam13, seed, **kw)
+        stats = compare(a, b)
+        mesh_err = max(mesh_err, stats["max_abs"])
+        print(f"[13 K1-tri vs plain] Cornell box {label}: {stats}, "
+              f"segments {int(seg_a)} vs {int(seg_b)}")
+        check_exact(stats, f"K1-tri {label}", (seg_a, seg_b))
+        check(float(a.max()) > 0, "K1-tri: nonblank image")
+
+    # ---- 14. K2-tri exactness: 10k terrain triangles, and the Cornell box
+    # through the cluster engine ----
+    ts, tm = terrain_mesh(n=TERRAIN_10K, seed=1, device=dev)
+    check(int(tm.valid.sum()) == 10082, "terrain n=72 has 10,082 triangles")
+    cam14 = cam_for(PLAIN_SHAPE["width"], PLAIN_SHAPE["height"], **TERRAIN_CAM)
+    cluster_tri_err = 0.0
+    for seed in (7, 2**31 - 2):
+        kw = dict(mesh=tm, with_stats=True, **PLAIN_SHAPE)
+        a, seg_a = render_cluster(ts, cam14, seed, **kw)
+        b, seg_b = render_cluster_reference(ts, cam14, seed, **kw)
+        stats = compare(a, b)
+        cluster_tri_err = max(cluster_tri_err, stats["max_abs"])
+        print(f"[14 K2-tri vs plain] terrain 10k 256x128/4spp/d4 seed "
+              f"{seed}: {stats}, segments {int(seg_a)} vs {int(seg_b)}")
+        check_exact(stats, f"K2-tri terrain seed {seed}", (seg_a, seg_b))
+    kw = dict(mesh=cm, with_stats=True, engine="cluster", **PLAIN_SHAPE)
+    before = render_cluster.launches
+    a, seg_a = render(cs, cam13, 7, **kw)
+    check(render_cluster.launches == before + 1,
+          "engine='cluster' with a mesh launched the cluster kernel")
+    b, seg_b = render_cluster_reference(cs, cam13, 7, mesh=cm,
+                                        with_stats=True, **PLAIN_SHAPE)
+    stats = compare(a, b)
+    cluster_tri_err = max(cluster_tri_err, stats["max_abs"])
+    print(f"[14 K2-tri vs plain] Cornell box through engine='cluster' "
+          f"256x128/4spp/d4: {stats}, segments {int(seg_a)} vs {int(seg_b)}")
+    check_exact(stats, "K2-tri Cornell", (seg_a, seg_b))
+
+    # ---- 15. main path with a mesh ----
+    def api_scene_of(spheres):
+        sc = Scene()
+        sc.background_color = Vector3(*spheres.background.tolist())
+        for i in range(int(spheres.valid.sum())):
+            sp = Sphere()
+            sp.center = Vector3(*spheres.center[i].tolist())
+            sp.radius = float(spheres.radius[i])
+            mat = Material()
+            mat.albedo = Vector3(*spheres.albedo[i].tolist())
+            mat.metallic = float(spheres.metallic[i])
+            mat.roughness = float(spheres.roughness[i])
+            mat.emission = Vector3(*spheres.emission[i].tolist())
+            sp.material = mat
+            sp.object_id = i
+            sc.add_sphere(sp)
+        return sc
+
+    def aim(rt_, pose):
+        c = rt_.get_camera()
+        c.position, c.target = (Vector3(*pose["position"]),
+                                Vector3(*pose["target"]))
+        rt_.set_camera(c)
+
+    def main_path(rt_):
+        acc_, total_, stack_ = None, 0, None
+        for _ in range(4):
+            batch_ = rt_.render_device(
+                INTERACTIVE["width"], INTERACTIVE["height"],
+                INTERACTIVE["spp"], INTERACTIVE["max_depth"])
+            acc_, total_ = accumulate(acc_, total_, batch_, INTERACTIVE["spp"])
+            stack_ = display_stack(acc_, EXPOSURE, as_uint8=True)
+        torch.cuda.synchronize(dev)
+        return acc_, stack_
+
+    def check_stack(stack_, acc_, what):
+        check(tuple(stack_.shape) == (2, 480, 640, 3), f"{what}: stack shape")
+        check(stack_.dtype == torch.uint8, f"{what}: uint8 stack")
+        check(bool(torch.isfinite(acc_).all()), f"{what}: finite accumulator")
+        check(int(stack_.max()) - int(stack_.min()) > 64,
+              f"{what}: nonblank image")
+
+    # (a) terrain: 3 spheres + 10k triangles -> the cluster engine; count
+    # the table builds and orderings of set_mesh and the four batches
+    calls = {}
+    originals = {}
+    for fname in ("build_clusters", "build_tri_clusters", "order_clusters"):
+        originals[fname] = getattr(cluster_mod, fname)
+
+        def counted(*a, _f=originals[fname], _n=fname, **k):
+            calls[_n] = calls.get(_n, 0) + 1
+            return _f(*a, **k)
+        setattr(cluster_mod, fname, counted)
+    rt_t = RayTracer(seed=7, device=dev)
+    rt_t.set_scene(api_scene_of(ts))
+    rt_t.set_mesh(tm)
+    aim(rt_t, TERRAIN_CAM)
+    render_megakernel.launches = render_cluster.launches = 0
+    acc, stack = main_path(rt_t)
+    tri_launches = render_cluster.launches
+    mega_in_terrain = render_megakernel.launches
+    for fname, fn in originals.items():
+        setattr(cluster_mod, fname, fn)
+    print(f"[15 mesh main path] RayTracer.set_scene(3 spheres) + "
+          f"set_mesh(terrain, 10,082 triangles); render_device x4 at "
+          f"640x480/8spp/d4 -> accumulate -> display_stack: stack "
+          f"{tuple(stack.shape)} {stack.dtype}; cluster launches "
+          f"{tri_launches}, megakernel launches {mega_in_terrain}; table "
+          f"builds and orderings {calls}")
+    check(tri_launches == 4, "the mesh main path launched the cluster 4 times")
+    check(mega_in_terrain == 0, "a 10k-triangle mesh skips the megakernel")
+    check(calls == {"build_clusters": 1, "build_tri_clusters": 1,
+                    "order_clusters": 2},
+          "tables built once and ordered once (spheres and triangles)")
+    check_stack(stack, acc, "mesh main path")
+    # the same chain through the plain version, at full size
+    cam_t = rt_t.camera.to_params(dev)
+    t_tables = order_clusters(build_clusters(rt_t._scene_arrays,
+                                             n_active=rt_t._n_active),
+                              cam_t.position)
+    t_tri = order_clusters(build_tri_clusters(tm,
+                                              n_active=rt_t._n_tri_active),
+                           cam_t.position)
+    t0 = time.perf_counter()
+    acc_p, total_p = None, 0
+    for f in range(4):
+        b = render_cluster_reference(
+            None, cam_t, batch_seed(7 + 1, f), prebuilt=t_tables,
+            tri_prebuilt=t_tri, pre_ordered=True, **INTERACTIVE)
+        acc_p, total_p = accumulate(acc_p, total_p, b, INTERACTIVE["spp"])
+    torch.cuda.synchronize(dev)
+    stats = compare(acc, acc_p)
+    cluster_tri_err = max(cluster_tri_err, stats["max_abs"])
+    print(f"[15 mesh main path] vs the plain chain at the same size "
+          f"(640x480/8spp/d4, {time.perf_counter() - t0:.1f} s): "
+          f"accumulator {stats}")
+    check_exact(stats, "mesh main path accumulator")
+
+    # (b) the Cornell box through RayTracer -> the megakernel
+    rt_c = RayTracer(seed=9, device=dev)
+    rt_c.set_scene(api_scene_of(cs))
+    rt_c.set_mesh(cm)
+    aim(rt_c, CORNELL_CAM)
+    render_megakernel.launches = render_cluster.launches = 0
+    acc, stack = main_path(rt_c)
+    mega_tri_launches = render_megakernel.launches
+    print(f"[15 mesh main path] RayTracer + set_mesh(Cornell box, 12 "
+          f"triangles) x4 at 640x480/8spp/d4: megakernel launches "
+          f"{mega_tri_launches}, cluster launches {render_cluster.launches}")
+    check(mega_tri_launches == 4, "the Cornell box launched the megakernel 4x")
+    check(render_cluster.launches == 0, "the Cornell box skips the cluster")
+    check_stack(stack, acc, "Cornell main path")
+    cam_c = rt_c.camera.to_params(dev)
+    acc_p, total_p = None, 0
+    for f in range(4):
+        b = render_megakernel_reference(
+            rt_c._scene_arrays, cam_c, batch_seed(9 + 1, f), mesh=cm,
+            **CORNELL_ACTIVE, **INTERACTIVE)
+        acc_p, total_p = accumulate(acc_p, total_p, b, INTERACTIVE["spp"])
+    stats = compare(acc, acc_p)
+    mesh_err = max(mesh_err, stats["max_abs"])
+    print(f"[15 mesh main path] Cornell vs the plain chain: accumulator "
+          f"{stats}")
+    check_exact(stats, "Cornell main path accumulator")
+
+    # (c) an OBJ file the script writes, through the headless app's --obj
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = Path(tmp) / "cornell.obj"
+        save_obj(str(obj), cm)
+        back = load_obj(str(obj), device=dev)
+        check(int(back.valid.sum()) == 12 and bool(torch.equal(
+            back.v0[:12], cm.v0[:12])), "load_obj(save_obj(Cornell))")
+        png = Path(tmp) / "obj.png"
+        render_megakernel.launches = 0
+        rc = app_run.main(["--headless", "--device", "cuda", "--width", "160",
+                           "--height", "120", "--samples", "8", "--batch",
+                           "8", "--depth", "4", "--obj", str(obj),
+                           "--output", str(png)])
+        check(rc == 0 and (png.exists() or png.with_suffix(".png.npy")
+                           .exists()), "app --obj wrote its image")
+        check(render_megakernel.launches == 1,
+              "app --obj: demo scene + 12 triangles, one megakernel batch")
+    print(f"[15 mesh main path] OBJ: save_obj(Cornell) -> load_obj -> "
+          f"python -m tpu_rt_torch.app.run --headless --obj: rc {rc}, "
+          f"megakernel launches {render_megakernel.launches}")
+
+    # ---- 16. statistics: Cornell means against a high-N kernel mean ----
+    cam16 = cornell_cam(64, 48)
+
+    def cornell_mean(n, seed0):
+        acc_m = torch.zeros((48, 64, 3), dtype=torch.float64, device=dev)
+        for i in range(n):
+            acc_m += render_megakernel(cs, cam16, (seed0 + i) * (1 << 16),
+                                       width=64, height=48, spp=64,
+                                       max_depth=4, mesh=cm, **CORNELL_ACTIVE)
+        return acc_m / n
+
+    ref_mean = cornell_mean(512, 40000)
+    r8 = float(torch.sqrt(((cornell_mean(8, 50000) - ref_mean) ** 2).mean()))
+    r32 = float(torch.sqrt(((cornell_mean(32, 51000) - ref_mean) ** 2)
+                           .mean()))
+    print(f"[16 mesh statistics] Cornell 64x48/64spp/d4: RMSE vs the N=512 "
+          f"kernel mean: N=8 {r8:.6f}, N=32 {r32:.6f}, ratio {r8 / r32:.3f} "
+          f"(1/sqrt(N) with the reference's own noise predicts 1.955)")
+    check(r32 < r8 and 1.4 < r8 / r32 < 2.8, "Cornell 1/sqrt(N) scaling")
+
+    # ---- 17. timing ----
+    def mesh_timing(label, fn, seg_fn, n_pix, spp, kname, per_segment,
+                    nbytes):
+        """Frame ms, kernel device ms, idle share, segments/frame, traced
+        Mrays/s and the bound of ``fn``; returns (kernel ms, frame ms,
+        bound ms, bound_by)."""
+        frame = statistics.median(cuda_frame_ms(fn, 7, device=dev)
+                                  + cuda_frame_ms(fn, 7, device=dev))
+        by_kernel = device_ms_by_kernel(fn, 5, device=dev)
+        k_ms = kernel_ms(by_kernel, kname)
+        check(k_ms > 0, f"{label}: torch.profiler recorded {kname}")
+        segs = int(seg_fn())
+        ops = path_ops(segs, n_pix, spp, per_segment)
+        b_ms, b_by = bound(ops, nbytes + n_pix * 12)
+        print(f"[17 timing] {label} on {card}: frame {frame:.4f} ms (median "
+              f"of 2x7 chained frames), {kname} {k_ms:.4f} ms; {segs} "
+              f"segments/frame; traced Mrays/s frame "
+              f"{traced_mrays_per_s(segs, frame):.1f}, kernel "
+              f"{traced_mrays_per_s(segs, k_ms):.1f}; bound {b_ms:.4f} ms "
+              f"({b_by}, {ops / 1e9:.3f} G f32 ops)")
+        print("[17 device] " + device_line(label, by_kernel, frame, kname))
+        return k_ms, frame, b_ms, b_by
+
+    def table_bytes(*tables):
+        return sum(t.numel() * t.element_size() for tab in tables
+                   for t in tab)
+
+    # K1-tri: per segment 4 sphere tests and 12 Moller-Trumbore tests
+    k1_tri_ops = (CORNELL_ACTIVE["n_active"] * SPHERE_TEST_OPS
+                  + CORNELL_ACTIVE["n_tri_active"] * TRI_TEST_OPS)
+    k1_tri_bytes = (4 * 16 + 12 * 20 + 16 + 3) * 4
+    mega_tri = None
+    for name, shape in (("640x480/8spp/d4", INTERACTIVE),
+                        ("1080p/4spp/d4", BENCH)):
+        cam_t = cornell_cam(shape["width"], shape["height"])
+        kw = dict(mesh=cm, **CORNELL_ACTIVE, **shape)
+        k_ms, frame, b_ms, b_by = mesh_timing(
+            f"K1-tri Cornell {name}",
+            lambda i: render_megakernel(cs, cam_t, 500 + i, **kw),
+            lambda: render_megakernel(cs, cam_t, 0, with_stats=True, **kw)[1],
+            shape["width"] * shape["height"], shape["spp"], "megakernel",
+            k1_tri_ops, k1_tri_bytes + (-(-shape["width"] * shape["height"]
+                                          // 4096)) * 4)
+        if mega_tri is None:  # the Cornell main path's shape
+            times = {"kernel": [], "plain": []}
+            fns = {"kernel": lambda i: render_megakernel(cs, cam_t, 600 + i,
+                                                         **kw),
+                   "plain": lambda i: render_megakernel_reference(
+                       cs, cam_t, 600 + i, **kw)}
+            for which in ("plain", "kernel", "kernel", "plain"):
+                times[which] += cuda_frame_ms(fns[which], 3, device=dev)
+            mp = {k: statistics.median(v) for k, v in times.items()}
+            print(f"[17 timing] K1-tri Cornell {name}: kernel frame "
+                  f"{mp['kernel']:.4f} ms, plain {mp['plain']:.4f} ms (median "
+                  f"of 2x3 chained frames each, in turns)")
+            mega_tri = {"name": "megakernel-triangles", "route": "cuda",
+                        "source": "tpu_rt_torch/csrc/megakernel.cu",
+                        "replaces": "tpu_rt/ops/pallas_megakernel.py:345",
+                        "launches": mega_tri_launches,
+                        "max_abs_err": mesh_err, "ms": k_ms,
+                        "plain_ms": mp["plain"], "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None,
+                        "shape": f"Cornell box (4 sphere rows, 12 "
+                                 f"triangles) {name}",
+                        "plain_shape": name, "frame_ms": frame}
+
+    def k2_tri_ops(tab, tri_tab):
+        # what every segment needs whatever the culling: both tables'
+        # globals and super-super slab tests, the walk's 3 reciprocals
+        return (tab.n_global * SPHERE_TEST_OPS + tri_tab.n_global
+                * TRI_TEST_OPS + RAY_SETUP_OPS
+                + (tab.n_ss + tri_tab.n_ss) * SLAB_TEST_OPS)
+
+    cam_b = cam_for(BENCH["width"], BENCH["height"], **TERRAIN_CAM)
+    for label, n in (("10k", TERRAIN_10K), ("100k", TERRAIN_100K)):
+        sp_n, m_n = (ts, tm) if n == TERRAIN_10K else terrain_mesh(
+            n=n, seed=1, device=dev)
+        tab = order_clusters(build_clusters(sp_n, n_active=3), cam_b.position)
+        tri_tab = order_clusters(build_tri_clusters(m_n), cam_b.position)
+        print(f"[17 timing] terrain {label}: {int(m_n.valid.sum())} "
+              f"triangles, K {tri_tab.n_clusters}, S {tri_tab.n_supers}, S2 "
+              f"{tri_tab.n_ss}, attr {tri_tab.attr.numel() * 4 / 1e6:.2f} MB")
+        kw = dict(prebuilt=tab, tri_prebuilt=tri_tab, pre_ordered=True,
+                  **BENCH)
+        mesh_timing(
+            f"K2-tri terrain {label} 1080p/4spp/d4",
+            lambda i: render_cluster(None, cam_b, 700 + i, **kw),
+            lambda: render_cluster(None, cam_b, 0, with_stats=True, **kw)[1],
+            BENCH["width"] * BENCH["height"], BENCH["spp"], "cluster_kernel",
+            k2_tri_ops(tab, tri_tab), table_bytes(tab, tri_tab) + 16 * 4)
+    # the terrain main path (RayTracer + set_mesh) at the GUI's settings
+    k_tri, frame_tri, bound_tri, bound_by_tri = mesh_timing(
+        "K2-tri RayTracer + terrain 10k 640x480/8spp/d4",
+        lambda i: rt_t.render_device(INTERACTIVE["width"],
+                                     INTERACTIVE["height"],
+                                     INTERACTIVE["spp"],
+                                     INTERACTIVE["max_depth"]),
+        lambda: render_cluster(None, rt_t.camera.to_params(dev), 0,
+                               prebuilt=t_tables, tri_prebuilt=t_tri,
+                               pre_ordered=True, with_stats=True,
+                               **INTERACTIVE)[1],
+        INTERACTIVE["width"] * INTERACTIVE["height"], INTERACTIVE["spp"],
+        "cluster_kernel", k2_tri_ops(t_tables, t_tri),
+        table_bytes(t_tables, t_tri) + 16 * 4)
+    # the plain version at 256x128 only: its sweep is O(N) per ray
+    tab_p = order_clusters(build_clusters(ts, n_active=3), cam14.position)
+    tri_p = order_clusters(build_tri_clusters(tm), cam14.position)
+    kw_p = dict(prebuilt=tab_p, tri_prebuilt=tri_p, pre_ordered=True,
+                **PLAIN_SHAPE)
+    fns = {"kernel": lambda i: render_cluster(None, cam14, 800 + i, **kw_p),
+           "plain": lambda i: render_cluster_reference(None, cam14, 800 + i,
+                                                       **kw_p)}
+    times = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        times[which] += cuda_frame_ms(fns[which], 3, device=dev)
+    ms_tp = {k: statistics.median(v) for k, v in times.items()}
+    print(f"[17 timing] terrain 10k 256x128/4spp/d4 (the plain version's "
+          f"shape): kernel {ms_tp['kernel']:.4f} ms, plain "
+          f"{ms_tp['plain']:.4f} ms (median of 2x3 chained frames each, in "
+          f"turns)")
+    cluster_tri = {"name": "cluster-triangles", "route": "cuda",
+                   "source": "tpu_rt_torch/csrc/cluster.cu",
+                   "replaces": "tpu_rt/ops/pallas_cluster.py:868",
+                   "launches": tri_launches, "max_abs_err": cluster_tri_err,
+                   "ms": k_tri, "plain_ms": ms_tp["plain"],
+                   "bound_ms": bound_tri, "bound_by": bound_by_tri,
+                   "library_ms": None,
+                   "shape": "RayTracer 3 spheres + terrain 10k triangles "
+                            "640x480/8spp/d4",
+                   "frame_ms": frame_tri,
+                   "plain_shape": "terrain 10k 256x128/4spp/d4",
+                   "frame_ms_at_plain_shape": ms_tp["kernel"]}
+
+    mega["name"] = "megakernel-spheres"
+    print(json.dumps({"kernels": [mega, mega_tri, cluster, cluster_tri]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -20,6 +20,9 @@ from tpu_rt_torch.ops.megakernel import _pack_camera
 from tpu_rt_torch.utils.convert import camera_from_numpy, scene_from_numpy
 
 CPU = torch.device("cpu")
+# six xdist workers share the CPU: one intra-op thread each keeps
+# torch's thread pools from oversubscribing it
+torch.set_num_threads(1)
 
 
 def as_np(x):

@@ -1,6 +1,6 @@
 """tpu_rt_torch on an NVIDIA GPU: the CUDA megakernel and cluster kernel
-against their plain PyTorch versions, and their RMSE of means against the
-JAX package's N=4096 goldens.
+against their plain PyTorch versions, with and without triangle meshes, and
+their RMSE of means against the JAX package's N=4096 goldens.
 
 Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is
 False. Imports no jax, so it runs on a machine with torch alone:
@@ -15,9 +15,10 @@ import pytest
 import torch
 
 import tpu_rt_torch
-from tpu_rt_torch.core.scenes import random_spheres
+from tpu_rt_torch.core.scenes import cornell_box, random_spheres, terrain_mesh
 from tpu_rt_torch.ops.cluster import (
-    build_clusters, order_clusters, render_cluster, render_cluster_reference)
+    build_clusters, build_tri_clusters, order_clusters, render_cluster,
+    render_cluster_reference)
 from tpu_rt_torch.ops.megakernel import (
     render_megakernel, render_megakernel_reference)
 
@@ -157,3 +158,66 @@ def test_cluster_rmse_of_means_vs_cluster_golden(dev, scene):
     rmse = float(np.sqrt(((ours - oracle) ** 2).mean()))
     assert rmse <= 1e-3, rmse
     assert abs(float(ours.mean() - oracle.mean())) < 3e-4
+
+
+CORNELL_POSE = dict(position=(0, 2, 2.5), target=(0, 2, -3))
+TERRAIN_POSE = dict(position=(0, 6, 6), target=(0, 0, -10))
+RAGGED = dict(width=200, height=90, spp=2, max_depth=6, with_stats=True)
+
+
+@pytest.mark.parametrize("jitter", [True, False], ids=["jitter", "centres"])
+def test_megakernel_with_a_mesh_matches_plain(dev, jitter):
+    """K1-tri: the Cornell box's 12 triangles beside 2 spheres, bit for
+    bit, segments included."""
+    spheres, mesh = cornell_box(device=dev)
+    cam = tpu_rt_torch.make_camera(aspect=200 / 90, device=dev, **CORNELL_POSE)
+    kw = dict(n_active=4, mesh=mesh, n_tri_active=12, jitter=jitter, **RAGGED)
+    before = render_megakernel.launches
+    a, seg_a = render_megakernel(spheres, cam, 2**31 - 2, **kw)
+    b, seg_b = render_megakernel_reference(spheres, cam, 2**31 - 2, **kw)
+    torch.cuda.synchronize(dev)
+    assert render_megakernel.launches == before + 1
+    assert torch.equal(a, b), int((a != b).sum())
+    assert int(seg_a) == int(seg_b)
+
+
+@pytest.mark.parametrize("which", ["terrain_24", "terrain_72", "cornell"])
+def test_cluster_kernel_with_a_mesh_matches_plain(dev, which):
+    """K2-tri: the triangle walk after the sphere walk against the plain
+    version's brute-force sweep, at a ragged 200x90 frame, depth 6; the
+    Cornell box's axis-aligned walls have flat boxes."""
+    if which == "cornell":
+        spheres, mesh = cornell_box(device=dev)
+        pose = CORNELL_POSE
+    else:
+        spheres, mesh = terrain_mesh(n=int(which.split("_")[1]), seed=1,
+                                     device=dev)
+        pose = TERRAIN_POSE
+    cam = tpu_rt_torch.make_camera(aspect=200 / 90, device=dev, **pose)
+    before = render_cluster.launches
+    a, seg_a = render_cluster(spheres, cam, 2**31 - 2, mesh=mesh, **RAGGED)
+    b, seg_b = render_cluster_reference(spheres, cam, 2**31 - 2, mesh=mesh,
+                                        **RAGGED)
+    torch.cuda.synchronize(dev)
+    assert render_cluster.launches == before + 1
+    assert torch.equal(a, b), int((a != b).sum())
+    assert int(seg_a) == int(seg_b)
+
+
+def test_kernels_with_an_all_padding_mesh(dev):
+    """A mesh with no valid triangle changes neither kernel's image."""
+    spheres, mesh = cornell_box(device=dev)
+    mesh = mesh._replace(valid=torch.zeros_like(mesh.valid),
+                         e1=torch.zeros_like(mesh.e1),
+                         e2=torch.zeros_like(mesh.e2))
+    cam = tpu_rt_torch.make_camera(aspect=2.0, device=dev, **CORNELL_POSE)
+    kw = dict(width=96, height=48, spp=2, max_depth=3, n_active=4)
+    alone = render_megakernel(spheres, cam, 3, **kw)
+    assert torch.equal(render_megakernel(spheres, cam, 3, mesh=mesh,
+                                         n_tri_active=128, **kw), alone)
+    tri = order_clusters(build_tri_clusters(mesh, n_active=1), cam.position)
+    assert not bool(tri.boxes[:, 6].any())
+    alone = render_cluster(spheres, cam, 3, **kw)
+    a = render_cluster(spheres, cam, 3, tri_prebuilt=tri, **kw)
+    b = render_cluster_reference(spheres, cam, 3, tri_prebuilt=tri, **kw)
+    assert torch.equal(a, alone) and torch.equal(a, b)

@@ -40,7 +40,9 @@ print("ok", len(sys.argv) - 1)
 def test_every_module_imports_without_jax():
     assert {"tpu_rt_torch.ops.megakernel", "tpu_rt_torch.api.compat",
             "tpu_rt_torch.app.run", "tpu_rt_torch.kernels.build",
-            "tpu_rt_torch.utils.profiling"} <= set(SLICE_MODULES)
+            "tpu_rt_torch.utils.profiling", "tpu_rt_torch.ops.triangle",
+            "tpu_rt_torch.core.scenes", "tpu_rt_torch.utils.objio",
+            "tpu_rt_torch.utils.convert"} <= set(SLICE_MODULES)
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_IMPORT, *SLICE_MODULES],
         cwd=ROOT, capture_output=True, text=True, timeout=120)

@@ -26,6 +26,9 @@ from tpu_rt_torch.ops import megakernel as mk
 from tpu_rt_torch.utils.convert import camera_from_numpy, scene_from_numpy
 
 CPU = torch.device("cpu")
+# six xdist workers share the CPU: one intra-op thread each keeps
+# torch's thread pools from oversubscribing it
+torch.set_num_threads(1)
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 N_ACTIVE = 12  # quantize_count(9, 16): rows 9-11 are padding
 

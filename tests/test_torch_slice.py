@@ -21,9 +21,13 @@ import tpu_rt_torch
 from tpu_rt_torch.api import Camera, RayTracer, Scene, Vector3
 from tpu_rt_torch.app import run as app_run
 from tpu_rt_torch.ops.megakernel import render_megakernel
+from tpu_rt_torch.ops.triangle import quad
 from tpu_rt_torch.render import display, frame
 
 CPU = torch.device("cpu")
+# six xdist workers share the CPU: one intra-op thread each keeps
+# torch's thread pools from oversubscribing it
+torch.set_num_threads(1)
 W, H, SPP, DEPTH, BATCHES = 128, 64, 2, 4, 3
 
 
@@ -105,7 +109,10 @@ def test_display_stack_denoisers_not_ported():
 UNSUPPORTED = {
     "mode_v1": dict(mode="v1"),
     "linear": dict(gamma=False),
-    "mesh": dict(mesh=object()),
+    # a mesh renders (tests/test_torch_triangle.py); with a flag that is
+    # not ported yet it raises
+    "mesh": dict(mesh=quad((-1, 0, -2), (1, 0, -2), (1, 1, -2), (-1, 1, -2),
+                           device=CPU), nee=True),
     "refraction": dict(enable_refraction=True),
     "nee": dict(nee=True),
     "stratify": dict(stratify=True),

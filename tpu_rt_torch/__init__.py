@@ -4,15 +4,15 @@ A port of ``tpu_rt`` that imports torch and never jax. It mirrors the JAX
 package's layout, module for module:
 
   core/     SoA scene/camera tensors, vector math, pinhole camera, the
-            random-spheres scene
-  ops/      the attribute table, Morton codes, and the wrappers of the
-            path-trace megakernel and the cluster engine
+            random-spheres, terrain and Cornell-box scenes
+  ops/      the attribute table, triangle meshes, Morton codes, and the
+            wrappers of the path-trace megakernel and the cluster engine
   csrc/     the hand-written CUDA kernels (built on first use)
   kernels/  the nvcc build and ctypes loader
   render/   engine choice, batch render, accumulation, display stack
   api/      the drop-in object surface (Vector3 ... RayTracer)
   app/      the headless launcher
-  utils/    numpy converters, CUDA-event timing
+  utils/    numpy converters, OBJ import/export, CUDA-event timing
 
 Every function takes an explicit ``device``; tensors on the CPU run the
 plain PyTorch version of each kernel, tensors on a CUDA device run the
@@ -26,9 +26,12 @@ from .core.types import (  # noqa: F401
     make_camera,
     make_scene,
 )
+from .core.scenes import cornell_box, terrain_mesh  # noqa: F401
+from .ops.triangle import TriangleMesh, make_mesh  # noqa: F401
 from .render.frame import (  # noqa: F401
     accumulate,
     enhance_contrast,
     render,
     tone_map,
 )
+from .utils.objio import load_obj  # noqa: F401

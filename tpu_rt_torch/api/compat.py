@@ -3,10 +3,11 @@
 Counterpart of ``tpu_rt/api/compat.py`` for the slice the port carries:
 ``Vector3``, ``Material``, ``Sphere``, ``Camera`` (with ``to_params``),
 ``Scene`` (with ``to_arrays``) and ``RayTracer`` with ``set_scene``,
-``get_camera``, ``set_camera``, ``move_camera``, ``render`` and
-``render_device``. Scene edits mutate plain Python objects; ``set_scene``
-snapshots them into tensors on the tracer's device, and ``render_device``
-drives the megakernel there, or the cluster engine past 64 spheres.
+``set_mesh``, ``get_camera``, ``set_camera``, ``move_camera``, ``render``
+and ``render_device``. Scene edits mutate plain Python objects;
+``set_scene`` snapshots them into tensors on the tracer's device, and
+``render_device`` drives the megakernel there, or the cluster engine past
+64 spheres or 256 triangles.
 """
 
 from __future__ import annotations
@@ -213,9 +214,10 @@ class RayTracer:
     samples. ``device`` must be usable: a CUDA device without CUDA raises
     here rather than rendering somewhere else.
 
-    A scene that resolves to the cluster engine has its tables built once
-    at ``set_scene`` and ordered once per camera position (keyed by the
-    position's Python floats), so no frame rebuilds or reorders them.
+    A scene that resolves to the cluster engine has its tables (and its
+    mesh's) built once at ``set_scene``/``set_mesh`` and ordered once per
+    camera position (keyed by the position's Python floats), so no frame
+    rebuilds or reorders them.
     """
 
     def __init__(self, seed: int = 0, *, device="cuda"):
@@ -238,6 +240,12 @@ class RayTracer:
         self._clustered: _C.ClusteredScene | None = None
         self._ordered: _C.ClusteredScene | None = None
         self._ordered_at: tuple | None = None
+        # an optional TriangleMesh rendered beside the spheres, its quantized
+        # active count, and its cluster tables (built, ordered)
+        self._mesh = None
+        self._n_tri_active: int | None = None
+        self._tri_clustered: _C.ClusteredScene | None = None
+        self._tri_ordered: _C.ClusteredScene | None = None
 
     def set_scene(self, scene: Scene):
         snap = Scene()
@@ -262,10 +270,38 @@ class RayTracer:
         self._scene_arrays = snap.to_arrays(self.device)
         self._n_active = _F.quantize_count(len(snap.spheres),
                                            self._scene_arrays.capacity)
+        self._build_tables()
+
+    def set_mesh(self, mesh) -> None:
+        """Attach (or clear, with None) a TriangleMesh, rendered beside the
+        sphere scene; it moves to the tracer's device. Engine selection
+        accounts for it: meshes past 256 triangles go to the cluster
+        engine."""
+        if mesh is not None:
+            mesh = mesh._replace(**{k: v.to(self.device)
+                                    for k, v in mesh._asdict().items()})
+            self._n_tri_active = _F.quantize_count(int(mesh.valid.sum()),
+                                                   mesh.capacity)
+        else:
+            self._n_tri_active = None
+        self._mesh = mesh
+        self._build_tables()
+
+    def _build_tables(self):
+        """Build the cluster tables of the scene (and mesh) once, when they
+        resolve to the cluster engine; they are ordered at the next
+        render."""
         self._clustered = self._ordered = self._ordered_at = None
-        if snap.spheres and _F.select_engine(self._scene_arrays) == "cluster":
-            self._clustered = _C.build_clusters(self._scene_arrays,
-                                                n_active=self._n_active)
+        self._tri_clustered = self._tri_ordered = None
+        if (self._scene_arrays is None or not self._scene_snapshot.spheres
+                or _F.select_engine(self._scene_arrays,
+                                    mesh=self._mesh) != "cluster"):
+            return
+        self._clustered = _C.build_clusters(self._scene_arrays,
+                                            n_active=self._n_active)
+        if self._mesh is not None:
+            self._tri_clustered = _C.build_tri_clusters(
+                self._mesh, n_active=self._n_tri_active)
 
     def get_camera(self) -> Camera:
         return self.camera.copy()
@@ -287,13 +323,14 @@ class RayTracer:
     def render_device(self, width: int, height: int, samples_per_pixel: int,
                       max_depth: int):
         """One progressive batch as an (h, w, 3) tensor on the tracer's
-        device, or None for an empty scene."""
+        device, or None for a scene without spheres (mesh or not)."""
         self.camera.aspect_ratio = width / height
         if self._scene_arrays is None or not self._scene_snapshot.spheres:
             return None
         seed = batch_seed(self._seed_base, self._frame)
         self._frame += 1
-        self._last_engine = _F.select_engine(self._scene_arrays)
+        self._last_engine = _F.select_engine(self._scene_arrays,
+                                             mesh=self._mesh)
         cam = self.camera.to_params(self.device)
         kw = {}
         if self._last_engine == "cluster":
@@ -302,10 +339,15 @@ class RayTracer:
             if at != self._ordered_at:
                 self._ordered = _C.order_clusters(self._clustered,
                                                   cam.position)
+                if self._tri_clustered is not None:
+                    self._tri_ordered = _C.order_clusters(
+                        self._tri_clustered, cam.position)
                 self._ordered_at = at
-            kw = dict(prebuilt=self._ordered, pre_ordered=True)
+            kw = dict(prebuilt=self._ordered, tri_prebuilt=self._tri_ordered,
+                      pre_ordered=True)
         return _F.render(
             self._scene_arrays, cam, seed, width=width, height=height,
             spp=samples_per_pixel, max_depth=max_depth,
-            n_active=self._n_active,
+            n_active=self._n_active, mesh=self._mesh,
+            n_tri_active=self._n_tri_active,
             enable_dof=float(self.camera.aperture) > 0.0, **kw)

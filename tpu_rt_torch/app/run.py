@@ -2,9 +2,11 @@
 
 Counterpart of ``tpu_rt/app/run.py:run_headless`` as a plain loop over
 ``RayTracer.render_device`` -> ``accumulate`` -> ``display_stack``; the
-threaded interaction runtime and the GUI are not ported yet.
+threaded interaction runtime and the GUI are not ported yet. ``--obj``
+loads a Wavefront OBJ mesh beside the demo scene.
 
     python -m tpu_rt_torch.app.run --headless --samples 32 --output x.png
+    python -m tpu_rt_torch.app.run --headless --obj model.obj --obj-scale 2
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..api.compat import Material, RayTracer, Scene, Sphere, Vector3
 from ..core.types import DEMO_BACKGROUND, DEMO_ROWS, DEMO_SPHERE_NAMES
 from ..render.display import ENHANCED, display_stack
 from ..render.frame import accumulate
+from ..utils.objio import load_obj
 
 EXPOSURE = 1.5  # the reference GUI's default
 
@@ -63,6 +66,10 @@ def render_progressive(rt: RayTracer, width: int, height: int,
 def run_headless(args) -> int:
     rt = RayTracer(device=args.device)
     rt.set_scene(demo_api_scene())
+    if args.obj:
+        mesh = load_obj(args.obj, scale=args.obj_scale, device=rt.device)
+        rt.set_mesh(mesh)
+        print(f"  loaded {int(mesh.valid.sum())} triangles from {args.obj}")
     t0 = time.perf_counter()
     stack = render_progressive(
         rt, args.width, args.height, args.samples, args.batch, args.depth,
@@ -93,6 +100,9 @@ def main(argv=None) -> int:
     parser.add_argument("--depth", type=int, default=4)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--output", default="render.png")
+    parser.add_argument("--obj", default=None, metavar="PATH",
+                        help="load a Wavefront OBJ mesh into the scene")
+    parser.add_argument("--obj-scale", type=float, default=1.0)
     args = parser.parse_args(argv)
     if not args.headless:
         print("the GUI is not ported to tpu_rt_torch yet (ROADMAP.md: "

@@ -2,10 +2,11 @@
 
 Counterpart of ``tpu_rt/core/scenes.py``: ``random_spheres``, the classic
 many-spheres field that drives the cluster engine past the megakernel's
-64-sphere bucket. The numpy draws are the JAX package's, in the same
-order, so both packages build the very same scene from one seed. The mesh
-scenes (``terrain_mesh``, ``cornell_box``) wait for triangles (ROADMAP.md:
-K1-tri, K2-tri).
+64-sphere bucket, and the mesh scenes ``terrain_mesh`` (a heightfield of
+2 (n-1)^2 triangles, the cluster engine's mesh workload) and
+``cornell_box`` (12 triangles and 2 spheres, the megakernel's). The numpy
+draws are the JAX package's, in the same order, so both packages build the
+very same scene from one seed.
 """
 
 from __future__ import annotations
@@ -57,3 +58,99 @@ def random_spheres(
         roughnesses=roughnesses, emissions=emissions,
         background=(0.3, 0.4, 0.6), capacity=capacity, device=device,
     )
+
+
+def terrain_mesh(n: int = 24, extent: float = 12.0, seed: int = 0, *,
+                 device):
+    """Procedural sinusoidal-heightfield terrain: 2*(n-1)^2 triangles.
+
+    n=24 gives 1058 triangles, n=72 10,082, n=226 101,250. Returns
+    (sphere_scene, mesh) on ``device``: a couple of spheres above a rolling
+    lit terrain.
+    """
+    from ..ops.triangle import make_mesh
+
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(-extent, extent, n, dtype=np.float32)
+    zs = np.linspace(-2.0, -2.0 - 2 * extent, n, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, zs, indexing="ij")
+    gy = (0.8 * np.sin(gx * 0.7) * np.cos(gz * 0.5)
+          + 0.3 * np.sin(gx * 1.9 + 1.0) * np.sin(gz * 1.3)
+          ).astype(np.float32)
+    verts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
+
+    idx = np.arange(n * n).reshape(n, n)
+    a = idx[:-1, :-1].ravel()
+    b = idx[1:, :-1].ravel()
+    c = idx[1:, 1:].ravel()
+    d = idx[:-1, 1:].ravel()
+    faces = np.concatenate(
+        [np.stack([a, b, c], -1), np.stack([a, c, d], -1)], axis=0)
+
+    f = faces.shape[0]
+    albedo = rng.uniform(0.3, 0.9, (f, 3)).astype(np.float32)
+    mesh = make_mesh(verts, faces, albedo=albedo, roughness=0.6,
+                     device=device)
+
+    spheres = make_scene(
+        centers=[(-3.0, 2.0, -8.0), (3.0, 2.5, -12.0), (0.0, 9.0, -12.0)],
+        radii=[1.2, 1.5, 2.0],
+        albedos=[(0.9, 0.3, 0.3), (0.85, 0.85, 0.9), (0.0, 0.0, 0.0)],
+        metallics=[0.0, 1.0, 0.0],
+        roughnesses=[0.4, 0.05, 0.0],
+        emissions=[(0, 0, 0), (0, 0, 0), (10.0, 10.0, 9.0)],
+        background=(0.2, 0.3, 0.5),
+        device=device,
+    )
+    return spheres, mesh
+
+
+def cornell_box(*, device):
+    """Cornell-style box as a TriangleMesh + a mirror/diffuse sphere pair,
+    on ``device``.
+
+    Returns (sphere_scene, mesh): render with
+    ``render(sphere_scene, cam, ..., mesh=mesh)``.
+    """
+    from ..ops.triangle import merge_meshes, quad
+
+    s = 2.0  # half-size
+    white = dict(albedo=(0.73, 0.73, 0.73))
+    red = dict(albedo=(0.65, 0.05, 0.05))
+    green = dict(albedo=(0.12, 0.45, 0.15))
+    z0, z1 = -1.0, -1.0 - 2 * s
+
+    def q(*corners, **mat):
+        return quad(*corners, device=device, **mat)
+
+    walls = [
+        q((-s, 0, z0), (-s, 0, z1), (-s, 2 * s, z1), (-s, 2 * s, z0),
+          object_id=1, **red),                                      # left
+        q((s, 0, z1), (s, 0, z0), (s, 2 * s, z0), (s, 2 * s, z1),
+          object_id=2, **green),                                    # right
+        q((-s, 0, z1), (-s, 0, z0), (s, 0, z0), (s, 0, z1),
+          object_id=3, **white),                                    # floor
+        q((-s, 2 * s, z0), (-s, 2 * s, z1), (s, 2 * s, z1), (s, 2 * s, z0),
+          object_id=4, **white),                                    # ceiling
+        q((-s, 0, z1), (s, 0, z1), (s, 2 * s, z1), (-s, 2 * s, z1),
+          object_id=5, **white),                                    # back
+        q((-0.7, 2 * s - 0.01, z0 - s + 0.7),
+          (0.7, 2 * s - 0.01, z0 - s + 0.7),
+          (0.7, 2 * s - 0.01, z0 - s - 0.7),
+          (-0.7, 2 * s - 0.01, z0 - s - 0.7),
+          emission=(12.0, 12.0, 10.0), albedo=(0, 0, 0),
+          object_id=6),                                             # light
+    ]
+    mesh = merge_meshes(walls)
+
+    spheres = make_scene(
+        centers=[(-0.8, 0.6, z0 - s - 0.5), (0.8, 0.5, z0 - s + 0.5)],
+        radii=[0.6, 0.5],
+        albedos=[(0.95, 0.95, 0.95), (0.8, 0.7, 0.3)],
+        metallics=[1.0, 0.0],
+        roughnesses=[0.02, 0.4],
+        emissions=[(0, 0, 0), (0, 0, 0)],
+        background=(0.0, 0.0, 0.0),
+        device=device,
+    )
+    return spheres, mesh

@@ -1,24 +1,27 @@
-// Cluster-engine path tracer for large sphere scenes, NVIDIA Hopper (sm_90a).
+// Cluster-engine path tracer for large scenes, NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel built by tpu_rt/ops/pallas_cluster.py:567
-// _make_kernel (launched by render_cluster) for sphere scenes: the v2
-// estimator, pixel jitter or pixel centres, sqrt gamma and clamp, per-tile
-// traced segment counts, and the implicit 3-level Morton hierarchy of
-// tpu_rt_torch/ops/cluster.py:build_clusters (super-supers -> supers of 8 ->
-// clusters of C spheres, plus G "global" spheres swept for every ray).
+// _make_kernel (launched by render_cluster) for sphere scenes with or
+// without a triangle mesh: the v2 estimator, pixel jitter or pixel centres,
+// sqrt gamma and clamp, per-tile traced segment counts, and the implicit
+// 3-level Morton hierarchy of tpu_rt_torch/ops/cluster.py:build_clusters
+// (super-supers -> supers of 8 -> clusters of C spheres, plus G "global"
+// spheres swept for every ray), and a second such hierarchy of triangles
+// (build_tri_clusters, with its own globals: the largest-area triangles).
 // Randomness is the JAX kernel's interpret-mode counter hash, drawn in the
 // same order over the same 32 x 128 screen blocks (stream id
 // pyi * width + pxi over the padded grid, seed + tile * spp + s), so the
 // kernel can be held stream for stream against the plain PyTorch version.
 //
 // What bounds it: instruction issue of a divergent per-ray walk. Per bounce
-// every ray tests the G globals and the S2 super-super boxes; what it tests
-// beyond that depends on the scene and the ray (crossed supers x 8 child
-// boxes, crossed clusters x C spheres). The tables are small (10k spheres:
-// 0.9 MB; 100k: 7.4 MB) and stay in L2; device-memory traffic is the
-// 12 B/pixel colour store. At frames of a few waves of blocks, the slowest
-// blocks (rays that cross the most clusters) set the time, since each
-// thread loops over all of its pixel's samples.
+// every ray tests the G globals and the S2 super-super boxes of each table;
+// what it tests beyond that depends on the scene and the ray (crossed supers
+// x 8 child boxes, crossed clusters x C primitives). The tables are small
+// (10k spheres: 0.9 MB; 100k: 7.4 MB; 100k triangles: 9.4 MB) and stay in
+// L2; device-memory traffic is the 12 B/pixel colour store. At frames of a
+// few waves of blocks, the slowest blocks (rays that cross the most
+// clusters) set the time, since each thread loops over all of its pixel's
+// samples.
 //
 // What the design does about it, simply:
 //   * one thread per lane of the padded screen-block grid; samples and
@@ -34,8 +37,17 @@
 //     read the same table words (broadcast loads);
 //   * globals, camera and background in shared memory; the tables read-only
 //     from device memory through the read-only cache; the winner is kept as
-//     a pointer to its packed row and unpacked (bf16 pairs: << 16 and
-//     & 0xFFFF0000) once, after the walk;
+//     a pointer to its packed row plus a triangle flag, and unpacked (bf16
+//     pairs: << 16 and & 0xFFFF0000) once, after the search;
+//   * with a mesh, the search per bounce is the TPU kernel's, in its order
+//     (ties depend on it): sphere globals, triangle globals (Moller-Trumbore
+//     from shared memory), the sphere walk, then the same walk over the
+//     triangle hierarchy, pruned by the running best t. A triangle winner's
+//     bf16 face normal n is encoded as the TPU kernel encodes it
+//     (pallas_cluster.py:915-924): centre (o + d t) - n and 1/r the sign
+//     that opposes n to the ray, so the sphere shading's (h - c) * (1/r)
+//     forms the normal with the same roundings. The triangle path is a
+//     template branch: without a mesh the kernel is the sphere kernel;
 //   * segment counts: one integer atomic per block into its tile's slot.
 //
 // Not done here, and left to later work: warp-cooperative traversal (one
@@ -51,7 +63,7 @@ constexpr int kLanes = 128;    // columns of a screen block
 constexpr int kBlock = 256;    // a 16 x 16 patch; 16 blocks per screen block
 constexpr int kFanout = 8;
 constexpr int kMaxGlobal = 64;
-constexpr int kCols = 16;      // words of a packed sphere row
+constexpr int kCols = 16;      // words of a packed sphere or triangle row
 
 struct Ray {
   float ox, oy, oz;
@@ -87,15 +99,21 @@ __device__ __forceinline__ float word(const int* p) {
   return __int_as_float(*p);
 }
 
-// Sphere test of the packed row at ``row`` (word f at row[f * stride]):
-// the NaN-propagating root select and the inv_r > 0 validity test. A
-// strictly nearer root replaces the winner, so the first of equal roots
-// in visit order wins.
+// The nearest hit so far: its t, its packed row (word f at row[f * stride])
+// and whether that row is a triangle's.
+struct Best {
+  float t;
+  const int* row;
+  int stride;
+  bool tri;
+};
+
+// Sphere test of the packed row at ``row``: the NaN-propagating root select
+// and the inv_r > 0 validity test. A strictly nearer root replaces the
+// winner, so the first of equal roots in visit order wins.
 template <bool kReadOnly>
 __device__ __forceinline__ void test_sphere(const int* row, int stride,
-                                            const Path& p, float& best_t,
-                                            const int*& best_row,
-                                            int& best_stride) {
+                                            const Path& p, Best& best) {
   const float ocx = p.ox - word<kReadOnly>(row);
   const float ocy = p.oy - word<kReadOnly>(row + stride);
   const float ocz = p.oz - word<kReadOnly>(row + 2 * stride);
@@ -106,30 +124,79 @@ __device__ __forceinline__ void test_sphere(const int* row, int stride,
   const float sqrtd = sqrtf(half_b * half_b - cq);
   const float root0 = -half_b - sqrtd;
   const float root = root0 >= 1e-3f ? root0 : sqrtd - half_b;
-  if (root >= 1e-3f && root < best_t &&
-      word<kReadOnly>(row + 4 * stride) > 0.f) {
-    best_t = root;
-    best_row = row;
-    best_stride = stride;
+  if (root >= 1e-3f && root < best.t &&
+      word<kReadOnly>(row + 4 * stride) > 0.f)
+    best = Best{root, row, stride, false};
+}
+
+// Moller-Trumbore of the packed triangle row at ``row`` (words 0-8: v0, e1,
+// e2); rows with zero edges never hit. A strictly nearer t wins.
+template <bool kReadOnly>
+__device__ __forceinline__ void test_triangle(const int* row, int stride,
+                                              const Path& p, Best& best) {
+  const auto w = [&](int f) { return word<kReadOnly>(row + f * stride); };
+  const float t = mt_test(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, w(0), w(1),
+                          w(2), w(3), w(4), w(5), w(6), w(7), w(8));
+  if (t < best.t) best = Best{t, row, stride, true};
+}
+
+// One table's hierarchy, in storage order, with no stack: each crossed
+// super-super, each of its crossed supers, each of their crossed clusters
+// (box from the last row of the cluster's block), whose C rows are tested.
+template <bool kTri>
+__device__ __forceinline__ void walk(const float* __restrict__ ss_boxes,
+                                     int n_ss,
+                                     const float* __restrict__ super_boxes,
+                                     const int* __restrict__ attr, int C,
+                                     const Ray& r, const Path& p, Best& best) {
+  const int block_words = (C * kCols / kLanes + 1) * kLanes;
+  const int box_word = C * kCols;  // the cluster box: first word of the last row
+  for (int a = 0; a < n_ss; ++a) {
+    if (!crosses(ss_boxes + a * 8, r, best.t)) continue;
+    for (int sp = a * kFanout; sp < (a + 1) * kFanout; ++sp) {
+      if (!crosses(super_boxes + sp * 8, r, best.t)) continue;
+      for (int c = sp * kFanout; c < (sp + 1) * kFanout; ++c) {
+        const int* blk = attr + (size_t)c * block_words;
+        if (!crosses(reinterpret_cast<const float*>(blk + box_word), r,
+                     best.t))
+          continue;
+        for (int j = 0; j < C; ++j) {
+          if constexpr (kTri)
+            test_triangle<true>(blk + j, C, p, best);
+          else
+            test_sphere<true>(blk + j, C, p, best);
+        }
+      }
+    }
   }
 }
 
+template <bool kTris>
 __global__ void __launch_bounds__(kBlock)
 cluster_kernel(const int* __restrict__ glob_g, int n_global,
                const float* __restrict__ ss_boxes, int n_ss,
                const float* __restrict__ super_boxes,
                const int* __restrict__ attr, int C,
+               const int* __restrict__ tglob_g, int n_tri_global,
+               const float* __restrict__ tss_boxes, int n_tri_ss,
+               const float* __restrict__ tsuper_boxes,
+               const int* __restrict__ tattr, int tri_C,
                const float* __restrict__ cam_g, const float* __restrict__ bg_g,
                uint32_t seed, int width, int height, int blocks_x,
                float inv_w, float inv_h, int spp, float inv_spp,
                int max_depth, int jitter, float* __restrict__ out,
                int* __restrict__ segs) {
   __shared__ int glob[kMaxGlobal * kCols];
+  __shared__ int tglob[kTris ? kMaxGlobal * kCols : 1];
   __shared__ float cam[16];
   __shared__ float bg[3];
 
   for (int i = threadIdx.x; i < n_global * kCols; i += kBlock)
     glob[i] = glob_g[i];
+  if constexpr (kTris) {
+    for (int i = threadIdx.x; i < n_tri_global * kCols; i += kBlock)
+      tglob[i] = tglob_g[i];
+  }
   if (threadIdx.x < 16) cam[threadIdx.x] = cam_g[threadIdx.x];
   if (threadIdx.x < 3) bg[threadIdx.x] = bg_g[threadIdx.x];
   __syncthreads();
@@ -148,9 +215,6 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
   const uint32_t flat = (uint32_t)pyi * (uint32_t)width + (uint32_t)pxi;
   const float px = (float)pxi;
   const float py = (float)pyi;
-
-  const int block_words = (C * kCols / kLanes + 1) * kLanes;
-  const int box_word = C * kCols;  // the cluster box: first word of the last row
 
   const float cpx = cam[0], cpy = cam[1], cpz = cam[2];
   const float fwx = cam[3], fwy = cam[4], fwz = cam[5];
@@ -185,55 +249,65 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
     for (int k = 1; k <= max_depth; ++k) {
       ++seg_count;  // only live paths reach this point
 
-      float best_t = kTMax;
-      const int* best_row = nullptr;
-      int best_stride = 1;
-      // ---- globals: dense sweep from shared memory ----
+      Best best{kTMax, nullptr, 1, false};
+      // ---- globals: dense sweeps from shared memory ----
       for (int g = 0; g < n_global; ++g)
-        test_sphere<false>(glob + g * kCols, 1, p, best_t, best_row,
-                           best_stride);
-
-      // ---- the hierarchy, in storage order, with no stack ----
-      const Ray r{p.ox, p.oy, p.oz, safe_inv(p.dx), safe_inv(p.dy),
-                  safe_inv(p.dz)};
-      for (int a = 0; a < n_ss; ++a) {
-        if (!crosses(ss_boxes + a * 8, r, best_t)) continue;
-        for (int sp = a * kFanout; sp < (a + 1) * kFanout; ++sp) {
-          if (!crosses(super_boxes + sp * 8, r, best_t)) continue;
-          for (int c = sp * kFanout; c < (sp + 1) * kFanout; ++c) {
-            const int* blk = attr + (size_t)c * block_words;
-            if (!crosses(reinterpret_cast<const float*>(blk + box_word), r,
-                         best_t))
-              continue;
-            for (int j = 0; j < C; ++j)
-              test_sphere<true>(blk + j, C, p, best_t, best_row,
-                                best_stride);
-          }
-        }
+        test_sphere<false>(glob + g * kCols, 1, p, best);
+      if constexpr (kTris) {
+        for (int g = 0; g < n_tri_global; ++g)
+          test_triangle<false>(tglob + g * kCols, 1, p, best);
       }
 
-      if (best_row == nullptr) {  // miss: background, path ends
+      // ---- the hierarchies, spheres then triangles ----
+      const Ray r{p.ox, p.oy, p.oz, safe_inv(p.dx), safe_inv(p.dy),
+                  safe_inv(p.dz)};
+      walk<false>(ss_boxes, n_ss, super_boxes, attr, C, r, p, best);
+      if constexpr (kTris)
+        walk<true>(tss_boxes, n_tri_ss, tsuper_boxes, tattr, tri_C, r, p,
+                   best);
+
+      if (best.row == nullptr) {  // miss: background, path ends
         p.cr = p.cr + p.tr * bg[0];
         p.cg = p.cg + p.tg * bg[1];
         p.cb = p.cb + p.tb * bg[2];
         break;
       }
-      // unpack the winner's packed row (generic loads: shared or global)
-      const int ws = best_stride;
-      const uint32_t p0 = (uint32_t)best_row[5 * ws];
-      const uint32_t p1 = (uint32_t)best_row[6 * ws];
-      const uint32_t p2 = (uint32_t)best_row[7 * ws];
-      const uint32_t p3 = (uint32_t)best_row[8 * ws];
-      const uint32_t p4 = (uint32_t)best_row[9 * ws];
+      // unpack the winner's packed row (generic loads: shared or global);
+      // its materials are 5 bf16-pair words, at word 5 of a sphere row and
+      // word 11 of a triangle row
+      const int ws = best.stride;
+      const int* m = best.row + ((kTris && best.tri) ? 11 : 5) * ws;
+      const uint32_t p0 = (uint32_t)m[0];
+      const uint32_t p1 = (uint32_t)m[ws];
+      const uint32_t p2 = (uint32_t)m[2 * ws];
+      const uint32_t p3 = (uint32_t)m[3 * ws];
+      const uint32_t p4 = (uint32_t)m[4 * ws];
+      float cx, cy, cz, ir;
+      if (kTris && best.tri) {
+        // the bf16 face normal, encoded as the TPU kernel does
+        const uint32_t n0 = (uint32_t)best.row[9 * ws];
+        const uint32_t n1 = (uint32_t)best.row[10 * ws];
+        const float nx = __uint_as_float(n0 << 16);
+        const float ny = __uint_as_float(n0 & 0xFFFF0000u);
+        const float nz = __uint_as_float(n1 << 16);
+        ir = (p.dx * nx + p.dy * ny + p.dz * nz) < 0.f ? 1.f : -1.f;
+        cx = (p.ox + p.dx * best.t) - nx;
+        cy = (p.oy + p.dy * best.t) - ny;
+        cz = (p.oz + p.dz * best.t) - nz;
+      } else {
+        cx = __int_as_float(best.row[0]);
+        cy = __int_as_float(best.row[ws]);
+        cz = __int_as_float(best.row[2 * ws]);
+        ir = __int_as_float(best.row[4 * ws]);
+      }
       const Surface surf{
-          __int_as_float(best_row[0]), __int_as_float(best_row[ws]),
-          __int_as_float(best_row[2 * ws]), __int_as_float(best_row[4 * ws]),
+          cx, cy, cz, ir,
           __uint_as_float(p0 << 16), __uint_as_float(p0 & 0xFFFF0000u),
           __uint_as_float(p1 << 16), __uint_as_float(p1 & 0xFFFF0000u),
           __uint_as_float(p2 << 16),
           __uint_as_float(p3 << 16), __uint_as_float(p3 & 0xFFFF0000u),
           __uint_as_float(p4 << 16)};
-      if (!shade_hit(p, surf, best_t, k, pix_mix, bounce_salt(jitter, k)))
+      if (!shade_hit(p, surf, best.t, k, pix_mix, bounce_salt(jitter, k)))
         break;
     }
     acc_r += p.cr;
@@ -258,20 +332,29 @@ extern "C" {
 
 // Launches the cluster kernel on `stream`. `glob` is (n_global, 16) int32
 // words, `ss_boxes` (n_ss, 8) and `super_boxes` (8 n_ss, 8) f32, `attr`
-// (64 n_ss, C/8 + 1, 128) int32 words, `cam` (16,) and `bg` (3,) f32, all on
-// the device. `out` is (height, width, 3) f32; `segs` (n_tiles,) int32,
-// zeroed by the caller, with n_tiles = ceil(width/128) * ceil(height/32).
-// Allocates nothing and does not synchronise. Returns cudaGetLastError() of
-// the launch.
+// (64 n_ss, C/8 + 1, 128) int32 words; the `t`-prefixed triangle tables
+// have the same layout (n_tri_ss 0 and null pointers: no mesh); `cam` (16,)
+// and `bg` (3,) f32, all on the device. `out` is (height, width, 3) f32;
+// `segs` (n_tiles,) int32, zeroed by the caller, with n_tiles =
+// ceil(width/128) * ceil(height/32). Allocates nothing and does not
+// synchronise. Returns cudaGetLastError() of the launch.
 int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
                          int n_ss, const float* super_boxes, const int* attr,
-                         int cluster_size, const float* cam, const float* bg,
-                         int seed, int width, int height, int spp,
-                         int max_depth, int jitter, float* out, int* segs,
-                         void* stream) {
+                         int cluster_size, const int* tglob, int n_tri_global,
+                         const float* tss_boxes, int n_tri_ss,
+                         const float* tsuper_boxes, const int* tattr,
+                         int tri_cluster_size, const float* cam,
+                         const float* bg, int seed, int width, int height,
+                         int spp, int max_depth, int jitter, float* out,
+                         int* segs, void* stream) {
   if (n_global < 0 || n_global > kMaxGlobal || n_ss < 1 ||
-      cluster_size < 8 || cluster_size % 8 != 0 || width < 1 || height < 1 ||
-      spp < 1 || max_depth < 1)
+      cluster_size < 8 || cluster_size % 8 != 0 || n_tri_ss < 0 ||
+      (n_tri_ss > 0 &&
+       (n_tri_global < 0 || n_tri_global > kMaxGlobal ||
+        tri_cluster_size < 8 || tri_cluster_size % 8 != 0 ||
+        tss_boxes == nullptr || tsuper_boxes == nullptr ||
+        tattr == nullptr || (n_tri_global > 0 && tglob == nullptr))) ||
+      width < 1 || height < 1 || spp < 1 || max_depth < 1)
     return (int)cudaErrorInvalidValue;
   const int blocks_x = (width + kLanes - 1) / kLanes;
   const int blocks_y = (height + kSublanes - 1) / kSublanes;
@@ -279,10 +362,12 @@ int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
   const float inv_h = (float)(1.0 / (double)height);
   const float inv_spp = (float)(1.0 / (double)spp);
   const int blocks = blocks_x * blocks_y * (kTile / kBlock);
-  cluster_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      glob, n_global, ss_boxes, n_ss, super_boxes, attr, cluster_size, cam,
-      bg, (uint32_t)seed, width, height, blocks_x, inv_w, inv_h, spp, inv_spp,
-      max_depth, jitter, out, segs);
+  auto kernel = n_tri_ss > 0 ? cluster_kernel<true> : cluster_kernel<false>;
+  kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+      glob, n_global, ss_boxes, n_ss, super_boxes, attr, cluster_size, tglob,
+      n_tri_global, tss_boxes, n_tri_ss, tsuper_boxes, tattr,
+      tri_cluster_size, cam, bg, (uint32_t)seed, width, height, blocks_x,
+      inv_w, inv_h, spp, inv_spp, max_depth, jitter, out, segs);
   return (int)cudaGetLastError();
 }
 

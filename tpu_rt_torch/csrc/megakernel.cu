@@ -1,19 +1,21 @@
 // Path-trace megakernel for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel built by tpu_rt/ops/pallas_megakernel.py:_make_kernel
-// (launched by render_pallas) for the configuration the main render path
-// runs: sphere scenes of at most 64 spheres, the v2 estimator, i.i.d. pixel
-// jitter (or pixel centres), sqrt gamma and clamp, and per-tile traced
-// segment counts. Randomness is the counter hash of the JAX kernel's
-// interpret mode (_hash_uniform), drawn in the same order, so this kernel
-// can be held stream for stream against the JAX package and against the
-// plain PyTorch version in tpu_rt_torch/ops/megakernel.py.
+// (launched by render_pallas) for the configurations the main render path
+// and the small-mesh path run: sphere scenes of at most 64 spheres, beside
+// at most 256 triangles or none, the v2 estimator, i.i.d. pixel jitter (or
+// pixel centres), sqrt gamma and clamp, and per-tile traced segment counts.
+// Randomness is the counter hash of the JAX kernel's interpret mode
+// (_hash_uniform), drawn in the same order, so this kernel can be held
+// stream for stream against the JAX package and against the plain PyTorch
+// version in tpu_rt_torch/ops/megakernel.py.
 //
 // What bounds it: FP32 throughput and instruction latency. The inputs are a
-// (<= 64, 16) f32 attribute table (4 KB) and 20 camera/background scalars;
-// the only device-memory traffic is the 12 B/pixel colour store. Each thread
-// runs a divergent loop (samples x bounces x spheres) of dependent
-// arithmetic and transcendentals.
+// (<= 64, 16) f32 attribute table (4 KB), a (<= 256, 20) f32 triangle table
+// (20 KB) and 20 camera/background scalars; the only device-memory traffic
+// is the 12 B/pixel colour store. Each thread runs a divergent loop
+// (samples x bounces x primitives) of dependent arithmetic and
+// transcendentals.
 //
 // What the design does about it:
 //   * one thread per pixel, samples and bounces looped inside the thread; a
@@ -24,6 +26,13 @@
 //     sphere sweep, which is a broadcast with no bank conflict;
 //   * the sweep keeps only the winner's index and t, and reads the winner's
 //     material from shared memory after the sweep;
+//   * triangles (pallas_megakernel.py:345-394, 448-456): the triangle table
+//     sits in shared memory beside the spheres; after the sphere sweep the
+//     thread runs scalar Moller-Trumbore over them with a strict t < best,
+//     so a sphere wins a tie and an earlier triangle a later one; a
+//     triangle winner shades with its f32 face normal flipped to oppose the
+//     ray. The sweep is a template branch: the sphere-only instantiation
+//     keeps the instruction stream and shared memory it had;
 //   * no global state (no __constant__ symbol): a launch writes only its own
 //     output and counts, so renders on two streams cannot race;
 //   * segment counts: a block reduction, then one integer atomicAdd per block
@@ -43,19 +52,30 @@ namespace {
 constexpr int kBlock = 256;  // threads per block; divides kTile
 constexpr int kMaxSpheres = 64;
 constexpr int kCols = 16;    // attribute columns (ops/intersect.py)
+constexpr int kMaxTris = 256;
+// triangle columns (ops/megakernel.py:_pack_tris): v0 0-2, e1 3-5, e2 6-8,
+// normal 9-11, albedo 12-14, metallic 15, roughness 16, emission 17-19
+constexpr int kTriCols = 20;
 
+template <bool kTris>
 __global__ void __launch_bounds__(kBlock)
 megakernel(const float* __restrict__ attr_g, int n_spheres,
+           const float* __restrict__ tris_g, int n_tris,
            const float* __restrict__ cam_g, const float* __restrict__ bg_g,
            uint32_t seed, uint32_t pixel_offset, int width, float inv_w,
            float inv_h, int spp, float inv_spp, int max_depth, int jitter,
            float* __restrict__ out, int n_pix, int* __restrict__ segs) {
   __shared__ float attr[kMaxSpheres * kCols];
+  __shared__ float tris[kTris ? kMaxTris * kTriCols : 1];
   __shared__ float cam[16];
   __shared__ float bg[3];
 
   for (int i = threadIdx.x; i < n_spheres * kCols; i += kBlock)
     attr[i] = attr_g[i];
+  if constexpr (kTris) {
+    for (int i = threadIdx.x; i < n_tris * kTriCols; i += kBlock)
+      tris[i] = tris_g[i];
+  }
   if (threadIdx.x < 16) cam[threadIdx.x] = cam_g[threadIdx.x];
   if (threadIdx.x < 3) bg[threadIdx.x] = bg_g[threadIdx.x];
   __syncthreads();
@@ -120,18 +140,45 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
         }
       }
 
-      if (best < 0) {  // miss: background, path ends
+      // ---- then the triangles; padding rows have zero edges ----
+      int best_tri = -1;
+      if constexpr (kTris) {
+        for (int n = 0; n < n_tris; ++n) {
+          const float* g = tris + n * kTriCols;
+          const float t = mt_test(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, g[0],
+                                  g[1], g[2], g[3], g[4], g[5], g[6], g[7],
+                                  g[8]);
+          if (t < best_t) {
+            best_t = t;
+            best_tri = n;
+          }
+        }
+      }
+
+      if (best < 0 && best_tri < 0) {  // miss: background, path ends
         p.cr = p.cr + p.tr * bg[0];
         p.cg = p.cg + p.tg * bg[1];
         p.cb = p.cb + p.tb * bg[2];
         break;
       }
       // the winner's material is read from shared memory after the sweep
-      const float* w = attr + best * kCols;
-      const Surface surf{w[0], w[1], w[2], w[14], w[4], w[5], w[6], w[7],
-                         w[8], w[9], w[10], w[11]};
-      if (!shade_hit(p, surf, best_t, k, pix_mix, bounce_salt(jitter, k)))
-        break;
+      bool alive;
+      if (kTris && best_tri >= 0) {
+        // a triangle won: its face normal, flipped to oppose the ray
+        const float* g = tris + best_tri * kTriCols;
+        const float sgn =
+            (p.dx * g[9] + p.dy * g[10] + p.dz * g[11]) < 0.f ? 1.f : -1.f;
+        const Surface surf{g[9],  g[10], g[11], sgn,   g[12], g[13],
+                           g[14], g[15], g[16], g[17], g[18], g[19]};
+        alive = shade_hit(p, surf, best_t, k, pix_mix, bounce_salt(jitter, k),
+                          true);
+      } else {
+        const float* w = attr + best * kCols;
+        const Surface surf{w[0], w[1], w[2], w[14], w[4], w[5], w[6], w[7],
+                           w[8], w[9], w[10], w[11]};
+        alive = shade_hit(p, surf, best_t, k, pix_mix, bounce_salt(jitter, k));
+      }
+      if (!alive) break;
     }
     acc_r += p.cr;
     acc_g += p.cg;
@@ -154,24 +201,29 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
 extern "C" {
 
 // Launches the megakernel on `stream`. `out` is (n_pix, 3) f32, `segs`
-// (n_tiles,) int32 and zeroed by the caller; `attr` (n_spheres, 16), `cam`
-// (16,) and `bg` (3,) f32 on the device. Allocates nothing and does not
-// synchronise. Returns cudaGetLastError() of the launch.
-int tpurt_megakernel_launch(const float* attr, int n_spheres, const float* cam,
+// (n_tiles,) int32 and zeroed by the caller; `attr` (n_spheres, 16), `tris`
+// (n_tris, 20) (or null with n_tris 0), `cam` (16,) and `bg` (3,) f32 on the
+// device. Allocates nothing and does not synchronise. Returns
+// cudaGetLastError() of the launch.
+int tpurt_megakernel_launch(const float* attr, int n_spheres,
+                            const float* tris, int n_tris, const float* cam,
                             const float* bg, int seed, int pixel_offset,
                             int width, int height, int spp, int max_depth,
                             int jitter, int n_tiles, float* out, int n_pix,
                             int* segs, void* stream) {
-  if (n_spheres < 1 || n_spheres > kMaxSpheres || width < 1 || height < 1 ||
-      spp < 1 || max_depth < 1 || n_tiles < 1)
+  if (n_spheres < 1 || n_spheres > kMaxSpheres || n_tris < 0 ||
+      n_tris > kMaxTris || (n_tris > 0 && tris == nullptr) || width < 1 ||
+      height < 1 || spp < 1 || max_depth < 1 || n_tiles < 1)
     return (int)cudaErrorInvalidValue;
   const float inv_w = (float)(1.0 / (double)width);
   const float inv_h = (float)(1.0 / (double)height);
   const float inv_spp = (float)(1.0 / (double)spp);
   const int blocks = n_tiles * (kTile / kBlock);
-  megakernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      attr, n_spheres, cam, bg, (uint32_t)seed, (uint32_t)pixel_offset, width,
-      inv_w, inv_h, spp, inv_spp, max_depth, jitter, out, n_pix, segs);
+  auto kernel = n_tris > 0 ? megakernel<true> : megakernel<false>;
+  kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+      attr, n_spheres, tris, n_tris, cam, bg, (uint32_t)seed,
+      (uint32_t)pixel_offset, width, inv_w, inv_h, spp, inv_spp, max_depth,
+      jitter, out, n_pix, segs);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // Device helpers shared by the path-trace kernels (megakernel.cu,
-// cluster.cu): the JAX kernels' interpret-mode counter hash, the v2 bounce
-// after a nearest hit (emission, Russian roulette, metal or diffuse
-// scatter), and the salt order both kernels draw in.
+// cluster.cu): the JAX kernels' interpret-mode counter hash, the scalar
+// Moller-Trumbore test, the v2 bounce after a nearest hit (emission,
+// Russian roulette, metal or diffuse scatter), and the salt order both
+// kernels draw in.
 //
 // Build without fast-math: the sphere test's root selection relies on IEEE
 // compares with the NaN of sqrt(negative) being false. Build without FMA
@@ -40,6 +41,35 @@ __device__ __forceinline__ float inv_len(float x, float y, float z) {
   return 1.0f / sqrtf(fmaxf(x * x + y * y + z * z, 1e-20f));
 }
 
+// Scalar Moller-Trumbore of the ray (o, d) against the triangle (v0, e1, e2)
+// in the JAX kernels' order of operations. Returns the hit's t if the
+// determinant exceeds 1e-9 in magnitude, u, v >= 0, u + v <= 1 and
+// t >= 1e-3, else NaN (which fails every compare). Zero edges (padding
+// rows) give det == 0 and never hit.
+__device__ __forceinline__ float mt_test(float ox, float oy, float oz,
+                                         float dx, float dy, float dz,
+                                         float v0x, float v0y, float v0z,
+                                         float e1x, float e1y, float e1z,
+                                         float e2x, float e2y, float e2z) {
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const bool okd = fabsf(det) > 1e-9f;
+  const float inv = 1.0f / (okd ? det : 1.0f);
+  const float tvx = ox - v0x;
+  const float tvy = oy - v0y;
+  const float tvz = oz - v0z;
+  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float v = (dx * qvx + dy * qvy + dz * qvz) * inv;
+  const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
+  const bool ok = okd && u >= 0.f && v >= 0.f && u + v <= 1.f && t >= 1e-3f;
+  return ok ? t : __int_as_float(0x7fc00000);
+}
+
 // Salts follow the JAX kernels' call-site counter over their unrolled
 // trace: jitter draws 1, 2; bounce k draws 3 ball salts, plus one RR salt
 // first when k > kRRStart. Returns the salt drawn last before bounce k.
@@ -58,6 +88,8 @@ struct Path {
 };
 
 // The winner of a nearest-hit search: centre, 1/radius, shading attributes.
+// (A megakernel triangle winner carries its face normal in cx..cz and the
+// sign that turns it against the ray in ir; see shade_hit's face_normal.)
 struct Surface {
   float cx, cy, cz, ir;
   float ar, ag, ab, met, rgh;
@@ -68,10 +100,13 @@ struct Surface {
 // roulette after bounce kRRStart (p = clamp(max throughput, 0.1, 0.95),
 // survivors compensated), then a metal mirror with roughness jitter or a
 // diffuse normal + hemisphere-flipped unit-ball point. Returns false when
-// roulette ends the path.
+// roulette ends the path. The normal is (hit - c) * ir, or with
+// ``face_normal`` c * ir (a face normal times the sign that opposes it to
+// the ray); callers that never pass it compile to the sphere arithmetic.
 __device__ __forceinline__ bool shade_hit(Path& p, const Surface& w, float t,
                                           int k, uint32_t pix_mix,
-                                          uint32_t salt) {
+                                          uint32_t salt,
+                                          bool face_normal = false) {
   p.cr = p.cr + p.tr * w.er;
   p.cg = p.cg + p.tg * w.eg;
   p.cb = p.cb + p.tb * w.eb;
@@ -88,9 +123,9 @@ __device__ __forceinline__ bool shade_hit(Path& p, const Surface& w, float t,
   const float hx = p.ox + p.dx * t;
   const float hy = p.oy + p.dy * t;
   const float hz = p.oz + p.dz * t;
-  const float nx = (hx - w.cx) * w.ir;
-  const float ny = (hy - w.cy) * w.ir;
-  const float nz = (hz - w.cz) * w.ir;
+  const float nx = face_normal ? w.cx * w.ir : (hx - w.cx) * w.ir;
+  const float ny = face_normal ? w.cy * w.ir : (hy - w.cy) * w.ir;
+  const float nz = face_normal ? w.cz * w.ir : (hz - w.cz) * w.ir;
 
   // uniform point in the unit ball: direction x cbrt radius
   const float u1 = hash_uniform(pix_mix, salt + 1u);

@@ -1,12 +1,14 @@
-"""The cluster engine for large sphere scenes: host-side builders, the
-CUDA kernel's wrapper, and its plain PyTorch version.
+"""The cluster engine for large scenes: host-side builders, the CUDA
+kernel's wrapper, and its plain PyTorch version.
 
-Counterpart of ``tpu_rt/ops/pallas_cluster.py`` for sphere scenes: the
-same Morton-clustered tables (an implicit 3-level hierarchy of
-super-supers, supers of FANOUT and clusters of C spheres; the few largest
-spheres swept densely as "globals"), word for word, including the
-field-major cluster blocks with the cluster box in their last row and the
-bf16-pair packing of the shading attributes. Tables stay int32 at rest.
+Counterpart of ``tpu_rt/ops/pallas_cluster.py`` for sphere scenes and
+triangle meshes: the same Morton-clustered tables (an implicit 3-level
+hierarchy of super-supers, supers of FANOUT and clusters of C primitives;
+the few largest primitives swept densely as "globals"), word for word,
+including the field-major cluster blocks with the cluster box in their
+last row and the bf16-pair packing of the shading attributes. Tables stay
+int32 at rest. A mesh has its own tables (``build_tri_clusters``), searched
+after the sphere tables with the same running best hit.
 
 The estimator is the JAX kernel's (v2, pixel jitter or centres, sqrt gamma,
 per-tile segment counts), drawn from its interpret-mode counter hash in the
@@ -17,9 +19,9 @@ and seed ``seed + tile * spp + s``.
 ``render_cluster`` launches ``csrc/cluster.cu`` for scenes on a CUDA device
 and runs ``render_cluster_reference`` for scenes on the CPU; there is no
 other path. The plain version finds each nearest hit by sweeping the
-globals and then every non-padding table row in storage order. The
-hierarchy walk visits clusters in that same order and its boxes only
-prune, so both compute the same function.
+globals and then every non-padding table row in storage order, spheres
+before triangles. The hierarchy walk visits clusters in that same order
+and its boxes only prune, so both compute the same function.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ TILE = SUBLANES * LANES  # rays per screen block (32 rows x 128 lanes)
 
 DEFAULT_CLUSTER = 64
 DEFAULT_GLOBAL = 4
+DEFAULT_TRI_GLOBAL = 2  # largest-area triangles swept densely
 FANOUT = 8           # children per super and supers per super-super
 MAX_GLOBAL = 64      # size of the kernel's shared-memory global table
 BIG = 3.0e38         # inverted-box sentinel of empty clusters
@@ -48,7 +51,8 @@ _M32 = mk._M32
 
 
 class ClusteredScene(NamedTuple):
-    """Morton-clustered sphere scene, ready for the cluster kernel.
+    """Morton-clustered sphere scene (or triangle mesh, see
+    :func:`build_tri_clusters`), ready for the cluster kernel.
 
     glob_attr:   (G, 16) int32 words: the G largest spheres (dense sweep)
     boxes:       (K, 8) f32 cluster boxes [lo xyz, hi xyz, flag, 0]; flag
@@ -207,6 +211,92 @@ def build_clusters(scene: SphereScene, cluster_size: int = DEFAULT_CLUSTER,
     return _finish_hierarchy(glob_attr, attr, lo, hi, K, C, scene.background)
 
 
+def _tri_attr_rows(mesh) -> torch.Tensor:
+    """Packed (T, 16) int32 triangle rows: words 0-8 the f32 bits of v0,
+    e1, e2; 9-15 bf16 pairs (nx, ny), (nz, 0), (ar, ag), (ab, met),
+    (rgh, ior), (er, eg), (eb, 0). Invalid rows get zero edges, which
+    forces det == 0 in the sweep, so triangles need no validity word."""
+    okf = mesh.valid[:, None]
+    e1 = torch.where(okf, mesh.e1, 0.0)
+    e2 = torch.where(okf, mesh.e2, 0.0)
+    z = torch.zeros_like(mesh.ior)
+    n, alb, em = mesh.normal, mesh.albedo, mesh.emission
+    return torch.cat([
+        _f32_bits(mesh.v0), _f32_bits(e1), _f32_bits(e2),
+        torch.stack([
+            _pack_bf16_pair(n[:, 0], n[:, 1]),
+            _pack_bf16_pair(n[:, 2], z),
+            _pack_bf16_pair(alb[:, 0], alb[:, 1]),
+            _pack_bf16_pair(alb[:, 2], mesh.metallic),
+            _pack_bf16_pair(mesh.roughness, mesh.ior),
+            _pack_bf16_pair(em[:, 0], em[:, 1]),
+            _pack_bf16_pair(em[:, 2], z),
+        ], dim=-1),
+    ], dim=-1)
+
+
+def build_tri_clusters(mesh, cluster_size: int = DEFAULT_CLUSTER,
+                       n_active: int | None = None) -> ClusteredScene:
+    """Morton-cluster a TriangleMesh (the triangle analogue of
+    :func:`build_clusters`: the same hierarchy and field-major blocks, rows
+    of :func:`_tri_attr_rows`), on the mesh's device.
+
+    The DEFAULT_TRI_GLOBAL largest-area valid triangles (ground quads and
+    others whose boxes would span the scene) go to the dense global sweep,
+    picked by a stable sort; the rest are Morton-ordered by box centre.
+    Cluster boxes are the triangles' vertex bounds. ``n_active`` bounds the
+    bucket to its first rows."""
+    n = mesh.capacity if n_active is None else int(n_active)
+    if not 1 <= n <= mesh.capacity:
+        raise ValueError(f"n_active={n_active} outside 1..{mesh.capacity}")
+    C = int(cluster_size)
+    if C < 8 or (C * 16) % LANES != 0:
+        raise ValueError("cluster_size must be a positive multiple of 8")
+    mesh = mesh._replace(**{k: v[:n] for k, v in mesh._asdict().items()})
+    dev = mesh.v0.device
+    G = min(DEFAULT_TRI_GLOBAL, n)
+
+    valid = mesh.valid
+    rows_full = _tri_attr_rows(mesh)
+    v1 = mesh.v0 + mesh.e1
+    v2 = mesh.v0 + mesh.e2
+    tri_min = torch.minimum(mesh.v0, torch.minimum(v1, v2))
+    tri_max = torch.maximum(mesh.v0, torch.maximum(v1, v2))
+
+    # |e1 x e2|, in the JAX package's order of operations
+    (ax, ay, az), (bx, by, bz) = mesh.e1.unbind(1), mesh.e2.unbind(1)
+    cx, cy, cz = ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx
+    area = torch.sqrt(cx * cx + cy * cy + cz * cz)
+    area_key = torch.where(valid, area, torch.full_like(area, -1.0))
+    glob_idx = torch.argsort(-area_key, stable=True)[:G]
+    glob_attr = rows_full[glob_idx]
+    # invalid rows in the global set must never hit: zero their edges
+    glob_attr[:, 3:9] = torch.where(valid[glob_idx][:, None],
+                                    glob_attr[:, 3:9], 0)
+
+    is_global = torch.zeros((n,), dtype=torch.bool, device=dev)
+    is_global[glob_idx] = True
+    rest = valid & ~is_global
+    order = torch.argsort(morton_codes((tri_min + tri_max) * 0.5, rest),
+                          stable=True)
+
+    K = max(1, -(-n // C))
+    K = -(-K // FANOUT**2) * FANOUT**2
+    pad = K * C - n
+    order_p = torch.cat([order, torch.zeros(pad, dtype=order.dtype,
+                                            device=dev)])
+    rest_p = torch.cat([rest[order], torch.zeros(pad, dtype=torch.bool,
+                                                 device=dev)])
+    attr = rows_full[order_p]
+    attr[:, 3:9] = torch.where(rest_p[:, None], attr[:, 3:9], 0)
+
+    ok = rest_p.reshape(K, C, 1)
+    lo = torch.where(ok, tri_min[order_p].reshape(K, C, 3), BIG).amin(dim=1)
+    hi = torch.where(ok, tri_max[order_p].reshape(K, C, 3), -BIG).amax(dim=1)
+    return _finish_hierarchy(glob_attr, attr, lo, hi, K, C,
+                             torch.zeros(3, dtype=torch.float32, device=dev))
+
+
 def _finish_hierarchy(glob_attr, attr, lo, hi, K, C, background):
     """Boxes of all three levels from the per-cluster bounds, and the
     field-major cluster blocks with the cluster's box appended as a last
@@ -283,22 +373,52 @@ def _not_ported(what: str, item: str):
         f"(ROADMAP.md: {item})")
 
 
-def _prepare(scene, cam, width, height, spp, max_depth, cluster_size,
-             n_active, prebuilt, pre_ordered, flags):
-    """Validate a call; build and order the tables unless given; pack the
-    camera. Returns (tables, camera (16,), blocks_x, blocks_y)."""
+def _checked(cl: ClusteredScene, what: str) -> ClusteredScene:
+    """Raise unless ``cl`` has the dtypes, shapes and single device the
+    kernel reads; returns it with contiguous tensors."""
+    if cl.n_global > MAX_GLOBAL:
+        raise ValueError(f"{cl.n_global} {what} globals exceed the kernel's "
+                         f"{MAX_GLOBAL}")
+    if (cl.glob_attr.dtype != torch.int32 or cl.attr.dtype != torch.int32
+            or any(t.dtype != torch.float32 for t in (
+                cl.boxes, cl.super_boxes, cl.ss_boxes, cl.background))):
+        raise TypeError(f"{what} cluster tables: glob_attr and attr must be "
+                        "int32, the boxes and the background float32")
+    K, S2, C = cl.n_clusters, cl.n_ss, cl.cluster_size
+    if (K != S2 * FANOUT**2 or cl.boxes.shape != (K, 8)
+            or cl.super_boxes.shape != (S2 * FANOUT, 8)
+            or cl.ss_boxes.shape != (S2, 8)
+            or cl.attr.shape != (K, (C * 16) // LANES + 1, LANES)
+            or cl.glob_attr.shape[1:] != (16,)
+            or cl.background.shape != (3,)):
+        raise ValueError(f"inconsistent {what} cluster table shapes: "
+                         + str({k: tuple(t.shape) for k, t in
+                                cl._asdict().items()}))
+    dev = cl.attr.device
+    if any(t.device != dev for t in cl):
+        raise ValueError(f"the {what} cluster tables lie on more than one "
+                         "device")
+    return ClusteredScene(*(t.contiguous() for t in cl))
+
+
+def _prepare(scene, cam, *, width, height, spp, max_depth, cluster_size,
+             n_active, mesh, n_tri_active, prebuilt, tri_prebuilt,
+             pre_ordered, enable_refraction, enable_dof, gamma, nee,
+             stratify, tile_mask, rows, row_offset, **_):
+    """Validate a call; build and order the sphere tables, and the
+    triangle tables of a mesh, unless given; pack the camera. Returns
+    (sphere tables, triangle tables or None, camera (16,), blocks_x,
+    blocks_y)."""
     for what, val, item in (
-            ("refraction", flags["enable_refraction"], "K2-dof-refract"),
-            ("thin-lens depth of field", flags["enable_dof"],
-             "K2-dof-refract"),
-            ("linear (gamma=False) output", not flags["gamma"], "K2-linear"),
-            ("triangle meshes", flags["mesh"] is not None, "K2-tri"),
-            ("next-event estimation (nee)", flags["nee"], "K2-nee-stratify"),
-            ("stratified sampling", flags["stratify"], "K2-nee-stratify"),
-            ("tile_mask adaptive sampling", flags["tile_mask"] is not None,
+            ("refraction", enable_refraction, "K2-dof-refract"),
+            ("thin-lens depth of field", enable_dof, "K2-dof-refract"),
+            ("linear (gamma=False) output", not gamma, "K2-linear"),
+            ("next-event estimation (nee)", nee, "K2-nee-stratify"),
+            ("stratified sampling", stratify, "K2-nee-stratify"),
+            ("tile_mask adaptive sampling", tile_mask is not None,
              "K2-tile-mask"),
-            ("rows/row_offset bands", flags["rows"] is not None
-             or flags["row_offset"] != 0, "K2-rows")):
+            ("rows/row_offset bands", rows is not None or row_offset != 0,
+             "K2-rows")):
         if val:
             raise _not_ported(what, item)
     for name, val in (("width", width), ("height", height), ("spp", spp),
@@ -309,41 +429,45 @@ def _prepare(scene, cam, width, height, spp, max_depth, cluster_size,
         scene, cluster_size=cluster_size, n_active=n_active)
     if not (pre_ordered and prebuilt is not None):
         cl = order_clusters(cl, cam.position)
-    if cl.n_global > MAX_GLOBAL:
-        raise ValueError(f"{cl.n_global} globals exceed the kernel's "
-                         f"{MAX_GLOBAL}")
-    if (cl.glob_attr.dtype != torch.int32 or cl.attr.dtype != torch.int32
-            or any(t.dtype != torch.float32 for t in (
-                cl.boxes, cl.super_boxes, cl.ss_boxes, cl.background))):
-        raise TypeError("cluster tables: glob_attr and attr must be int32, "
-                        "the boxes and the background float32")
-    K, S2, C = cl.n_clusters, cl.n_ss, cl.cluster_size
-    if (K != S2 * FANOUT**2 or cl.boxes.shape != (K, 8)
-            or cl.super_boxes.shape != (S2 * FANOUT, 8)
-            or cl.ss_boxes.shape != (S2, 8)
-            or cl.attr.shape != (K, (C * 16) // LANES + 1, LANES)
-            or cl.glob_attr.shape[1:] != (16,)
-            or cl.background.shape != (3,)):
-        raise ValueError("inconsistent cluster table shapes: "
-                         + str({k: tuple(t.shape) for k, t in
-                                cl._asdict().items()}))
-    dev = cl.attr.device
-    if any(t.device != dev for t in cl):
-        raise ValueError("the cluster tables lie on more than one device")
-    cl = ClusteredScene(*(t.contiguous() for t in cl))
-    return (cl, mk._pack_camera(cam).to(dev).contiguous(),
+    cl = _checked(cl, "sphere")
+    tri = None
+    if mesh is not None or tri_prebuilt is not None:
+        tri = tri_prebuilt if tri_prebuilt is not None else (
+            build_tri_clusters(mesh, cluster_size=cluster_size,
+                               n_active=n_tri_active))
+        if not (pre_ordered and tri_prebuilt is not None):
+            tri = order_clusters(tri, cam.position)
+        tri = _checked(tri, "triangle")
+        if tri.attr.device != cl.attr.device:
+            raise ValueError("the triangle tables lie on "
+                             f"{tri.attr.device}, the sphere tables on "
+                             f"{cl.attr.device}")
+    return (cl, tri, mk._pack_camera(cam).to(cl.attr.device).contiguous(),
             -(-width // LANES), -(-height // SUBLANES))
 
 
-def _sweep_rows(cl: ClusteredScene) -> torch.Tensor:
-    """The rows a nearest-hit search may take, in walk order: the globals,
-    then every cluster row whose inv_r is positive, in storage order.
-    (M, 16) int32."""
+def _table_rows(cl: ClusteredScene) -> torch.Tensor:
+    """Every packed row in walk order: the globals, then the cluster rows
+    in storage order. (M, 16) int32."""
     K, C = cl.n_clusters, cl.cluster_size
     rows = cl.attr[:, :(C * 16) // LANES].reshape(K, 16, C).transpose(
         1, 2).reshape(K * C, 16)
-    rows = torch.cat([cl.glob_attr, rows])
+    return torch.cat([cl.glob_attr, rows])
+
+
+def _sweep_rows(cl: ClusteredScene) -> torch.Tensor:
+    """The sphere rows a nearest-hit search may take, in walk order: those
+    whose inv_r is positive. (M, 16) int32."""
+    rows = _table_rows(cl)
     return rows[_bits_f32(rows[:, 4]) > 0.0]
+
+
+def _tri_sweep_rows(tri: ClusteredScene) -> torch.Tensor:
+    """The triangle rows a nearest-hit search may take, in walk order:
+    those with an edge word that is not zero (rows with zero edges have
+    det == 0 and never hit). (M, 16) int32."""
+    rows = _table_rows(tri)
+    return rows[(rows[:, 3:9] != 0).any(dim=1)]
 
 
 def _nearest(o, d, geo, chunk):
@@ -374,8 +498,41 @@ def _nearest(o, d, geo, chunk):
     return best_t, best_i
 
 
-def _trace_plain(cl: ClusteredScene, cam, seed, width, height, spp,
-                 max_depth, jitter, blocks_x, blocks_y):
+def _nearest_tri(o, d, geo, chunk, best_t):
+    """Continue the search of :func:`_nearest` over triangles (``geo``
+    (M, 9) f32: v0, e1, e2), in row order with strict ``<`` against the
+    running ``best_t``. Returns (best t, winning triangle row or -1)."""
+    o = [x[:, None] for x in o]
+    d = [x[:, None] for x in d]
+    best_j = torch.full_like(best_t, -1, dtype=torch.int64)
+    for m0 in range(0, geo.shape[0], chunk):
+        g = geo[m0:m0 + chunk].unbind(1)
+        ok, tt = mk.mt_test(o, d, g[0:3], g[3:6], g[6:9])
+        cmin, carg = torch.where(ok, tt, float("inf")).min(dim=1)
+        better = cmin < best_t
+        best_t = torch.where(better, cmin, best_t)
+        best_j = torch.where(better, carg + m0, best_j)
+    return best_t, best_j
+
+
+def _winner_table(rows: torch.Tensor, cols) -> torch.Tensor:
+    """(M + 1, ...) f32 planes of packed rows: for each word of ``cols``
+    its f32 value, for each pair (word, "lo"/"hi") that bf16 half; the last
+    row is zeros, which a miss (index -1) reads, as the JAX kernel's
+    best-hit state keeps zero planes."""
+    planes = []
+    for c in cols:
+        if isinstance(c, tuple):
+            lo, hi = _unpack_bf16_pair(rows[:, c[0]])
+            planes.append(lo if c[1] == "lo" else hi)
+        else:
+            planes.append(_bits_f32(rows[:, c]))
+    table = torch.stack(planes, dim=1)
+    return torch.cat([table, table.new_zeros((1, len(cols)))])
+
+
+def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
+                 width, height, spp, max_depth, jitter, blocks_x, blocks_y):
     """The kernel's computation as whole-tensor PyTorch ops over every
     lane of every screen block. Returns ((height, width, 3) f32 image,
     (n_tiles,) int32 segment counts)."""
@@ -383,18 +540,20 @@ def _trace_plain(cl: ClusteredScene, cam, seed, width, height, spp,
     rows = _sweep_rows(cl)
     dev = rows.device
     geo = _bits_f32(rows[:, 0:5])                     # centre, radius, inv_r
-    mats = [_bits_f32(rows[:, 4])]                    # inv_r
-    for col in (5, 6, 8):                             # (ar,ag) (ab,met) (er,eg)
-        mats += _unpack_bf16_pair(rows[:, col])
-    rgh = _unpack_bf16_pair(rows[:, 7])[0]
-    eb = _unpack_bf16_pair(rows[:, 9])[0]
     # the winner planes shade_plain takes: cx cy cz inv_r ar ag ab met rgh
-    # er eg eb; a last row of zeros is what a miss (index -1) reads, as the
-    # JAX kernel's best-hit state keeps zero planes
-    table = torch.stack([geo[:, 0], geo[:, 1], geo[:, 2], mats[0], mats[1],
-                         mats[2], mats[3], mats[4], rgh, mats[5], mats[6],
-                         eb], dim=1)
-    table = torch.cat([table, table.new_zeros((1, 12))])
+    # er eg eb, from words 0-2, 4 and the bf16 pairs of words 5-9
+    table = _winner_table(rows, (0, 1, 2, 4, (5, "lo"), (5, "hi"),
+                                 (6, "lo"), (6, "hi"), (7, "lo"), (8, "lo"),
+                                 (8, "hi"), (9, "lo")))
+    if tri is not None:
+        trows = _tri_sweep_rows(tri)
+        tgeo = _bits_f32(trows[:, 0:9])               # v0, e1, e2
+        # the bf16 face normal (words 9-10), then the same materials as
+        # the sphere rows' from words 11-15
+        ttable = _winner_table(trows, ((9, "lo"), (9, "hi"), (10, "lo"),
+                                       (11, "lo"), (11, "hi"), (12, "lo"),
+                                       (12, "hi"), (13, "lo"), (14, "lo"),
+                                       (14, "hi"), (15, "lo")))
 
     n_tiles = blocks_x * blocks_y
     n = n_tiles * TILE
@@ -411,6 +570,7 @@ def _trace_plain(cl: ClusteredScene, cam, seed, width, height, spp,
     # chunk the sweep to ~2^22 (CPU) or 2^26 (GPU) ray-row pairs
     budget = 1 << (26 if dev.type == "cuda" else 22)
     chunk = max(1, min(rows.shape[0], budget // n))
+    tchunk = max(1, budget // n)
 
     acc = [torch.zeros(n, dtype=f32, device=dev) for _ in range(3)]
     segs = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
@@ -447,11 +607,24 @@ def _trace_plain(cl: ClusteredScene, cam, seed, width, height, spp,
 
         for depth_idx in range(1, max_depth + 1):
             segs += act.view(n_tiles, TILE).sum(1, dtype=torch.int32)
-            best_t, best_i = _nearest((ox, oy, oz), (dx, dy, dz), geo, chunk)
+            o, d = (ox, oy, oz), (dx, dy, dz)
+            best_t, best_i = _nearest(o, d, geo, chunk)
+            w = list(table[best_i].unbind(1))
+            if tri is not None:
+                best_t, best_j = _nearest_tri(o, d, tgeo, tchunk, best_t)
+                # a triangle winner's normal n rides the sphere planes as
+                # c = hit - n and 1/r = the sign that opposes n to the ray,
+                # so the shading's (hit - c) * (1/r) forms it
+                is_tri = best_j >= 0
+                tw = ttable[best_j].unbind(1)
+                nx, ny, nz = tw[0:3]
+                sgn = torch.where(dx * nx + dy * ny + dz * nz < 0.0, 1.0, -1.0)
+                enc = (ox + dx * best_t - nx, oy + dy * best_t - ny,
+                       oz + dz * best_t - nz, sgn) + tw[3:]
+                w = [torch.where(is_tri, e, p) for e, p in zip(enc, w)]
             (ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb,
              act) = mk.shade_plain((ox, oy, oz, dx, dy, dz, tr, tg, tb, cr,
-                                    cg, cb, act), best_t,
-                                   table[best_i].unbind(1), bg, depth_idx, U)
+                                    cg, cb, act), best_t, w, bg, depth_idx, U)
         acc = [acc[0] + cr, acc[1] + cg, acc[2] + cb]
 
     inv_spp = mk._f32(1.0 / spp)
@@ -480,10 +653,12 @@ def render_cluster_reference(
     cluster_size: int = DEFAULT_CLUSTER,
     n_active: int | None = None,
     mesh=None,
+    n_tri_active: int | None = None,
     rows: int | None = None,
     row_offset: int = 0,
     enable_dof: bool = False,
     prebuilt: ClusteredScene | None = None,
+    tri_prebuilt: ClusteredScene | None = None,
     pre_ordered: bool = False,
     nee: bool = False,
     stratify: bool = False,
@@ -492,13 +667,10 @@ def render_cluster_reference(
     """The plain PyTorch version of the cluster kernel, on any device.
 
     Same contract as :func:`render_cluster`."""
-    flags = dict(enable_refraction=enable_refraction, enable_dof=enable_dof,
-                 gamma=gamma, mesh=mesh, nee=nee, stratify=stratify,
-                 tile_mask=tile_mask, rows=rows, row_offset=row_offset)
-    cl, cam_packed, blocks_x, blocks_y = _prepare(
-        scene, cam, width, height, spp, max_depth, cluster_size, n_active,
-        prebuilt, pre_ordered, flags)
-    img, segs = _trace_plain(cl, cam_packed, seed, width, height, spp,
+    kw = {k: v for k, v in locals().items() if k not in ("scene", "cam",
+                                                         "seed")}
+    cl, tri, cam_packed, blocks_x, blocks_y = _prepare(scene, cam, **kw)
+    img, segs = _trace_plain(cl, tri, cam_packed, seed, width, height, spp,
                              max_depth, jitter, blocks_x, blocks_y)
     return mk._finish(img, segs, width * height, blocks_x * blocks_y,
                       with_stats)
@@ -520,59 +692,61 @@ def render_cluster(
     cluster_size: int = DEFAULT_CLUSTER,
     n_active: int | None = None,
     mesh=None,
+    n_tri_active: int | None = None,
     rows: int | None = None,
     row_offset: int = 0,
     enable_dof: bool = False,
     prebuilt: ClusteredScene | None = None,
+    tri_prebuilt: ClusteredScene | None = None,
     pre_ordered: bool = False,
     nee: bool = False,
     stratify: bool = False,
     tile_mask=None,
 ):
-    """Render one batch of ``spp`` samples of a large sphere scene through
-    the cluster engine.
+    """Render one batch of ``spp`` samples of a large scene through the
+    cluster engine.
 
     Returns (height, width, 3) f32 in [0, 1], and with ``with_stats`` also
     the traced segment count over real pixels (an int32 0-dim tensor).
     ``seed`` is an int taken modulo 2^32. ``prebuilt`` passes tables from
     :func:`build_clusters` (then ``scene`` may be None); ``pre_ordered``
-    promises they went through :func:`order_clusters` for this camera
-    position. Otherwise the tables are built from the first ``n_active``
-    rows and ordered here, per call.
+    promises they, and ``tri_prebuilt``, went through
+    :func:`order_clusters` for this camera position. Otherwise the tables
+    are built from the first ``n_active`` rows and ordered here, per call.
+    ``mesh`` (or ``tri_prebuilt``, tables from :func:`build_tri_clusters`
+    of its first ``n_tri_active`` rows) adds a TriangleMesh, searched
+    after the spheres.
 
     Tables on the CPU run the plain version; tables on a CUDA device launch
     the CUDA kernel (built on first use) and raise if the launch fails.
     ``render_cluster.launches`` counts kernel launches. Flags the port does
     not carry yet raise NotImplementedError naming their ROADMAP.md item.
     """
-    kw = dict(width=width, height=height, spp=spp, max_depth=max_depth,
-              jitter=jitter, enable_refraction=enable_refraction,
-              gamma=gamma, with_stats=with_stats, cluster_size=cluster_size,
-              n_active=n_active, mesh=mesh, rows=rows, row_offset=row_offset,
-              enable_dof=enable_dof,
-              prebuilt=prebuilt, pre_ordered=pre_ordered, nee=nee,
-              stratify=stratify, tile_mask=tile_mask)
+    kw = {k: v for k, v in locals().items() if k not in ("scene", "cam",
+                                                         "seed")}
     dev = (prebuilt.attr if prebuilt is not None else scene.center).device
     if dev.type == "cpu":
         return render_cluster_reference(scene, cam, seed, **kw)
     if dev.type != "cuda":
         raise ValueError(f"render_cluster runs on cpu or cuda, not {dev}")
 
-    flags = {k: kw[k] for k in ("enable_refraction", "enable_dof", "gamma",
-                                "mesh", "nee", "stratify", "tile_mask",
-                                "rows", "row_offset")}
-    cl, cam_packed, blocks_x, blocks_y = _prepare(
-        scene, cam, width, height, spp, max_depth, cluster_size, n_active,
-        prebuilt, pre_ordered, flags)
+    cl, tri, cam_packed, blocks_x, blocks_y = _prepare(scene, cam, **kw)
     lib = build.load()
     n_tiles = blocks_x * blocks_y
+    if tri is None:  # no mesh: no triangle tables (n_tri_ss = 0)
+        t_args = (0, 0, 0, 0, 0, 0, 8)
+    else:
+        t_args = (tri.glob_attr.data_ptr(), tri.n_global,
+                  tri.ss_boxes.data_ptr(), tri.n_ss,
+                  tri.super_boxes.data_ptr(), tri.attr.data_ptr(),
+                  tri.cluster_size)
     with torch.cuda.device(dev):
         out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
         segs = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
         err = lib.tpurt_cluster_launch(
             cl.glob_attr.data_ptr(), cl.n_global, cl.ss_boxes.data_ptr(),
             cl.n_ss, cl.super_boxes.data_ptr(), cl.attr.data_ptr(),
-            cl.cluster_size, cam_packed.data_ptr(),
+            cl.cluster_size, *t_args, cam_packed.data_ptr(),
             cl.background.data_ptr(), mk._signed32(seed), width, height, spp,
             max_depth, int(bool(jitter)), out.data_ptr(), segs.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -1,10 +1,13 @@
 """The path-trace megakernel: CUDA kernel wrapper and its plain version.
 
-Counterpart of ``tpu_rt/ops/pallas_megakernel.py`` for the configuration
-the main render path runs: sphere scenes of at most 64 spheres, the v2
-estimator (miss adds throughput x background; emission before Russian
-roulette; RR after bounce 3 with p = clamp(max throughput, 0.1, 0.95) and
-survivor compensation; metal mirrors with roughness jitter, else diffuse
+Counterpart of ``tpu_rt/ops/pallas_megakernel.py`` for the configurations
+the main render path and the small-mesh path run: sphere scenes of at most
+64 spheres, optionally beside a triangle mesh of at most 256 triangles
+(scalar Moller-Trumbore after the sphere sweep; a triangle winner shades
+with its f32 face normal flipped to oppose the ray), the v2 estimator
+(miss adds throughput x background; emission before Russian roulette; RR
+after bounce 3 with p = clamp(max throughput, 0.1, 0.95) and survivor
+compensation; metal mirrors with roughness jitter, else diffuse
 normalize(normal + hemisphere-flipped ball point)), pixel jitter or pixel
 centres, the spp mean, sqrt gamma and clamp, and per-tile segment counts.
 
@@ -32,6 +35,7 @@ from .intersect import attribute_matrix
 TILE = 4096          # rays per TPU tile (32 sublanes x 128 lanes)
 RR_START = 3         # Russian roulette after this many bounces
 MAX_SPHERES = 64     # size of the kernel's shared-memory attribute table
+MAX_TRIS = 256       # size of the kernel's shared-memory triangle table
 
 _M32 = 0xFFFFFFFF
 # int32 multipliers of the JAX hash (-1640531527, -2048144789,
@@ -95,6 +99,24 @@ def _pack_camera(cam: CameraP) -> torch.Tensor:
     ]).to(torch.float32)
 
 
+def _pack_tris(mesh, n_tri_active):
+    """The kernel's (n_tris, 20) f32 triangle table: v0, e1, e2, the face
+    normal, albedo, metallic, roughness, emission, for the first
+    ``n_tri_active`` rows (default: the whole bucket); None without a
+    mesh. Padding rows have zero edges, so no ray ever hits them."""
+    if mesh is None:
+        return None
+    n_tris = (mesh.capacity if n_tri_active is None
+              else max(1, int(n_tri_active)))
+    if n_tris > min(MAX_TRIS, mesh.capacity):
+        raise ValueError(f"n_tri_active={n_tris} exceeds the mesh bucket "
+                         f"({mesh.capacity}) or the kernel's {MAX_TRIS}")
+    return torch.cat([mesh.v0, mesh.e1, mesh.e2, mesh.normal, mesh.albedo,
+                      mesh.metallic[:, None], mesh.roughness[:, None],
+                      mesh.emission], dim=-1)[:n_tris].to(
+                          torch.float32).contiguous()
+
+
 def _prepare(scene: SphereScene, cam: CameraP, n_active, width, height,
              spp, max_depth, rows, row_offset):
     """Validate a call and pack the kernel's inputs on the scene's device."""
@@ -139,7 +161,7 @@ def _normalize3(x, y, z):
     return x * inv, y * inv, z * inv
 
 
-def shade_plain(state, best_t, w, bg, depth_idx, U):
+def shade_plain(state, best_t, w, bg, depth_idx, U, face=None):
     """One v2 bounce of the plain versions after the nearest-hit search,
     in the JAX kernels' order of operations: background on a miss,
     emission, Russian roulette after bounce RR_START, then the metal or
@@ -147,8 +169,10 @@ def shade_plain(state, best_t, w, bg, depth_idx, U):
 
     ``state`` is (ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, act);
     ``w`` the winner's (cx, cy, cz, inv_r, ar, ag, ab, met, rgh, er, eg,
-    eb) planes; ``U()`` draws the next salt's uniforms. Returns the new
-    state."""
+    eb) planes, whose normal is (hit - c) * inv_r; ``face`` optionally
+    (is_face, nx, ny, nz): where ``is_face``, the normal is the face normal
+    flipped to oppose the ray instead. ``U()`` draws the next salt's
+    uniforms. Returns the new state."""
     ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, act = state
     b_cx, b_cy, b_cz, b_ir, b_ar, b_ag, b_ab, b_met, b_rgh = w[:9]
     b_er, b_eg, b_eb = w[9:]
@@ -177,6 +201,12 @@ def shade_plain(state, best_t, w, bg, depth_idx, U):
     nx = (hx - b_cx) * b_ir
     ny = (hy - b_cy) * b_ir
     nz = (hz - b_cz) * b_ir
+    if face is not None:
+        is_face, tnx, tny, tnz = face
+        tsgn = torch.where(dx * tnx + dy * tny + dz * tnz < 0.0, 1.0, -1.0)
+        nx = torch.where(is_face, tnx * tsgn, nx)
+        ny = torch.where(is_face, tny * tsgn, ny)
+        nz = torch.where(is_face, tnz * tsgn, nz)
 
     # uniform point in the unit ball: direction x cbrt radius
     u1, u2, u3 = U(), U(), U()
@@ -205,10 +235,41 @@ def shade_plain(state, best_t, w, bg, depth_idx, U):
     return ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, act
 
 
-def _trace_plain(attr, cam, bg, seed, width, height, spp, max_depth, jitter,
-                 n_tiles):
+def mt_test(o, d, v0, e1, e2):
+    """Scalar Moller-Trumbore in the JAX kernels' order of operations:
+    (hit, t) of rays ``o + t d`` against triangles (v0, e1, e2), each a
+    triple of broadcastable tensors. A determinant of at most 1e-9 (zero
+    edges: padding) never hits."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    v0x, v0y, v0z = v0
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    okd = torch.abs(det) > 1e-9
+    inv = 1.0 / torch.where(okd, det, 1.0)
+    tvx = ox - v0x
+    tvy = oy - v0y
+    tvz = oz - v0z
+    uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    vv = (dx * qvx + dy * qvy + dz * qvz) * inv
+    tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
+    ok = (okd & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+          & (tt >= 1e-3))
+    return ok, tt
+
+
+def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
+                 jitter, n_tiles):
     """The kernel's computation as whole-tensor PyTorch ops over every lane
-    of every tile, in the JAX kernel's order of operations.
+    of every tile, in the JAX kernel's order of operations: the spheres,
+    then the triangles of ``tris`` (or None), one row at a time.
 
     Returns ((n_pix, 3) f32 image, (n_tiles,) int32 segment counts)."""
     dev = attr.device
@@ -224,6 +285,7 @@ def _trace_plain(attr, cam, bg, seed, width, height, spp, max_depth, jitter,
      tf_aspect, tf) = cam.unbind(0)[:14]
     bgx, bgy, bgz = bg.unbind(0)
     rows = [attr[i].unbind(0) for i in range(attr.shape[0])]
+    tri_rows = [] if tris is None else [t.unbind(0) for t in tris]
     tile_seed = (tile + (int(seed) & _M32)) & _M32
 
     acc = [torch.zeros(n, dtype=f32, device=dev) for _ in range(3)]
@@ -277,10 +339,27 @@ def _trace_plain(attr, cam, bg, seed, width, height, spp, max_depth, jitter,
                 b = [torch.where(better, a[c], bc) for c, bc in
                      zip((0, 1, 2, 14, 4, 5, 6, 7, 8, 9, 10, 11), b)]
 
+            face = None
+            if tri_rows:
+                # a triangle winner keeps the sphere planes' centre and
+                # 1/r; its face normal rides beside them
+                face = [torch.zeros(n, dtype=torch.bool, device=dev),
+                        zero, zero, zero]
+            for g in tri_rows:
+                ok, tt = mt_test((ox, oy, oz), (dx, dy, dz), g[0:3], g[3:6],
+                                 g[6:9])
+                better = ok & (tt < best_t)
+                best_t = torch.where(better, tt, best_t)
+                face = [face[0] | better] + [
+                    torch.where(better, g[c], fc)
+                    for c, fc in zip((9, 10, 11), face[1:])]
+                b = b[:4] + [torch.where(better, g[c], bc) for c, bc in
+                             zip(range(12, 20), b[4:])]
+
             (ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb,
              act) = shade_plain((ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg,
                                  cb, act), best_t, b, (bgx, bgy, bgz),
-                                depth_idx, U)
+                                depth_idx, U, face)
 
         acc = [acc[0] + cr, acc[1] + cg, acc[2] + cb]
 
@@ -305,6 +384,8 @@ def render_megakernel_reference(
     with_stats: bool = False,
     rows: int | None = None,
     row_offset: int = 0,
+    mesh=None,
+    n_tri_active: int | None = None,
 ):
     """The plain PyTorch version of the megakernel, on any device.
 
@@ -312,8 +393,9 @@ def render_megakernel_reference(
     [0, 1], plus the real-pixel segment count when ``with_stats``."""
     attr, cam_packed, bg, n_tiles = _prepare(
         scene, cam, n_active, width, height, spp, max_depth, rows, row_offset)
-    img, segs = _trace_plain(attr, cam_packed, bg, seed, width, height, spp,
-                             max_depth, jitter, n_tiles)
+    tris = _pack_tris(mesh, n_tri_active)
+    img, segs = _trace_plain(attr, tris, cam_packed, bg, seed, width, height,
+                             spp, max_depth, jitter, n_tiles)
     return _finish(img.reshape(height, width, 3), segs, width * height,
                    n_tiles, with_stats)
 
@@ -337,6 +419,8 @@ def render_megakernel(
     with_stats: bool = False,
     rows: int | None = None,
     row_offset: int = 0,
+    mesh=None,
+    n_tri_active: int | None = None,
 ):
     """Render one batch of ``spp`` samples through the megakernel.
 
@@ -344,7 +428,9 @@ def render_megakernel(
     the traced segment count over real pixels (an int32 0-dim tensor).
     ``seed`` is an int taken modulo 2^32 (int32 wrap, as in the JAX
     package); ``n_active`` the number of leading scene rows to sweep
-    (default: the whole bucket).
+    (default: the whole bucket). ``mesh`` adds a TriangleMesh on the
+    scene's device, of which the first ``n_tri_active`` rows (default: the
+    whole bucket, at most 256) are swept after the spheres.
 
     A scene on the CPU runs the plain version; a scene on a CUDA device
     launches the CUDA kernel (built on first use) and raises if the launch
@@ -355,19 +441,25 @@ def render_megakernel(
         return render_megakernel_reference(
             scene, cam, seed, width=width, height=height, spp=spp,
             max_depth=max_depth, jitter=jitter, n_active=n_active,
-            with_stats=with_stats, rows=rows, row_offset=row_offset)
+            with_stats=with_stats, rows=rows, row_offset=row_offset,
+            mesh=mesh, n_tri_active=n_tri_active)
     if dev.type != "cuda":
         raise ValueError(f"render_megakernel runs on cpu or cuda, not {dev}")
 
     attr, cam_packed, bg, n_tiles = _prepare(
         scene, cam, n_active, width, height, spp, max_depth, rows, row_offset)
+    tris = _pack_tris(mesh, n_tri_active)
+    if tris is not None and tris.device != dev:
+        raise ValueError(f"the mesh lies on {tris.device}, the scene on {dev}")
     lib = build.load()
     n_pix = width * height
     with torch.cuda.device(dev):
         out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
         segs = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
         err = lib.tpurt_megakernel_launch(
-            attr.data_ptr(), attr.shape[0], cam_packed.data_ptr(),
+            attr.data_ptr(), attr.shape[0],
+            0 if tris is None else tris.data_ptr(),
+            0 if tris is None else tris.shape[0], cam_packed.data_ptr(),
             bg.data_ptr(), _signed32(seed), 0, width, height, spp, max_depth,
             int(bool(jitter)), n_tiles, out.data_ptr(), n_pix,
             segs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)

@@ -1,10 +1,10 @@
 """Frame rendering: engine choice, batch render, tone map, accumulation.
 
 Counterpart of ``tpu_rt/render/frame.py`` for the engines the port
-carries: the megakernel (at most 64 spheres) and the cluster engine (larger
-sphere scenes). Every configuration the port does not carry raises
-``NotImplementedError`` naming its ROADMAP.md item; no other engine is ever
-used in its place.
+carries: the megakernel (at most 64 spheres, beside at most 256 triangles)
+and the cluster engine (larger sphere scenes or meshes). Every
+configuration the port does not carry raises ``NotImplementedError``
+naming its ROADMAP.md item; no other engine is ever used in its place.
 
 Outputs match the reference contract: a batch is the sample mean,
 sqrt-gamma'd and clamped to [0, 1].
@@ -16,7 +16,7 @@ import torch
 
 from ..core.types import CameraP, SphereScene
 from ..ops.cluster import ClusteredScene, render_cluster
-from ..ops.megakernel import MAX_SPHERES, render_megakernel
+from ..ops.megakernel import MAX_SPHERES, MAX_TRIS, render_megakernel
 
 ENGINES = ("auto", "megakernel", "lax", "cluster")
 
@@ -29,22 +29,22 @@ def _not_ported(what: str, item: str):
 def select_engine(scene: SphereScene, mode="v2", enable_refraction=False,
                   gamma=True, mesh=None, engine="auto") -> str:
     """Resolve the engine ``render`` uses, as the JAX package does on a
-    TPU: "cluster" when asked for or past the megakernel's 64-sphere
-    bucket, else "megakernel" (its fused "pallas" engine). Configurations
-    neither engine carries yet raise NotImplementedError."""
+    TPU: "cluster" when asked for or past the megakernel's buckets (64
+    spheres, 256 triangles), else "megakernel" (its fused "pallas"
+    engine). Configurations neither engine carries yet raise
+    NotImplementedError."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "lax":
         raise _not_ported("engine='lax'", "Queue 1, lax integrator")
     if mode != "v2":
         raise _not_ported(f"mode={mode!r}", "Queue 1, lax integrator")
-    cluster = engine == "cluster" or (engine == "auto"
-                                      and scene.capacity > MAX_SPHERES)
+    cluster = engine == "cluster" or (
+        engine == "auto" and (scene.capacity > MAX_SPHERES or (
+            mesh is not None and mesh.capacity > MAX_TRIS)))
     k = "K2" if cluster else "K1"
     if not gamma:
         raise _not_ported("linear (gamma=False) output", f"{k}-linear")
-    if mesh is not None:
-        raise _not_ported("triangle meshes", f"{k}-tri")
     if enable_refraction:
         raise _not_ported("refraction", f"{k}-refract-dof" if k == "K1"
                           else "K2-dof-refract")
@@ -87,17 +87,21 @@ def render(
     tile_mask=None,
     prebuilt: ClusteredScene | None = None,
     pre_ordered: bool = False,
+    n_tri_active: int | None = None,
+    tri_prebuilt: ClusteredScene | None = None,
 ):
     """Render one batch of ``spp`` samples; returns (height, width, 3) f32
     on the scene's device (plus the traced segment count with
-    ``with_stats``).
+    ``with_stats``). ``mesh`` adds a TriangleMesh on the same device (the
+    nearer surface wins per bounce).
 
     ``seed`` is the int stream seed (the JAX package derives it from a key
     or takes it from ``seed=``). ``jitter=False`` shoots pixel centres, the
-    deterministic mode of the golden-image tests. ``n_active``: the
-    quantized active sphere count (:func:`quantize_count`); None pulls
-    ``scene.valid`` to the host once. ``prebuilt``/``pre_ordered`` pass the
-    cluster engine tables built once per scene and ordered once per camera
+    deterministic mode of the golden-image tests.
+    ``n_active``/``n_tri_active``: the quantized active sphere and triangle
+    counts (:func:`quantize_count`); None pulls ``valid`` to the host once.
+    ``prebuilt``/``tri_prebuilt``/``pre_ordered`` pass the cluster engine
+    tables built once per scene (and mesh) and ordered once per camera
     position (``ops/cluster.py``); without them the cluster engine builds
     and orders its tables in every call.
     """
@@ -115,15 +119,21 @@ def render(
                           "K1-refract-dof" if k == "K1" else "K2-dof-refract")
     if n_active is None and prebuilt is None:
         n_active = quantize_count(int(scene.valid.sum()), scene.capacity)
+    if tri_prebuilt is not None and resolved != "cluster":
+        raise ValueError("tri_prebuilt holds cluster-engine tables, but this "
+                         f"call resolves to the {resolved}")
+    if mesh is not None and n_tri_active is None and tri_prebuilt is None:
+        n_tri_active = quantize_count(int(mesh.valid.sum()), mesh.capacity)
     if resolved == "cluster":
         return render_cluster(
             scene, cam, seed, width=width, height=height, spp=spp,
             max_depth=max_depth, jitter=jitter, with_stats=with_stats,
-            n_active=n_active, prebuilt=prebuilt, pre_ordered=pre_ordered)
+            n_active=n_active, prebuilt=prebuilt, pre_ordered=pre_ordered,
+            mesh=mesh, n_tri_active=n_tri_active, tri_prebuilt=tri_prebuilt)
     return render_megakernel(
         scene, cam, seed, width=width, height=height, spp=spp,
         max_depth=max_depth, jitter=jitter, n_active=n_active,
-        with_stats=with_stats)
+        with_stats=with_stats, mesh=mesh, n_tri_active=n_tri_active)
 
 
 def tone_map(image: torch.Tensor, exposure: float) -> torch.Tensor:

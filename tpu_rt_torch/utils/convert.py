@@ -3,7 +3,8 @@
 This system has no weights: its parameters are the scene and camera
 arrays, and for the cluster engine the clustered tables built from them.
 Each function takes the fields of ``tpu_rt``'s ``SphereScene``,
-``CameraP`` or ``ClusteredScene`` as numpy arrays, e.g.
+``CameraP``, ``TriangleMesh`` or ``ClusteredScene`` (sphere or
+triangle tables) as numpy arrays, e.g.
 ``{k: np.asarray(v) for k, v in scene._asdict().items()}``, so the two
 packages can render the very same scene from the very same tables.
 """
@@ -17,7 +18,9 @@ import torch
 
 from ..core.types import CameraP, SphereScene, host_tensor
 from ..ops.cluster import ClusteredScene
+from ..ops.triangle import TriangleMesh
 
+# scenes and meshes: object ids int32, validity bool, the rest f32
 _SCENE_DTYPES = {"object_id": torch.int32, "valid": torch.bool}
 # the word tables stay int32 at rest: their bf16-pair words can be f32
 # denormals, which a float conversion could flush
@@ -30,6 +33,16 @@ def scene_from_numpy(fields: Mapping[str, np.ndarray], device) -> SphereScene:
         k: host_tensor(np.asarray(fields[k]),
                        _SCENE_DTYPES.get(k, torch.float32), device)
         for k in SphereScene._fields
+    })
+
+
+def mesh_from_numpy(fields: Mapping[str, np.ndarray], device) -> TriangleMesh:
+    """TriangleMesh on ``device`` from numpy fields, bit for bit: object
+    ids int32, validity bool, the rest f32."""
+    return TriangleMesh(**{
+        k: host_tensor(np.asarray(fields[k]),
+                       _SCENE_DTYPES.get(k, torch.float32), device)
+        for k in TriangleMesh._fields
     })
 
 
