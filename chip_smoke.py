@@ -16,15 +16,21 @@ counts, checks the 1/sqrt(N) convergence of its means, and times it:
   and terrain_mesh(n=72) (10,082 triangles) through the cluster engine,
   each through RayTracer.set_mesh and the same chain, an OBJ file through
   the headless app's --obj, and timings of the Cornell box, of 10k and
-  100k terrain triangles and of the terrain's main path.
+  100k terrain triangles and of the terrain's main path;
+* refraction, the thin lens (DOF) and R2 stratified sampling in both
+  kernels: the demo scene, a glass Cornell box, a 10k-sphere glass field and
+  the 10k terrain; RayTracer(enable_refraction=True) with an aperture and
+  set_stratify(True) on the demo scene and on the glass field, the headless
+  app's --aperture, the display at 4K UHD, and timings.
 
 Each kernel must agree with its plain version bit for bit, segment counts
 included. Every phase raises on failure. The last line of standard output
 is one JSON object naming the card; the line before it holds the card's
 name and power limit, and the one before that the per-kernel JSON summary:
 there ``ms`` is the kernel's device time per frame as torch.profiler
-records it, ``frame_ms`` the frame time over chained frames (CUDA events),
-and ``plain_ms`` the plain version's frame time. Without
+records it, ``event_ms`` the same time from CUDA events around each of 20
+launches (median), ``frame_ms`` the frame time over chained frames (CUDA
+events), and ``plain_ms`` the plain version's frame time. Without
 CUDA, or without the repository beside it, the script exits non-zero and
 prints no result.
 """
@@ -81,6 +87,22 @@ TERRAIN_10K = 72    # terrain_mesh(n=72): 10,082 triangles
 TERRAIN_100K = 226  # terrain_mesh(n=226): 101,250 triangles
 PRIMARY_OPS = 33      # jitter to a unit camera ray
 PIXEL_OPS = 15        # mean, sqrt gamma and clamp of 3 channels
+# the optional flags (path_common.cuh), counted the same way
+REFRACT_OPS = 36  # per shaded hit, any material: cos_in 5, front 1, n_e 3,
+                  # eta 1, dt 5, disc 5, max + sqrt 2, cosine 1, r0 4, omc 2,
+                  # Schlick 5, 2 compares (the glass direction is not counted)
+LENS_OPS = 46     # per primary ray: d.fwd 5, max 1, div 1, focal point 6,
+                  # sqrt + mul 2, angle 1, cos + sin 2, lx ly 2, origin 12,
+                  # direction 3 sub + normalize 11
+R2_OPS = 8        # per primary ray: 2 x (mul, add, floor, sub)
+
+# the flags' cells: each flag alone and all three together
+ALL_FLAGS = dict(enable_refraction=True, enable_dof=True, stratify=True)
+FLAG_SETS = {"refraction": dict(enable_refraction=True),
+             "DOF": dict(enable_dof=True), "stratify": dict(stratify=True),
+             "all three": ALL_FLAGS}
+GLASS = dict(albedo=(0.95, 0.95, 0.95), metallic=0.0, roughness=0.0, ior=1.5)
+FIELD_CAM = dict(position=(0, 3, 14), target=(0, 0, -6))  # phase 8's pose
 
 
 def check(ok: bool, what: str):
@@ -121,17 +143,67 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def path_ops(segments: int, n_pix: int, spp: int, per_segment: int) -> int:
+def path_ops(segments: int, n_pix: int, spp: int, per_segment: int,
+             flags=None) -> int:
     """f32 operations every traced segment needs whatever the data, plus the
     full shading of the hits at bounces before the last: with roulette only
-    at the last bounce, those are at least segments - rays."""
+    at the last bounce, those are at least segments - rays. ``flags``: the
+    render's refraction, DOF and stratify switches."""
+    flags = flags or {}
     rays = n_pix * spp
-    return (segments * per_segment + max(segments - rays, 0) * SHADE_OPS
-            + rays * PRIMARY_OPS + n_pix * PIXEL_OPS)
+    shade = SHADE_OPS + (REFRACT_OPS if flags.get("enable_refraction") else 0)
+    primary = (PRIMARY_OPS + (LENS_OPS if flags.get("enable_dof") else 0)
+               + (R2_OPS if flags.get("stratify") else 0))
+    return (segments * per_segment + max(segments - rays, 0) * shade
+            + rays * primary + n_pix * PIXEL_OPS)
+
+
+def glass_field(scene):
+    """A glass field: every diffuse, non-emissive sphere of ``scene`` whose
+    index is a positive multiple of 4 made glass (roughness 0, ior 1.5)."""
+    idx = torch.arange(scene.capacity, device=scene.device)
+    glass = ((idx % 4 == 0) & (idx > 0) & (scene.metallic <= 0)
+             & (scene.emission.amax(dim=-1) <= 0))
+    return scene._replace(roughness=torch.where(glass, 0.0, scene.roughness),
+                          ior=torch.where(glass, 1.5, scene.ior))
 
 
 def kernel_ms(by_kernel: dict, name: str) -> float:
     return sum(v for k, v in by_kernel.items() if name in k)
+
+
+def event_kernel_ms(lib, entry: str, fn, frames: int, device) -> float:
+    """Kernel device ms per launch from CUDA events recorded on the stream
+    just before and just after each call of the library's ``entry`` in
+    ``fn(i)``, over ``frames`` chained frames; median. The frames queue
+    behind a spin of about 50 ms, so the host enqueues ahead of the card
+    and no launch gap falls inside a pair. It checks the profiler's window,
+    which sees 5 frames."""
+    real = getattr(lib, entry)
+    pairs = []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = real(*args)
+        end.record()
+        pairs.append((start, end))
+        return err
+
+    with torch.cuda.device(device):
+        fn(-1)
+        torch.cuda.synchronize(device)
+        setattr(lib, entry, timed)
+        try:
+            torch.cuda._sleep(100_000_000)
+            for i in range(frames):
+                fn(i)
+            torch.cuda.synchronize(device)
+        finally:
+            setattr(lib, entry, real)
+    check(len(pairs) == frames, f"{entry}: one launch per frame")
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 def device_line(what: str, by_kernel: dict, frame_ms: float,
@@ -184,7 +256,7 @@ def main() -> int:
     # ---- 2. build ----
     t0 = time.perf_counter()
     lib_path = build.build()
-    build.load()
+    lib = build.load()
     print(f"[2 build] {lib_path.name} in {time.perf_counter() - t0:.2f} s")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if ("registers" in line or "spill" in line
@@ -321,8 +393,11 @@ def main() -> int:
         b_ms, b_by = bound(ops, nbytes)
         k_ms = dev_ms["kernel"]
         check(k_ms > 0, f"{name}: torch.profiler recorded the megakernel")
+        ev_ms = event_kernel_ms(lib, "tpurt_megakernel_launch",
+                                fns["kernel"], 20, dev)
         print(f"[7 bound] {name}: {ops / 1e9:.3f} G f32 ops, {nbytes} bytes "
-              f"-> bound {b_ms:.4f} ms ({b_by}); kernel {k_ms:.4f} ms, "
+              f"-> bound {b_ms:.4f} ms ({b_by}); kernel {k_ms:.4f} ms "
+              f"(profiler; CUDA events over 20 launches {ev_ms:.4f} ms), "
               f"{b_ms / k_ms:.3f} of the bound's rate")
         if mega is None:  # the interactive shape is the main path's
             mega = {"name": "megakernel", "route": "cuda",
@@ -330,7 +405,7 @@ def main() -> int:
                     "replaces": "tpu_rt/ops/pallas_megakernel.py:143",
                     "launches": mega_launches,
                     "max_abs_err": stats["max_abs"],
-                    "ms": k_ms, "plain_ms": ms["plain"],
+                    "ms": k_ms, "event_ms": ev_ms, "plain_ms": ms["plain"],
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                     "shape": f"demo scene {name}", "plain_shape": name,
                     "frame_ms": ms["kernel"]}
@@ -448,6 +523,7 @@ def main() -> int:
         by_kernel = device_ms_by_kernel(fn, 5, device=dev)
         k_ms = kernel_ms(by_kernel, "cluster_kernel")
         check(k_ms > 0, f"{label}: torch.profiler recorded the cluster kernel")
+        ev_ms = event_kernel_ms(lib, "tpurt_cluster_launch", fn, 20, dev)
         segs = int(seg_fn())
         per_segment = (tables_.n_global * SPHERE_TEST_OPS + RAY_SETUP_OPS
                        + tables_.n_ss * SLAB_TEST_OPS)
@@ -456,7 +532,8 @@ def main() -> int:
                   + 16 * 4 + n_pix * 12)
         b_ms, b_by = bound(ops, nbytes)
         print(f"[12 timing] {label} on {card}: frame {frame:.4f} ms (median "
-              f"of 2x7 chained frames), cluster kernel {k_ms:.4f} ms; "
+              f"of 2x7 chained frames), cluster kernel {k_ms:.4f} ms "
+              f"(profiler; CUDA events over 20 launches {ev_ms:.4f} ms); "
               f"{segs} segments/frame; traced Mrays/s frame "
               f"{traced_mrays_per_s(segs, frame):.1f}, kernel "
               f"{traced_mrays_per_s(segs, k_ms):.1f}; bound {b_ms:.4f} ms "
@@ -464,7 +541,7 @@ def main() -> int:
               f"walk below the super-supers depends on the data)")
         print("[12 device] " + device_line(label, by_kernel, frame,
                                            "cluster_kernel"))
-        return k_ms, frame, b_ms, b_by
+        return k_ms, ev_ms, frame, b_ms, b_by
 
     # (a) the JAX bench's large-scene row, tables built and ordered once
     cam_a = cam_for(BENCH["width"], BENCH["height"], **BIG_CAM)
@@ -478,7 +555,7 @@ def main() -> int:
         BENCH["width"] * BENCH["height"], BENCH["spp"], tab_a)
     # (b) the main path at the GUI's settings
     tab_b = tables
-    k_b, frame_b, bound_b, bound_by_b = cluster_timing(
+    k_b, ev_b, frame_b, bound_b, bound_by_b = cluster_timing(
         "(b) RayTracer 10k spheres 640x480/8spp/d4",
         lambda i: rt.render_device(INTERACTIVE["width"],
                                    INTERACTIVE["height"], INTERACTIVE["spp"],
@@ -523,7 +600,7 @@ def main() -> int:
                "source": "tpu_rt_torch/csrc/cluster.cu",
                "replaces": "tpu_rt/ops/pallas_cluster.py:567",
                "launches": cluster_launches, "max_abs_err": cluster_err,
-               "ms": k_b, "plain_ms": ms_p["plain"],
+               "ms": k_b, "event_ms": ev_b, "plain_ms": ms_p["plain"],
                "bound_ms": bound_b, "bound_by": bound_by_b,
                "library_ms": None,
                "shape": "RayTracer 10k spheres 640x480/8spp/d4",
@@ -759,26 +836,32 @@ def main() -> int:
 
     # ---- 17. timing ----
     def mesh_timing(label, fn, seg_fn, n_pix, spp, kname, per_segment,
-                    nbytes):
+                    nbytes, flags=None, phase=17):
         """Frame ms, kernel device ms, idle share, segments/frame, traced
-        Mrays/s and the bound of ``fn``; returns (kernel ms, frame ms,
-        bound ms, bound_by)."""
+        Mrays/s and the bound of ``fn``; returns (kernel ms (profiler),
+        kernel ms (CUDA events), frame ms, bound ms, bound_by)."""
         frame = statistics.median(cuda_frame_ms(fn, 7, device=dev)
                                   + cuda_frame_ms(fn, 7, device=dev))
         by_kernel = device_ms_by_kernel(fn, 5, device=dev)
         k_ms = kernel_ms(by_kernel, kname)
         check(k_ms > 0, f"{label}: torch.profiler recorded {kname}")
+        entry = ("tpurt_cluster_launch" if kname == "cluster_kernel"
+                 else "tpurt_megakernel_launch")
+        ev_ms = event_kernel_ms(lib, entry, fn, 20, dev)
         segs = int(seg_fn())
-        ops = path_ops(segs, n_pix, spp, per_segment)
+        ops = path_ops(segs, n_pix, spp, per_segment, flags)
         b_ms, b_by = bound(ops, nbytes + n_pix * 12)
-        print(f"[17 timing] {label} on {card}: frame {frame:.4f} ms (median "
-              f"of 2x7 chained frames), {kname} {k_ms:.4f} ms; {segs} "
+        print(f"[{phase} timing] {label} on {card}: frame {frame:.4f} ms "
+              f"(median "
+              f"of 2x7 chained frames), {kname} {k_ms:.4f} ms (profiler; "
+              f"CUDA events over 20 launches {ev_ms:.4f} ms); {segs} "
               f"segments/frame; traced Mrays/s frame "
               f"{traced_mrays_per_s(segs, frame):.1f}, kernel "
               f"{traced_mrays_per_s(segs, k_ms):.1f}; bound {b_ms:.4f} ms "
               f"({b_by}, {ops / 1e9:.3f} G f32 ops)")
-        print("[17 device] " + device_line(label, by_kernel, frame, kname))
-        return k_ms, frame, b_ms, b_by
+        print(f"[{phase} device] " + device_line(label, by_kernel, frame,
+                                                 kname))
+        return k_ms, ev_ms, frame, b_ms, b_by
 
     def table_bytes(*tables):
         return sum(t.numel() * t.element_size() for tab in tables
@@ -793,7 +876,7 @@ def main() -> int:
                         ("1080p/4spp/d4", BENCH)):
         cam_t = cornell_cam(shape["width"], shape["height"])
         kw = dict(mesh=cm, **CORNELL_ACTIVE, **shape)
-        k_ms, frame, b_ms, b_by = mesh_timing(
+        k_ms, ev_ms, frame, b_ms, b_by = mesh_timing(
             f"K1-tri Cornell {name}",
             lambda i: render_megakernel(cs, cam_t, 500 + i, **kw),
             lambda: render_megakernel(cs, cam_t, 0, with_stats=True, **kw)[1],
@@ -817,6 +900,7 @@ def main() -> int:
                         "replaces": "tpu_rt/ops/pallas_megakernel.py:345",
                         "launches": mega_tri_launches,
                         "max_abs_err": mesh_err, "ms": k_ms,
+                        "event_ms": ev_ms,
                         "plain_ms": mp["plain"], "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None,
                         "shape": f"Cornell box (4 sphere rows, 12 "
@@ -848,7 +932,7 @@ def main() -> int:
             BENCH["width"] * BENCH["height"], BENCH["spp"], "cluster_kernel",
             k2_tri_ops(tab, tri_tab), table_bytes(tab, tri_tab) + 16 * 4)
     # the terrain main path (RayTracer + set_mesh) at the GUI's settings
-    k_tri, frame_tri, bound_tri, bound_by_tri = mesh_timing(
+    k_tri, ev_tri, frame_tri, bound_tri, bound_by_tri = mesh_timing(
         "K2-tri RayTracer + terrain 10k 640x480/8spp/d4",
         lambda i: rt_t.render_device(INTERACTIVE["width"],
                                      INTERACTIVE["height"],
@@ -881,7 +965,8 @@ def main() -> int:
                    "source": "tpu_rt_torch/csrc/cluster.cu",
                    "replaces": "tpu_rt/ops/pallas_cluster.py:868",
                    "launches": tri_launches, "max_abs_err": cluster_tri_err,
-                   "ms": k_tri, "plain_ms": ms_tp["plain"],
+                   "ms": k_tri, "event_ms": ev_tri,
+                   "plain_ms": ms_tp["plain"],
                    "bound_ms": bound_tri, "bound_by": bound_by_tri,
                    "library_ms": None,
                    "shape": "RayTracer 3 spheres + terrain 10k triangles "
@@ -890,8 +975,314 @@ def main() -> int:
                    "plain_shape": "terrain 10k 256x128/4spp/d4",
                    "frame_ms_at_plain_shape": ms_tp["kernel"]}
 
+    # ================= refraction, thin lens, R2 stratify =================
+    from tpu_rt_torch.ops.triangle import box, merge_meshes
+    from tpu_rt_torch.render.frame import quantize_count
+
+    # the Cornell box with a glass box on its floor: 24 triangles
+    glass_box = box(center=(-0.2, 0.36, -1.9), size=(0.7, 0.7, 0.7),
+                    device=dev, **GLASS)
+    gcm = merge_meshes([cm, glass_box])
+    glass_cornell = dict(mesh=gcm, n_active=4, n_tri_active=24)
+
+    # ---- 18. K1 flags: kernel vs plain, bit for bit ----
+    cam18 = cam_for(PLAIN_SHAPE["width"], PLAIN_SHAPE["height"], aperture=0.1)
+    cam18c = cam_for(PLAIN_SHAPE["width"], PLAIN_SHAPE["height"],
+                     aperture=0.1, **CORNELL_CAM)
+    mega_flags_err = 0.0
+    cases = [(f"demo scene {k}", scene, cam18, dict(n_active=N_ACTIVE), f)
+             for k, f in FLAG_SETS.items()]
+    cases.append(("glass Cornell box all three", cs, cam18c, glass_cornell,
+                  ALL_FLAGS))
+    for label, sc, cam_, kw_s, flags in cases:
+        for seed in (7, 2**31 - 2):
+            kw = dict(with_stats=True, **kw_s, **PLAIN_SHAPE, **flags)
+            a, seg_a = render_megakernel(sc, cam_, seed, **kw)
+            b, seg_b = render_megakernel_reference(sc, cam_, seed, **kw)
+            stats = compare(a, b)
+            mega_flags_err = max(mega_flags_err, stats["max_abs"])
+            print(f"[18 K1 flags vs plain] {label} 256x128/4spp/d4 seed "
+                  f"{seed}: {stats}, segments {int(seg_a)} vs {int(seg_b)}")
+            check_exact(stats, f"K1 {label} seed {seed}", (seg_a, seg_b))
+    plain_img = render_megakernel(scene, cam18, 7, n_active=N_ACTIVE,
+                                  **PLAIN_SHAPE)
+    flags_img = render_megakernel(scene, cam18, 7, n_active=N_ACTIVE,
+                                  **PLAIN_SHAPE, **ALL_FLAGS)
+    check(not torch.equal(plain_img, flags_img), "K1: the flags change it")
+
+    # ---- 19. K2 flags: kernel vs plain on a 10k glass field, and the
+    # terrain with refraction + DOF through engine="cluster" ----
+    field = glass_field(big)
+    n_glass = int(((field.roughness == 0) & (field.ior == 1.5)
+                   & field.valid).sum())
+    cam19 = cam_for(PLAIN_SHAPE["width"], PLAIN_SHAPE["height"],
+                    aperture=0.2, **FIELD_CAM)
+    tab19 = order_clusters(build_clusters(field, n_active=BIG["n"]),
+                           cam19.position)
+    cluster_flags_err = 0.0
+    for label, flags in FLAG_SETS.items():
+        for seed in (7, 2**31 - 2):
+            kw = dict(prebuilt=tab19, pre_ordered=True, with_stats=True,
+                      **PLAIN_SHAPE, **flags)
+            a, seg_a = render_cluster(None, cam19, seed, **kw)
+            b, seg_b = render_cluster_reference(None, cam19, seed, **kw)
+            stats = compare(a, b)
+            cluster_flags_err = max(cluster_flags_err, stats["max_abs"])
+            print(f"[19 K2 flags vs plain] glass field (10k spheres, "
+                  f"{n_glass} glass) {label} 256x128/4spp/d4 seed {seed}: "
+                  f"{stats}, segments {int(seg_a)} vs {int(seg_b)}")
+            check_exact(stats, f"K2 glass field {label} seed {seed}",
+                        (seg_a, seg_b))
+    cam19t = cam_for(PLAIN_SHAPE["width"], PLAIN_SHAPE["height"],
+                     aperture=0.2, **TERRAIN_CAM)
+    before = render_cluster.launches
+    # enable_dof is left to render(): the camera's aperture switches it on
+    a, seg_a = render(ts, cam19t, 7, mesh=tm, engine="cluster",
+                      with_stats=True, enable_refraction=True, **PLAIN_SHAPE)
+    check(render_cluster.launches == before + 1,
+          "terrain with flags: engine='cluster' launched the cluster kernel")
+    b, seg_b = render_cluster_reference(
+        ts, cam19t, 7, mesh=tm, with_stats=True, enable_refraction=True,
+        enable_dof=True, n_active=quantize_count(3, ts.capacity),
+        n_tri_active=quantize_count(int(tm.valid.sum()), tm.capacity),
+        **PLAIN_SHAPE)
+    stats = compare(a, b)
+    cluster_flags_err = max(cluster_flags_err, stats["max_abs"])
+    print(f"[19 K2 flags vs plain] terrain 10k refraction + DOF "
+          f"256x128/4spp/d4 through engine='cluster': {stats}, segments "
+          f"{int(seg_a)} vs {int(seg_b)}")
+    check_exact(stats, "K2 terrain refraction + DOF", (seg_a, seg_b))
+
+    # ---- 20. main paths with the flags ----
+    def lens_and_strata(rt_, aperture):
+        c = rt_.get_camera()
+        c.aperture = aperture
+        rt_.set_camera(c)
+        rt_.set_stratify(True)
+
+    # (a) the demo scene: RayTracer(enable_refraction=True), aperture 0.1,
+    # set_stratify(True) -> the megakernel
+    rt_f = RayTracer(11, "v2", True, device=dev)
+    rt_f.set_scene(demo_api_scene())
+    lens_and_strata(rt_f, 0.1)
+    render_megakernel.launches = render_cluster.launches = 0
+    acc, stack = main_path(rt_f)
+    flags_launches = render_megakernel.launches
+    print(f"[20 flags main path] RayTracer(enable_refraction=True) + "
+          f"aperture 0.1 + set_stratify(True), demo scene, x4 at "
+          f"640x480/8spp/d4: megakernel launches {flags_launches}, cluster "
+          f"launches {render_cluster.launches}")
+    check(flags_launches == 4, "the flags main path launched the megakernel "
+          "4 times")
+    check(render_cluster.launches == 0, "the demo scene skips the cluster")
+    check_stack(stack, acc, "flags main path")
+    cam_f = rt_f.camera.to_params(dev)
+    acc_p, total_p = None, 0
+    for f in range(4):
+        b = render_megakernel_reference(
+            rt_f._scene_arrays, cam_f, batch_seed(11 + 1, f),
+            n_active=N_ACTIVE, **INTERACTIVE, **ALL_FLAGS)
+        acc_p, total_p = accumulate(acc_p, total_p, b, INTERACTIVE["spp"])
+    stats = compare(acc, acc_p)
+    mega_flags_err = max(mega_flags_err, stats["max_abs"])
+    print(f"[20 flags main path] vs the plain chain: accumulator {stats}")
+    check_exact(stats, "flags main path accumulator")
+
+    # (b) the glass field as Scene objects, same settings -> the cluster
+    field_host = glass_field(random_spheres(
+        BIG["n"], seed=BIG["seed"], spread=BIG["spread"], device="cpu"))
+    rt_g = RayTracer(13, "v2", True, device=dev)
+    rt_g.set_scene(api_scene_of(field_host))
+    aim(rt_g, FIELD_CAM)
+    lens_and_strata(rt_g, 0.1)
+    render_megakernel.launches = render_cluster.launches = 0
+    acc, stack = main_path(rt_g)
+    glass_launches = render_cluster.launches
+    print(f"[20 flags main path] RayTracer(enable_refraction=True) + "
+          f"aperture 0.1 + set_stratify(True), glass field (10k Scene "
+          f"objects) x4 at 640x480/8spp/d4: cluster launches "
+          f"{glass_launches}, megakernel launches "
+          f"{render_megakernel.launches}")
+    check(glass_launches == 4, "the glass field launched the cluster 4 times")
+    check(render_megakernel.launches == 0, "the glass field skips K1")
+    check_stack(stack, acc, "glass field main path")
+    # the same four batches through the plain version, at full size
+    cam_g = rt_g.camera.to_params(dev)
+    tab_g = order_clusters(build_clusters(rt_g._scene_arrays,
+                                          n_active=rt_g._n_active),
+                           cam_g.position)
+    t0 = time.perf_counter()
+    acc_p, total_p = None, 0
+    for f in range(4):
+        b = render_cluster_reference(
+            None, cam_g, batch_seed(13 + 1, f), prebuilt=tab_g,
+            pre_ordered=True, **INTERACTIVE, **ALL_FLAGS)
+        acc_p, total_p = accumulate(acc_p, total_p, b, INTERACTIVE["spp"])
+    torch.cuda.synchronize(dev)
+    stats = compare(acc, acc_p)
+    cluster_flags_err = max(cluster_flags_err, stats["max_abs"])
+    print(f"[20 flags main path] glass field vs the plain chain at the same "
+          f"size (640x480/8spp/d4, {time.perf_counter() - t0:.1f} s): "
+          f"accumulator {stats}")
+    check_exact(stats, "glass field main path accumulator")
+
+    # (c) the headless app with a thin lens
+    with tempfile.TemporaryDirectory() as tmp:
+        png = Path(tmp) / "dof.png"
+        render_megakernel.launches = 0
+        rc = app_run.main(["--headless", "--device", "cuda", "--width", "160",
+                           "--height", "120", "--samples", "8", "--batch",
+                           "8", "--depth", "4", "--aperture", "0.1",
+                           "--focus-dist", "3", "--output", str(png)])
+        check(rc == 0 and (png.exists() or png.with_suffix(".png.npy")
+                           .exists()), "app --aperture wrote its image")
+        check(render_megakernel.launches == 1,
+              "app --aperture: one megakernel batch")
+    print(f"[20 flags main path] python -m tpu_rt_torch.app.run --headless "
+          f"--aperture 0.1 --focus-dist 3: rc {rc}, megakernel launches "
+          f"{render_megakernel.launches}")
+
+    # (d) the display at 4K UHD (more values than torch.quantile takes)
+    uhd = torch.rand((2160, 3840, 3), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev) * 1.5
+    uhd_stack = display_stack(uhd, EXPOSURE, as_uint8=True)
+    torch.cuda.synchronize(dev)
+    check(tuple(uhd_stack.shape) == (2, 2160, 3840, 3)
+          and int(uhd_stack[1].max()) == 255 and int(uhd_stack[1].min()) == 0,
+          "4K UHD display_stack stretches its enhanced row")
+    print("[20 display] display_stack at 3840x2160: "
+          f"{tuple(uhd_stack.shape)} {uhd_stack.dtype}")
+
+    # ---- 21. statistics: demo-scene means with all three flags ----
+    cam21 = cam_for(64, 48, aperture=0.1)
+
+    def flags_mean(n, seed0):
+        acc_m = torch.zeros((48, 64, 3), dtype=torch.float64, device=dev)
+        for i in range(n):
+            acc_m += render_megakernel(scene, cam21, (seed0 + i) * (1 << 16),
+                                       width=64, height=48, spp=64,
+                                       max_depth=4, n_active=N_ACTIVE,
+                                       **ALL_FLAGS)
+        return acc_m / n
+
+    ref_mean = flags_mean(512, 60000)
+    r8 = float(torch.sqrt(((flags_mean(8, 70000) - ref_mean) ** 2).mean()))
+    r32 = float(torch.sqrt(((flags_mean(32, 71000) - ref_mean) ** 2).mean()))
+    print(f"[21 flags statistics] demo scene, all three flags, "
+          f"64x48/64spp/d4: RMSE vs the N=512 kernel mean: N=8 {r8:.6f}, "
+          f"N=32 {r32:.6f}, ratio {r8 / r32:.3f} (1.955 expected)")
+    check(r32 < r8 and 1.4 < r8 / r32 < 2.8, "flags 1/sqrt(N) scaling")
+
+    # ---- 22. timing ----
+    def in_turns(fns, frames):
+        times = {"kernel": [], "plain": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            times[which] += cuda_frame_ms(fns[which], frames, device=dev)
+        return {k: statistics.median(v) for k, v in times.items()}
+
+    k1_bytes = (N_ACTIVE * 16 + 16 + 3) * 4
+    mega_flags = None
+    for name, shape in (("640x480/8spp/d4", INTERACTIVE),
+                        ("1080p/4spp/d4", BENCH)):
+        n_pix = shape["width"] * shape["height"]
+        cam_t = cam_for(shape["width"], shape["height"], aperture=0.1)
+        kw = dict(n_active=N_ACTIVE, **shape, **ALL_FLAGS)
+        if mega_flags is None:  # the main path: RayTracer, as in phase 20
+            label = f"K1 all flags RayTracer demo scene {name}"
+            fn = (lambda i: rt_f.render_device(
+                INTERACTIVE["width"], INTERACTIVE["height"],
+                INTERACTIVE["spp"], INTERACTIVE["max_depth"]))
+            cam_t = rt_f.camera.to_params(dev)
+        else:
+            label = f"K1 all flags demo scene {name}"
+            fn = (lambda i: render_megakernel(scene, cam_t, 900 + i, **kw))
+        k_ms, ev_ms, frame, b_ms, b_by = mesh_timing(
+            label, fn,
+            lambda: render_megakernel(scene, cam_t, 0, with_stats=True,
+                                      **kw)[1],
+            n_pix, shape["spp"], "megakernel", N_ACTIVE * SPHERE_TEST_OPS,
+            k1_bytes + (-(-n_pix // 4096)) * 4, ALL_FLAGS, 22)
+        mp = in_turns({
+            "kernel": lambda i: render_megakernel(scene, cam_t, 950 + i, **kw),
+            "plain": lambda i: render_megakernel_reference(scene, cam_t,
+                                                           950 + i, **kw)},
+            3)
+        print(f"[22 timing] {label}: kernel frame {mp['kernel']:.4f} ms, "
+              f"plain {mp['plain']:.4f} ms (median of 2x3 chained frames "
+              f"each, in turns)")
+        if mega_flags is None:
+            mega_flags = {"name": "megakernel-refract-dof-stratify",
+                          "route": "cuda",
+                          "source": "tpu_rt_torch/csrc/megakernel.cu",
+                          "replaces": "tpu_rt/ops/pallas_megakernel.py:490",
+                          "launches": flags_launches,
+                          "max_abs_err": mega_flags_err, "ms": k_ms,
+                          "event_ms": ev_ms,
+                          "plain_ms": mp["plain"], "bound_ms": b_ms,
+                          "bound_by": b_by, "library_ms": None,
+                          "shape": f"RayTracer demo scene, refraction + DOF "
+                                   f"+ stratify, {name}",
+                          "plain_shape": name, "frame_ms": frame}
+
+    def k2_ops(tab):
+        return (tab.n_global * SPHERE_TEST_OPS + RAY_SETUP_OPS
+                + tab.n_ss * SLAB_TEST_OPS)
+
+    refract_dof = dict(enable_refraction=True, enable_dof=True)
+    cam22 = cam_for(BENCH["width"], BENCH["height"], aperture=0.2,
+                    **FIELD_CAM)
+    tab22 = order_clusters(build_clusters(field, n_active=BIG["n"]),
+                           cam22.position)
+    # the same scene without the flags first: the flags' own cost
+    for label, flags in (("no flags", {}), ("refraction + DOF", refract_dof)):
+        kw = dict(prebuilt=tab22, pre_ordered=True, **BENCH, **flags)
+        mesh_timing(f"K2 glass field {label} 1080p/4spp/d4",
+                    lambda i: render_cluster(None, cam22, 1000 + i, **kw),
+                    lambda: render_cluster(None, cam22, 0, with_stats=True,
+                                           **kw)[1],
+                    BENCH["width"] * BENCH["height"], BENCH["spp"],
+                    "cluster_kernel", k2_ops(tab22),
+                    table_bytes(tab22) + 16 * 4, flags, 22)
+    # the glass field's main path (phase 20 (b)): refraction, DOF, stratify
+    k_g, ev_g, frame_g, bound_g, bound_by_g = mesh_timing(
+        "K2 all flags RayTracer glass field 640x480/8spp/d4",
+        lambda i: rt_g.render_device(INTERACTIVE["width"],
+                                     INTERACTIVE["height"],
+                                     INTERACTIVE["spp"],
+                                     INTERACTIVE["max_depth"]),
+        lambda: render_cluster(None, cam_g, 0, prebuilt=tab_g,
+                               pre_ordered=True, with_stats=True,
+                               **INTERACTIVE, **ALL_FLAGS)[1],
+        INTERACTIVE["width"] * INTERACTIVE["height"], INTERACTIVE["spp"],
+        "cluster_kernel", k2_ops(tab_g), table_bytes(tab_g) + 16 * 4,
+        ALL_FLAGS, 22)
+    # the plain version at 256x128 only: its sweep is O(N) per ray
+    kw = dict(prebuilt=tab19, pre_ordered=True, **PLAIN_SHAPE, **ALL_FLAGS)
+    mp = in_turns({
+        "kernel": lambda i: render_cluster(None, cam19, 1100 + i, **kw),
+        "plain": lambda i: render_cluster_reference(None, cam19, 1100 + i,
+                                                    **kw)}, 3)
+    print(f"[22 timing] K2 all flags glass field 256x128/4spp/d4 (the plain "
+          f"version's shape): kernel {mp['kernel']:.4f} ms, plain "
+          f"{mp['plain']:.4f} ms (median of 2x3 chained frames each, in "
+          f"turns)")
+    cluster_flags = {"name": "cluster-refract-dof-stratify", "route": "cuda",
+                     "source": "tpu_rt_torch/csrc/cluster.cu",
+                     "replaces": "tpu_rt/ops/pallas_cluster.py:1375",
+                     "launches": glass_launches,
+                     "max_abs_err": cluster_flags_err, "ms": k_g,
+                     "event_ms": ev_g,
+                     "plain_ms": mp["plain"], "bound_ms": bound_g,
+                     "bound_by": bound_by_g, "library_ms": None,
+                     "shape": "RayTracer glass field (10k spheres), "
+                              "refraction + DOF + stratify, 640x480/8spp/d4",
+                     "frame_ms": frame_g,
+                     "plain_shape": "glass field 256x128/4spp/d4",
+                     "frame_ms_at_plain_shape": mp["kernel"]}
+
     mega["name"] = "megakernel-spheres"
-    print(json.dumps({"kernels": [mega, mega_tri, cluster, cluster_tri]}))
+    print(json.dumps({"kernels": [mega, mega_tri, cluster, cluster_tri,
+                                  mega_flags, cluster_flags]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
 """tpu_rt_torch on an NVIDIA GPU: the CUDA megakernel and cluster kernel
-against their plain PyTorch versions, with and without triangle meshes, and
-their RMSE of means against the JAX package's N=4096 goldens.
+against their plain PyTorch versions, with and without triangle meshes and
+with refraction, thin-lens DOF and R2 stratification, their RMSE of means
+against the JAX package's N=4096 goldens, and the display at 4K UHD.
 
 Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is
 False. Imports no jax, so it runs on a machine with torch alone:
@@ -21,6 +22,8 @@ from tpu_rt_torch.ops.cluster import (
     render_cluster_reference)
 from tpu_rt_torch.ops.megakernel import (
     render_megakernel, render_megakernel_reference)
+from tpu_rt_torch.ops.triangle import box, merge_meshes
+from tpu_rt_torch.render.display import display_stack
 
 pytestmark = pytest.mark.cuda
 
@@ -221,3 +224,101 @@ def test_kernels_with_an_all_padding_mesh(dev):
     a = render_cluster(spheres, cam, 3, tri_prebuilt=tri, **kw)
     b = render_cluster_reference(spheres, cam, 3, tri_prebuilt=tri, **kw)
     assert torch.equal(a, alone) and torch.equal(a, b)
+
+
+FLAG_SETS = {
+    "refract": dict(enable_refraction=True),
+    "dof": dict(enable_dof=True),
+    "stratify": dict(stratify=True),
+    "all": dict(enable_refraction=True, enable_dof=True, stratify=True),
+    # stratify without jitter shoots pixel centres
+    "stratify_centres": dict(stratify=True, jitter=False),
+}
+GLASS = dict(albedo=(0.95, 0.95, 0.95), metallic=0.0, roughness=0.0, ior=1.5)
+
+
+def glass_cornell(dev):
+    """The Cornell box with a glass box (12 triangles) on its floor."""
+    spheres, walls = cornell_box(device=dev)
+    glass = box(center=(-0.2, 0.36, -1.9), size=(0.7, 0.7, 0.7), device=dev,
+                **GLASS)
+    return spheres, merge_meshes([walls, glass])
+
+
+def glass_field(n, seed, spread, dev):
+    """random_spheres with every diffuse, non-emissive sphere whose index
+    is a positive multiple of 4 made glass (roughness 0, ior 1.5)."""
+    scene = random_spheres(n, seed=seed, spread=spread, device=dev)
+    idx = torch.arange(scene.capacity, device=dev)
+    glass = ((idx % 4 == 0) & (idx > 0) & (scene.metallic <= 0)
+             & (scene.emission.amax(dim=-1) <= 0))
+    return scene._replace(
+        roughness=torch.where(glass, 0.0, scene.roughness),
+        ior=torch.where(glass, 1.5, scene.ior))
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["demo", "glass_cornell"])
+@pytest.mark.parametrize("flags", list(FLAG_SETS))
+def test_megakernel_flags_match_plain(dev, flags, mesh):
+    """K1 with refraction, the thin lens and the R2 lattice, alone and
+    together, with and without a mesh: bit for bit, segments included."""
+    if mesh:
+        spheres, m = glass_cornell(dev)
+        kw = dict(mesh=m, n_active=4, n_tri_active=24)
+        pose = CORNELL_POSE
+    else:
+        spheres, kw, pose = tpu_rt_torch.demo_scene(device=dev), dict(
+            n_active=N_ACTIVE), {}
+    cam = tpu_rt_torch.make_camera(aspect=200 / 90, aperture=0.1, device=dev,
+                                   **pose)
+    before = render_megakernel.launches
+    a, seg_a = render_megakernel(spheres, cam, 2**31 - 2, **kw, **RAGGED,
+                                 **FLAG_SETS[flags])
+    b, seg_b = render_megakernel_reference(spheres, cam, 2**31 - 2, **kw,
+                                           **RAGGED, **FLAG_SETS[flags])
+    torch.cuda.synchronize(dev)
+    assert render_megakernel.launches == before + 1
+    assert torch.equal(a, b), int((a != b).sum())
+    assert int(seg_a) == int(seg_b)
+
+
+@pytest.mark.parametrize("mesh", [False, True],
+                         ids=["glass_field", "glass_cornell"])
+@pytest.mark.parametrize("flags", list(FLAG_SETS))
+def test_cluster_kernel_flags_match_plain(dev, flags, mesh):
+    """K2 with the same flag sets on a 2000-sphere glass field (refracted
+    rays start inside spheres) and on the glass Cornell box."""
+    if mesh:
+        spheres, m = glass_cornell(dev)
+        kw, pose = dict(mesh=m), CORNELL_POSE
+    else:
+        spheres = glass_field(2000, 2, 15.0, dev)
+        kw = dict(n_active=2000)
+        pose = dict(position=(0, 3, 14), target=(0, 0, -6))
+    cam = tpu_rt_torch.make_camera(aspect=200 / 90, aperture=0.2, device=dev,
+                                   **pose)
+    before = render_cluster.launches
+    a, seg_a = render_cluster(spheres, cam, 2**31 - 2, **kw, **RAGGED,
+                              **FLAG_SETS[flags])
+    b, seg_b = render_cluster_reference(spheres, cam, 2**31 - 2, **kw,
+                                        **RAGGED, **FLAG_SETS[flags])
+    torch.cuda.synchronize(dev)
+    assert render_cluster.launches == before + 1
+    assert torch.equal(a, b), int((a != b).sum())
+    assert int(seg_a) == int(seg_b)
+
+
+def test_display_stack_at_4k_uhd(dev):
+    """3840x2160x3 values exceed torch.quantile's 2^24: the enhanced row is
+    the float64 numpy percentile stretch of the tone-mapped row."""
+    rng = np.random.default_rng(0)
+    acc = torch.from_numpy(rng.uniform(0, 1.5, (2160, 3840, 3)).astype(
+        np.float32)).to(dev)
+    stack = display_stack(acc, 1.5)
+    torch.cuda.synchronize(dev)
+    assert stack.shape == (2, 2160, 3840, 3) and stack.device == dev
+    disp = stack[0].cpu().numpy().astype(np.float64)
+    lo, hi = np.percentile(disp, [2.0, 98.0])
+    np.testing.assert_allclose(stack[1].cpu().numpy(),
+                               np.clip((disp - lo) / (hi - lo), 0.0, 1.0),
+                               rtol=0, atol=1e-5)

@@ -270,7 +270,7 @@ def test_select_engine_routes_meshes_as_jax():
     assert frame.select_engine(cs, mesh=cm, engine="cluster") == "cluster"
     big = tri.make_mesh(RNG_VERTS, RNG_FACES, capacity=512, device=CPU)
     assert frame.select_engine(cs, mesh=big) == "cluster"
-    with pytest.raises(NotImplementedError, match="K1-nee-stratify"):
+    with pytest.raises(NotImplementedError, match="K1-nee"):
         frame.render(cs, camera_from_numpy(to_np_fields(tpu_rt.make_camera()),
                                            CPU), 0, width=8, height=8, spp=1,
                      max_depth=1, mesh=cm, nee=True)

@@ -3,11 +3,11 @@
 Counterpart of ``tpu_rt/api/compat.py`` for the slice the port carries:
 ``Vector3``, ``Material``, ``Sphere``, ``Camera`` (with ``to_params``),
 ``Scene`` (with ``to_arrays``) and ``RayTracer`` with ``set_scene``,
-``set_mesh``, ``get_camera``, ``set_camera``, ``move_camera``, ``render``
-and ``render_device``. Scene edits mutate plain Python objects;
-``set_scene`` snapshots them into tensors on the tracer's device, and
-``render_device`` drives the megakernel there, or the cluster engine past
-64 spheres or 256 triangles.
+``set_mesh``, ``set_stratify``, ``get_camera``, ``set_camera``,
+``move_camera``, ``render`` and ``render_device``. Scene edits mutate
+plain Python objects; ``set_scene`` snapshots them into tensors on the
+tracer's device, and ``render_device`` drives the megakernel there, or the
+cluster engine past 64 spheres or 256 triangles.
 """
 
 from __future__ import annotations
@@ -123,8 +123,9 @@ class Sphere:
 
 
 class Camera:
-    """v1 camera: position/target/up/fov/aspect; ``aperture`` > 0 (thin
-    lens) is not ported yet and makes a render raise."""
+    """v1 camera: position/target/up/fov/aspect; ``aperture`` > 0 renders
+    with a thin lens of that radius, focused at ``focus_dist`` (<= 0: the
+    look-at distance)."""
 
     def __init__(self):
         self.position = Vector3(0.0, 2.0, 3.0)
@@ -218,13 +219,23 @@ class RayTracer:
     mesh's) built once at ``set_scene``/``set_mesh`` and ordered once per
     camera position (keyed by the position's Python floats), so no frame
     rebuilds or reorders them.
+
+    ``enable_refraction`` makes materials with metallic <= 0, roughness <= 0
+    and ior > 1 glass; ``set_stratify`` switches R2 stratified pixel
+    sampling; a camera ``aperture`` > 0 switches the thin lens on. Only
+    ``mode="v2"`` is ported.
     """
 
-    def __init__(self, seed: int = 0, *, device="cuda"):
+    def __init__(self, seed: int = 0, mode: str = "v2",
+                 enable_refraction: bool = False, *, device="cuda"):
+        if mode != "v2":
+            raise _F._not_ported(f"mode={mode!r}", "Queue 1, lax integrator")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"RayTracer(device={device!r}): CUDA is not "
                                "available")
+        self._enable_refraction = bool(enable_refraction)
+        self._stratify = False
         self.camera = Camera()
         self.camera.position = Vector3(0, 2, 5)
         self.camera.target = Vector3(0, 0, -1)
@@ -294,14 +305,22 @@ class RayTracer:
         self._clustered = self._ordered = self._ordered_at = None
         self._tri_clustered = self._tri_ordered = None
         if (self._scene_arrays is None or not self._scene_snapshot.spheres
-                or _F.select_engine(self._scene_arrays,
-                                    mesh=self._mesh) != "cluster"):
+                or self._engine() != "cluster"):
             return
         self._clustered = _C.build_clusters(self._scene_arrays,
                                             n_active=self._n_active)
         if self._mesh is not None:
             self._tri_clustered = _C.build_tri_clusters(
                 self._mesh, n_active=self._n_tri_active)
+
+    def _engine(self) -> str:
+        return _F.select_engine(self._scene_arrays,
+                                enable_refraction=self._enable_refraction,
+                                mesh=self._mesh)
+
+    def set_stratify(self, enable: bool):
+        """Switch stratified (R2 low-discrepancy) pixel sampling."""
+        self._stratify = bool(enable)
 
     def get_camera(self) -> Camera:
         return self.camera.copy()
@@ -329,8 +348,7 @@ class RayTracer:
             return None
         seed = batch_seed(self._seed_base, self._frame)
         self._frame += 1
-        self._last_engine = _F.select_engine(self._scene_arrays,
-                                             mesh=self._mesh)
+        self._last_engine = self._engine()
         cam = self.camera.to_params(self.device)
         kw = {}
         if self._last_engine == "cluster":
@@ -350,4 +368,6 @@ class RayTracer:
             spp=samples_per_pixel, max_depth=max_depth,
             n_active=self._n_active, mesh=self._mesh,
             n_tri_active=self._n_tri_active,
+            enable_refraction=self._enable_refraction,
+            stratify=self._stratify,
             enable_dof=float(self.camera.aperture) > 0.0, **kw)

@@ -3,10 +3,12 @@
 Counterpart of ``tpu_rt/app/run.py:run_headless`` as a plain loop over
 ``RayTracer.render_device`` -> ``accumulate`` -> ``display_stack``; the
 threaded interaction runtime and the GUI are not ported yet. ``--obj``
-loads a Wavefront OBJ mesh beside the demo scene.
+loads a Wavefront OBJ mesh beside the demo scene; ``--aperture`` and
+``--focus-dist`` give the camera a thin lens.
 
     python -m tpu_rt_torch.app.run --headless --samples 32 --output x.png
     python -m tpu_rt_torch.app.run --headless --obj model.obj --obj-scale 2
+    python -m tpu_rt_torch.app.run --headless --aperture 0.1 --focus-dist 3
 """
 
 from __future__ import annotations
@@ -70,6 +72,11 @@ def run_headless(args) -> int:
         mesh = load_obj(args.obj, scale=args.obj_scale, device=rt.device)
         rt.set_mesh(mesh)
         print(f"  loaded {int(mesh.valid.sum())} triangles from {args.obj}")
+    if args.aperture > 0.0:
+        cam = rt.get_camera()
+        cam.aperture = args.aperture
+        cam.focus_dist = args.focus_dist
+        rt.set_camera(cam)
     t0 = time.perf_counter()
     stack = render_progressive(
         rt, args.width, args.height, args.samples, args.batch, args.depth,
@@ -103,6 +110,10 @@ def main(argv=None) -> int:
     parser.add_argument("--obj", default=None, metavar="PATH",
                         help="load a Wavefront OBJ mesh into the scene")
     parser.add_argument("--obj-scale", type=float, default=1.0)
+    parser.add_argument("--aperture", type=float, default=0.0,
+                        help="thin-lens radius for depth of field (0 = off)")
+    parser.add_argument("--focus-dist", type=float, default=0.0,
+                        help="focal-plane distance (0 = look-at target)")
     args = parser.parse_args(argv)
     if not args.headless:
         print("the GUI is not ported to tpu_rt_torch yet (ROADMAP.md: "

@@ -1,13 +1,14 @@
-"""Batched pinhole camera rays, v1 semantics.
+"""Batched camera rays, v1 semantics, with an optional thin lens.
 
 Counterpart of ``tpu_rt/core/camera.py``: position/target/up pose, NDC
-mapping ``(u - 0.5) * 2`` with a Y flip, ``tan(fov * 3.14159 / 360)``, and a
-degenerate-right fallback to +X. Thin-lens rays are not carried by the port
-yet (ROADMAP.md: K1-refract-dof).
+mapping ``(u - 0.5) * 2`` with a Y flip, ``tan(fov * 3.14159 / 360)``, a
+degenerate-right fallback to +X, and thin-lens depth of field from lens
+uniforms (``generate_rays(lens_xi=)``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import vecmath as vm
@@ -15,6 +16,8 @@ from .types import CameraP
 
 # The reference uses a truncated pi; kept for bit-compatible parity.
 REF_PI = 3.14159
+# 2 pi rounded to f32, as JAX rounds the weak-typed ``2.0 * jnp.pi``
+TWO_PI = float(np.float32(2.0 * np.pi))
 
 
 def basis(cam: CameraP):
@@ -36,11 +39,16 @@ def tan_half_fov(cam: CameraP) -> torch.Tensor:
     return torch.tan(cam.fov * (REF_PI / 360.0))
 
 
-def generate_rays(cam: CameraP, u: torch.Tensor, v: torch.Tensor):
-    """Pinhole rays through screen coords ``u, v`` in [0, 1].
+def generate_rays(cam: CameraP, u: torch.Tensor, v: torch.Tensor,
+                  lens_xi: torch.Tensor | None = None):
+    """Rays through screen coords ``u, v`` in [0, 1].
 
     Returns (origins, directions), both ``u.shape + (3,)``, directions
-    normalized."""
+    normalized. ``lens_xi``: optional ``u.shape + (2,)`` uniforms for thin-
+    lens depth of field: origins move to a point of the disk of radius
+    ``cam.aperture`` (``r = aperture sqrt(xi0)``, ``phi = 2 pi xi1``) and
+    directions aim at the pinhole ray's point on the focal plane, at
+    ``focus_dist`` along forward (<= 0: the look-at distance)."""
     forward, right, up = basis(cam)
     tf = tan_half_fov(cam)
     ndc_x = (u - 0.5) * 2.0
@@ -49,7 +57,21 @@ def generate_rays(cam: CameraP, u: torch.Tensor, v: torch.Tensor):
     view_y = (ndc_y * tf)[..., None]
     direction = vm.normalize(forward + right * view_x + up * view_y)
     origin = torch.broadcast_to(cam.position, direction.shape)
-    return origin, direction
+    if lens_xi is None:
+        return origin, direction
+
+    focus = torch.where(cam.focus_dist > 0.0, cam.focus_dist,
+                        vm.length(cam.target - cam.position))
+    # the pinhole ray's point on the focal plane
+    cos_f = torch.sum(direction * forward, dim=-1, keepdim=True)
+    focal_pt = origin + direction * (focus / torch.clamp_min(cos_f, 1e-6))
+    # uniform point of the lens disk
+    r = cam.aperture * torch.sqrt(lens_xi[..., 0])
+    phi = TWO_PI * lens_xi[..., 1]
+    lx = (r * torch.cos(phi))[..., None]
+    ly = (r * torch.sin(phi))[..., None]
+    origin = origin + right * lx + up * ly
+    return origin, vm.normalize(focal_pt - origin)
 
 
 def pixel_uv(width: int, height: int, jitter: torch.Tensor | None = None, *,

@@ -49,9 +49,8 @@ class SphereScene(NamedTuple):
 class CameraP(NamedTuple):
     """Camera parameters, v1 semantics: position/target/up + fov/aspect.
 
-    ``aperture`` > 0 asks for thin-lens depth of field, which the port does
-    not carry yet (render raises); ``focus_dist`` <= 0 means the look-at
-    distance.
+    ``aperture`` > 0 asks for thin-lens depth of field (the lens radius,
+    in world units); ``focus_dist`` <= 0 means the look-at distance.
     """
 
     position: torch.Tensor    # (3,) f32

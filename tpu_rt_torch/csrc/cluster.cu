@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernel built by tpu_rt/ops/pallas_cluster.py:567
 // _make_kernel (launched by render_cluster) for sphere scenes with or
-// without a triangle mesh: the v2 estimator, pixel jitter or pixel centres,
-// sqrt gamma and clamp, per-tile traced segment counts, and the implicit
+// without a triangle mesh: the v2 estimator with the optional dielectric
+// (refraction), pixel jitter, pixel centres or the R2 lattice (stratify), a
+// pinhole or thin-lens camera (DOF), sqrt gamma and clamp, per-tile traced
+// segment counts, and the implicit
 // 3-level Morton hierarchy of tpu_rt_torch/ops/cluster.py:build_clusters
 // (super-supers -> supers of 8 -> clusters of C spheres, plus G "global"
 // spheres swept for every ray), and a second such hierarchy of triangles
@@ -48,6 +50,14 @@
 //     that opposes n to the ray, so the sphere shading's (h - c) * (1/r)
 //     forms the normal with the same roundings. The triangle path is a
 //     template branch: without a mesh the kernel is the sphere kernel;
+//   * refraction, the thin lens and the R2 lattice (pallas_cluster.py:
+//     1199-1247, 1375-1406) live in the kFlags instantiations as uniform
+//     branches (path_common.cuh); the winner's ior is the bf16 high half of
+//     its (rgh, ior) word. The R2 shift is keyed by seed + tile * spp,
+//     without the sample term, as the TPU kernel keys it across its spp
+//     grid steps. Refracted rays start inside spheres: the slab test clamps
+//     its entry at 1e-3 and the sphere test keeps the far root, so the walk
+//     needs no change for them;
 //   * segment counts: one integer atomic per block into its tile's slot.
 //
 // Not done here, and left to later work: warp-cooperative traversal (one
@@ -171,7 +181,7 @@ __device__ __forceinline__ void walk(const float* __restrict__ ss_boxes,
   }
 }
 
-template <bool kTris>
+template <bool kTris, bool kFlags>
 __global__ void __launch_bounds__(kBlock)
 cluster_kernel(const int* __restrict__ glob_g, int n_global,
                const float* __restrict__ ss_boxes, int n_ss,
@@ -184,7 +194,8 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
                const float* __restrict__ cam_g, const float* __restrict__ bg_g,
                uint32_t seed, int width, int height, int blocks_x,
                float inv_w, float inv_h, int spp, float inv_spp,
-               int max_depth, int jitter, float* __restrict__ out,
+               int max_depth, int jitter, int refract, int dof,
+               int stratify, float* __restrict__ out,
                int* __restrict__ segs) {
   __shared__ int glob[kMaxGlobal * kCols];
   __shared__ int tglob[kTris ? kMaxGlobal * kCols : 1];
@@ -216,11 +227,11 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
   const float px = (float)pxi;
   const float py = (float)pyi;
 
-  const float cpx = cam[0], cpy = cam[1], cpz = cam[2];
-  const float fwx = cam[3], fwy = cam[4], fwz = cam[5];
-  const float rix = cam[6], riy = cam[7], riz = cam[8];
-  const float upx = cam[9], upy = cam[10], upz = cam[11];
-  const float tf_aspect = cam[12], tf = cam[13];
+  const Camera c = load_camera(cam);
+  // the R2 shift's stream: seed + tile * spp, without the sample term
+  const Sampling sm = make_sampling<kFlags>(
+      jitter, stratify, dof, flat, seed + (uint32_t)tile * (uint32_t)spp);
+  const bool refr = kFlags && refract;
 
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   int seg_count = 0;
@@ -230,21 +241,7 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
     const uint32_t seed_s = seed + (uint32_t)tile * (uint32_t)spp + (uint32_t)s;
     const uint32_t pix_mix = flat ^ (seed_s * 2654435769u);
 
-    float xu = 0.5f, xv = 0.5f;
-    if (jitter) {
-      xu = hash_uniform(pix_mix, 1u);
-      xv = hash_uniform(pix_mix, 2u);
-    }
-    const float u = (px + xu) * inv_w;
-    const float v = (py + xv) * inv_h;
-    const float vx = (u - 0.5f) * 2.0f * tf_aspect;
-    const float vy = (0.5f - v) * 2.0f * tf;
-    const float dx = fwx + rix * vx + upx * vy;
-    const float dy = fwy + riy * vx + upy * vy;
-    const float dz = fwz + riz * vx + upz * vy;
-    const float inv = inv_len(dx, dy, dz);
-    Path p{cpx, cpy, cpz, dx * inv, dy * inv, dz * inv,
-           1.f, 1.f, 1.f, 0.f, 0.f, 0.f};
+    Path p = primary_ray<kFlags>(c, px, py, inv_w, inv_h, pix_mix, s, sm);
 
     for (int k = 1; k <= max_depth; ++k) {
       ++seg_count;  // only live paths reach this point
@@ -306,8 +303,9 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
           __uint_as_float(p1 << 16), __uint_as_float(p1 & 0xFFFF0000u),
           __uint_as_float(p2 << 16),
           __uint_as_float(p3 << 16), __uint_as_float(p3 & 0xFFFF0000u),
-          __uint_as_float(p4 << 16)};
-      if (!shade_hit(p, surf, best.t, k, pix_mix, bounce_salt(jitter, k)))
+          __uint_as_float(p4 << 16), __uint_as_float(p2 & 0xFFFF0000u)};
+      if (!shade_hit<kFlags>(p, surf, best.t, k, pix_mix,
+                             bounce_salt(sm.primary, refr, k), refr))
         break;
     }
     acc_r += p.cr;
@@ -336,8 +334,9 @@ extern "C" {
 // have the same layout (n_tri_ss 0 and null pointers: no mesh); `cam` (16,)
 // and `bg` (3,) f32, all on the device. `out` is (height, width, 3) f32;
 // `segs` (n_tiles,) int32, zeroed by the caller, with n_tiles =
-// ceil(width/128) * ceil(height/32). Allocates nothing and does not
-// synchronise. Returns cudaGetLastError() of the launch.
+// ceil(width/128) * ceil(height/32). `refract`, `dof` and `stratify` switch
+// the optional flags on. Allocates nothing and does not synchronise.
+// Returns cudaGetLastError() of the launch.
 int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
                          int n_ss, const float* super_boxes, const int* attr,
                          int cluster_size, const int* tglob, int n_tri_global,
@@ -345,8 +344,9 @@ int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
                          const float* tsuper_boxes, const int* tattr,
                          int tri_cluster_size, const float* cam,
                          const float* bg, int seed, int width, int height,
-                         int spp, int max_depth, int jitter, float* out,
-                         int* segs, void* stream) {
+                         int spp, int max_depth, int jitter, int refract,
+                         int dof, int stratify, float* out, int* segs,
+                         void* stream) {
   if (n_global < 0 || n_global > kMaxGlobal || n_ss < 1 ||
       cluster_size < 8 || cluster_size % 8 != 0 || n_tri_ss < 0 ||
       (n_tri_ss > 0 &&
@@ -362,12 +362,17 @@ int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
   const float inv_h = (float)(1.0 / (double)height);
   const float inv_spp = (float)(1.0 / (double)spp);
   const int blocks = blocks_x * blocks_y * (kTile / kBlock);
-  auto kernel = n_tri_ss > 0 ? cluster_kernel<true> : cluster_kernel<false>;
+  const bool flags = refract || dof || stratify;
+  auto kernel = n_tri_ss > 0 ? (flags ? cluster_kernel<true, true>
+                                      : cluster_kernel<true, false>)
+                             : (flags ? cluster_kernel<false, true>
+                                      : cluster_kernel<false, false>);
   kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
       glob, n_global, ss_boxes, n_ss, super_boxes, attr, cluster_size, tglob,
       n_tri_global, tss_boxes, n_tri_ss, tsuper_boxes, tattr,
       tri_cluster_size, cam, bg, (uint32_t)seed, width, height, blocks_x,
-      inv_w, inv_h, spp, inv_spp, max_depth, jitter, out, segs);
+      inv_w, inv_h, spp, inv_spp, max_depth, jitter, refract, dof, stratify,
+      out, segs);
   return (int)cudaGetLastError();
 }
 

@@ -3,16 +3,18 @@
 // Replaces the TPU kernel built by tpu_rt/ops/pallas_megakernel.py:_make_kernel
 // (launched by render_pallas) for the configurations the main render path
 // and the small-mesh path run: sphere scenes of at most 64 spheres, beside
-// at most 256 triangles or none, the v2 estimator, i.i.d. pixel jitter (or
-// pixel centres), sqrt gamma and clamp, and per-tile traced segment counts.
+// at most 256 triangles or none, the v2 estimator with the optional
+// dielectric (refraction), i.i.d. pixel jitter, pixel centres or the R2
+// lattice (stratify), a pinhole or thin-lens camera (DOF), sqrt gamma and
+// clamp, and per-tile traced segment counts.
 // Randomness is the counter hash of the JAX kernel's interpret mode
 // (_hash_uniform), drawn in the same order, so this kernel can be held
 // stream for stream against the JAX package and against the plain PyTorch
 // version in tpu_rt_torch/ops/megakernel.py.
 //
 // What bounds it: FP32 throughput and instruction latency. The inputs are a
-// (<= 64, 16) f32 attribute table (4 KB), a (<= 256, 20) f32 triangle table
-// (20 KB) and 20 camera/background scalars; the only device-memory traffic
+// (<= 64, 16) f32 attribute table (4 KB), a (<= 256, 21) f32 triangle table
+// (21 KB) and 19 camera/background scalars; the only device-memory traffic
 // is the 12 B/pixel colour store. Each thread runs a divergent loop
 // (samples x bounces x primitives) of dependent arithmetic and
 // transcendentals.
@@ -33,6 +35,11 @@
 //     triangle winner shades with its f32 face normal flipped to oppose the
 //     ray. The sweep is a template branch: the sphere-only instantiation
 //     keeps the instruction stream and shared memory it had;
+//   * refraction, the thin lens and the R2 lattice (pallas_megakernel.py:
+//     197-270, 490-523) live in the kFlags instantiations, as uniform
+//     branches (path_common.cuh); the flag-free instantiations compile
+//     without them. The R2 shift is drawn once per thread, keyed by the
+//     per-tile seed without the sample term (salts 9001, 9002);
 //   * no global state (no __constant__ symbol): a launch writes only its own
 //     output and counts, so renders on two streams cannot race;
 //   * segment counts: a block reduction, then one integer atomicAdd per block
@@ -54,17 +61,19 @@ constexpr int kMaxSpheres = 64;
 constexpr int kCols = 16;    // attribute columns (ops/intersect.py)
 constexpr int kMaxTris = 256;
 // triangle columns (ops/megakernel.py:_pack_tris): v0 0-2, e1 3-5, e2 6-8,
-// normal 9-11, albedo 12-14, metallic 15, roughness 16, emission 17-19
-constexpr int kTriCols = 20;
+// normal 9-11, albedo 12-14, metallic 15, roughness 16, emission 17-19,
+// ior 20
+constexpr int kTriCols = 21;
 
-template <bool kTris>
+template <bool kTris, bool kFlags>
 __global__ void __launch_bounds__(kBlock)
 megakernel(const float* __restrict__ attr_g, int n_spheres,
            const float* __restrict__ tris_g, int n_tris,
            const float* __restrict__ cam_g, const float* __restrict__ bg_g,
            uint32_t seed, uint32_t pixel_offset, int width, float inv_w,
            float inv_h, int spp, float inv_spp, int max_depth, int jitter,
-           float* __restrict__ out, int n_pix, int* __restrict__ segs) {
+           int refract, int dof, int stratify, float* __restrict__ out,
+           int n_pix, int* __restrict__ segs) {
   __shared__ float attr[kMaxSpheres * kCols];
   __shared__ float tris[kTris ? kMaxTris * kTriCols : 1];
   __shared__ float cam[16];
@@ -88,11 +97,10 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
   // per-tile stream: seed + tile (int32 wrap in the JAX kernel)
   const uint32_t tile_seed = seed + (uint32_t)tile;
 
-  const float cpx = cam[0], cpy = cam[1], cpz = cam[2];
-  const float fwx = cam[3], fwy = cam[4], fwz = cam[5];
-  const float rix = cam[6], riy = cam[7], riz = cam[8];
-  const float upx = cam[9], upy = cam[10], upz = cam[11];
-  const float tf_aspect = cam[12], tf = cam[13];
+  const Camera c = load_camera(cam);
+  const Sampling sm =
+      make_sampling<kFlags>(jitter, stratify, dof, flat, tile_seed);
+  const bool refr = kFlags && refract;
 
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   int seg_count = 0;
@@ -101,21 +109,7 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
     const uint32_t pix_mix =
         flat ^ ((tile_seed + (uint32_t)s * 7919u) * 2654435769u);
 
-    float xu = 0.5f, xv = 0.5f;
-    if (jitter) {
-      xu = hash_uniform(pix_mix, 1u);
-      xv = hash_uniform(pix_mix, 2u);
-    }
-    const float u = (px + xu) * inv_w;
-    const float v = (py + xv) * inv_h;
-    const float vx = (u - 0.5f) * 2.0f * tf_aspect;
-    const float vy = (0.5f - v) * 2.0f * tf;
-    float dx = fwx + rix * vx + upx * vy;
-    float dy = fwy + riy * vx + upy * vy;
-    float dz = fwz + riz * vx + upz * vy;
-    const float inv = inv_len(dx, dy, dz);
-    Path p{cpx, cpy, cpz, dx * inv, dy * inv, dz * inv,
-           1.f, 1.f, 1.f, 0.f, 0.f, 0.f};
+    Path p = primary_ray<kFlags>(c, px, py, inv_w, inv_h, pix_mix, s, sm);
 
     for (int k = 1; k <= max_depth; ++k) {
       ++seg_count;  // only live paths reach this point
@@ -168,15 +162,17 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
         const float* g = tris + best_tri * kTriCols;
         const float sgn =
             (p.dx * g[9] + p.dy * g[10] + p.dz * g[11]) < 0.f ? 1.f : -1.f;
-        const Surface surf{g[9],  g[10], g[11], sgn,   g[12], g[13],
-                           g[14], g[15], g[16], g[17], g[18], g[19]};
-        alive = shade_hit(p, surf, best_t, k, pix_mix, bounce_salt(jitter, k),
-                          true);
+        const Surface surf{g[9],  g[10], g[11], sgn,   g[12], g[13], g[14],
+                           g[15], g[16], g[17], g[18], g[19], g[20]};
+        alive = shade_hit<kFlags>(p, surf, best_t, k, pix_mix,
+                                  bounce_salt(sm.primary, refr, k), refr,
+                                  true);
       } else {
         const float* w = attr + best * kCols;
-        const Surface surf{w[0], w[1], w[2], w[14], w[4], w[5], w[6], w[7],
-                           w[8], w[9], w[10], w[11]};
-        alive = shade_hit(p, surf, best_t, k, pix_mix, bounce_salt(jitter, k));
+        const Surface surf{w[0], w[1], w[2], w[14], w[4],  w[5], w[6],
+                           w[7], w[8], w[9], w[10], w[11], w[12]};
+        alive = shade_hit<kFlags>(p, surf, best_t, k, pix_mix,
+                                  bounce_salt(sm.primary, refr, k), refr);
       }
       if (!alive) break;
     }
@@ -202,15 +198,17 @@ extern "C" {
 
 // Launches the megakernel on `stream`. `out` is (n_pix, 3) f32, `segs`
 // (n_tiles,) int32 and zeroed by the caller; `attr` (n_spheres, 16), `tris`
-// (n_tris, 20) (or null with n_tris 0), `cam` (16,) and `bg` (3,) f32 on the
-// device. Allocates nothing and does not synchronise. Returns
-// cudaGetLastError() of the launch.
+// (n_tris, 21) (or null with n_tris 0), `cam` (16,) and `bg` (3,) f32 on the
+// device. `refract`, `dof` and `stratify` switch the optional flags on.
+// Allocates nothing and does not synchronise. Returns cudaGetLastError()
+// of the launch.
 int tpurt_megakernel_launch(const float* attr, int n_spheres,
                             const float* tris, int n_tris, const float* cam,
                             const float* bg, int seed, int pixel_offset,
                             int width, int height, int spp, int max_depth,
-                            int jitter, int n_tiles, float* out, int n_pix,
-                            int* segs, void* stream) {
+                            int jitter, int refract, int dof, int stratify,
+                            int n_tiles, float* out, int n_pix, int* segs,
+                            void* stream) {
   if (n_spheres < 1 || n_spheres > kMaxSpheres || n_tris < 0 ||
       n_tris > kMaxTris || (n_tris > 0 && tris == nullptr) || width < 1 ||
       height < 1 || spp < 1 || max_depth < 1 || n_tiles < 1)
@@ -219,11 +217,15 @@ int tpurt_megakernel_launch(const float* attr, int n_spheres,
   const float inv_h = (float)(1.0 / (double)height);
   const float inv_spp = (float)(1.0 / (double)spp);
   const int blocks = n_tiles * (kTile / kBlock);
-  auto kernel = n_tris > 0 ? megakernel<true> : megakernel<false>;
+  const bool flags = refract || dof || stratify;
+  auto kernel = n_tris > 0 ? (flags ? megakernel<true, true>
+                                    : megakernel<true, false>)
+                           : (flags ? megakernel<false, true>
+                                    : megakernel<false, false>);
   kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
       attr, n_spheres, tris, n_tris, cam, bg, (uint32_t)seed,
       (uint32_t)pixel_offset, width, inv_w, inv_h, spp, inv_spp, max_depth,
-      jitter, out, n_pix, segs);
+      jitter, refract, dof, stratify, out, n_pix, segs);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,14 @@
 // Device helpers shared by the path-trace kernels (megakernel.cu,
 // cluster.cu): the JAX kernels' interpret-mode counter hash, the scalar
-// Moller-Trumbore test, the v2 bounce after a nearest hit (emission,
-// Russian roulette, metal or diffuse scatter), and the salt order both
-// kernels draw in.
+// Moller-Trumbore test, the primary ray (pixel jitter, pixel centres or the
+// R2 lattice; pinhole or thin lens), the v2 bounce after a nearest hit
+// (emission, Russian roulette, metal, diffuse or dielectric scatter), and
+// the salt order both kernels draw in.
+//
+// The optional flags (refraction, thin lens, R2 stratification) live in
+// the instantiations with kFlags = true, where each is a uniform runtime
+// branch; kFlags = false compiles the flag-free kernel, whose instruction
+// stream has none of them.
 //
 // Build without fast-math: the sphere test's root selection relies on IEEE
 // compares with the NaN of sqrt(negative) being false. Build without FMA
@@ -20,6 +26,10 @@ constexpr int kTile = 4096;  // rays per TPU tile: 32 sublanes x 128 lanes
 constexpr int kRRStart = 3;  // Russian roulette after bounce 3
 constexpr float kTMax = 1e10f;
 constexpr float kTwoPi = 6.2831853071795864f;
+// R2 lattice steps (1/p, 1/p^2 for the plastic number p), rounded to f32 as
+// JAX rounds tpu_rt/ops/pallas_megakernel.py:R2_ALPHA_U/V
+constexpr float kR2AlphaU = 0.7548776662466927f;
+constexpr float kR2AlphaV = 0.5698402909980532f;
 
 // Counter hash U[0,1): tpu_rt/ops/pallas_megakernel.py:_hash_uniform in
 // uint32 arithmetic (the JAX version wraps int32; signed overflow is UB in
@@ -71,13 +81,17 @@ __device__ __forceinline__ float mt_test(float ox, float oy, float oz,
 }
 
 // Salts follow the JAX kernels' call-site counter over their unrolled
-// trace: jitter draws 1, 2; bounce k draws 3 ball salts, plus one RR salt
-// first when k > kRRStart. Returns the salt drawn last before bounce k.
-// Derived from k, never carried, so a path that ends early cannot shift
-// another's stream.
-__device__ __forceinline__ uint32_t bounce_salt(int jitter, int k) {
+// trace: the primary ray draws ``primary`` salts (2 for i.i.d. jitter, plus
+// 2 for the lens); bounce k then draws one RR salt when k > kRRStart, 3
+// unit-ball salts, and one dielectric salt when refraction is on (drawn for
+// every material, as the JAX kernels draw it for every lane). Returns the
+// salt drawn last before bounce k. Derived from k, never carried, so a path
+// that ends early cannot shift another's stream.
+__device__ __forceinline__ uint32_t bounce_salt(uint32_t primary,
+                                                bool refract, int k) {
   const int rr_before = k - 1 > kRRStart ? k - 1 - kRRStart : 0;
-  return (jitter ? 2u : 0u) + 3u * (uint32_t)(k - 1) + (uint32_t)rr_before;
+  return primary + (refract ? 4u : 3u) * (uint32_t)(k - 1) +
+         (uint32_t)rr_before;
 }
 
 struct Path {
@@ -94,18 +108,124 @@ struct Surface {
   float cx, cy, cz, ir;
   float ar, ag, ab, met, rgh;
   float er, eg, eb;
+  float ior;
 };
+
+// The 16 packed camera scalars (ops/megakernel.py:_pack_camera): position,
+// forward, right, up, tan(fov/2) * aspect, tan(fov/2), aperture, focus.
+struct Camera {
+  float px, py, pz, fx, fy, fz, rx, ry, rz, ux, uy, uz;
+  float tf_aspect, tf, aperture, focus;
+};
+
+__device__ __forceinline__ Camera load_camera(const float* c) {
+  return Camera{c[0], c[1],  c[2],  c[3],  c[4],  c[5],  c[6],  c[7],
+                c[8], c[9], c[10], c[11], c[12], c[13], c[14], c[15]};
+}
+
+// How a kernel draws its primary rays. ``jitter``: i.i.d. pixel jitter
+// (else pixel centres); ``stratify`` (only with jitter): the R2 lattice
+// under the per-pixel shift (shift_u, shift_v) instead; ``dof``: the thin
+// lens. ``primary`` is the number of salts the primary ray draws.
+struct Sampling {
+  int jitter, stratify, dof;
+  float shift_u, shift_v;
+  uint32_t primary;
+};
+
+// The sampling of pixel stream ``flat``. With stratify, its one
+// Cranley-Patterson shift for all samples is drawn at salts 9001 and 9002
+// of the stream ``key``: the kernel's per-tile seed without the sample term
+// (ops/megakernel.py:stratify_shift).
+template <bool kFlags>
+__device__ __forceinline__ Sampling make_sampling(int jitter, int stratify,
+                                                  int dof, uint32_t flat,
+                                                  uint32_t key) {
+  const bool strat = kFlags && stratify && jitter;
+  const bool lens = kFlags && dof;
+  Sampling sm{jitter, strat, lens, 0.f, 0.f,
+              (jitter && !strat ? 2u : 0u) + (lens ? 2u : 0u)};
+  if (strat) {
+    const uint32_t mix = flat ^ (key * 2654435769u);
+    sm.shift_u = hash_uniform(mix, 9001u);
+    sm.shift_v = hash_uniform(mix, 9002u);
+  }
+  return sm;
+}
+
+// The primary ray of sample ``s`` through pixel (px, py), in the JAX
+// kernels' order of operations (pallas_megakernel.py:229-270,
+// pallas_cluster.py:1199-1247): the pixel offset (jitter at salts 1, 2;
+// or the R2 lattice point frac(shift + s * alpha); or the centre), the
+// pinhole direction, then the thin lens: the focal point
+// o + d * (focus / max(d . fwd, 1e-6)), the lens point
+// (aperture sqrt(xi0), 2 pi xi1) drawn at the next two salts, and the
+// direction from the lens point to the focal point.
+template <bool kFlags>
+__device__ __forceinline__ Path primary_ray(const Camera& c, float px,
+                                            float py, float inv_w,
+                                            float inv_h, uint32_t pix_mix,
+                                            int s, const Sampling& sm) {
+  float xu = 0.5f, xv = 0.5f;
+  uint32_t salt = 0;
+  if (kFlags && sm.stratify) {
+    const float sf = (float)s;
+    xu = sm.shift_u + sf * kR2AlphaU;
+    xu = xu - floorf(xu);
+    xv = sm.shift_v + sf * kR2AlphaV;
+    xv = xv - floorf(xv);
+  } else if (sm.jitter) {
+    xu = hash_uniform(pix_mix, 1u);
+    xv = hash_uniform(pix_mix, 2u);
+    salt = 2u;
+  }
+  const float u = (px + xu) * inv_w;
+  const float v = (py + xv) * inv_h;
+  const float vx = (u - 0.5f) * 2.0f * c.tf_aspect;
+  const float vy = (0.5f - v) * 2.0f * c.tf;
+  const float dx = c.fx + c.rx * vx + c.ux * vy;
+  const float dy = c.fy + c.ry * vx + c.uy * vy;
+  const float dz = c.fz + c.rz * vx + c.uz * vy;
+  const float inv = inv_len(dx, dy, dz);
+  Path p{c.px, c.py, c.pz, dx * inv, dy * inv, dz * inv,
+         1.f, 1.f, 1.f, 0.f, 0.f, 0.f};
+  if (kFlags && sm.dof) {
+    const float cosf_ = p.dx * c.fx + p.dy * c.fy + p.dz * c.fz;
+    const float tfoc = c.focus / fmaxf(cosf_, 1e-6f);
+    const float fpx = p.ox + p.dx * tfoc;
+    const float fpy = p.oy + p.dy * tfoc;
+    const float fpz = p.oz + p.dz * tfoc;
+    const float r_l = c.aperture * sqrtf(hash_uniform(pix_mix, salt + 1u));
+    const float ph = kTwoPi * hash_uniform(pix_mix, salt + 2u);
+    const float lx = r_l * cosf(ph);
+    const float ly = r_l * sinf(ph);
+    p.ox = p.ox + c.rx * lx + c.ux * ly;
+    p.oy = p.oy + c.ry * lx + c.uy * ly;
+    p.oz = p.oz + c.rz * lx + c.uz * ly;
+    const float ex = fpx - p.ox, ey = fpy - p.oy, ez = fpz - p.oz;
+    const float il = inv_len(ex, ey, ez);
+    p.dx = ex * il;
+    p.dy = ey * il;
+    p.dz = ez * il;
+  }
+  return p;
+}
+
 
 // Bounce k of a path whose ray hit ``w`` at ``t``: emission, Russian
 // roulette after bounce kRRStart (p = clamp(max throughput, 0.1, 0.95),
 // survivors compensated), then a metal mirror with roughness jitter or a
-// diffuse normal + hemisphere-flipped unit-ball point. Returns false when
-// roulette ends the path. The normal is (hit - c) * ir, or with
-// ``face_normal`` c * ir (a face normal times the sign that opposes it to
-// the ray); callers that never pass it compile to the sphere arithmetic.
+// diffuse normal + hemisphere-flipped unit-ball point; with ``refract`` (in
+// the kFlags instantiations) a dielectric (metallic <= 0, roughness <= 0,
+// ior > 1) instead refracts or reflects by Schlick's probability
+// (pallas_megakernel.py:490-523). Returns false when roulette ends the
+// path. The normal is (hit - c) * ir, or with ``face_normal`` c * ir (a
+// face normal times the sign that opposes it to the ray); callers that
+// never pass it compile to the sphere arithmetic.
+template <bool kFlags>
 __device__ __forceinline__ bool shade_hit(Path& p, const Surface& w, float t,
                                           int k, uint32_t pix_mix,
-                                          uint32_t salt,
+                                          uint32_t salt, bool refract,
                                           bool face_normal = false) {
   p.cr = p.cr + p.tr * w.er;
   p.cg = p.cg + p.tg * w.eg;
@@ -154,6 +274,39 @@ __device__ __forceinline__ bool shade_hit(Path& p, const Surface& w, float t,
     const float fz = nz + bz * sgn;
     const float inv = inv_len(fx, fy, fz);
     ndx = fx * inv; ndy = fy * inv; ndz = fz * inv;
+  }
+
+  if (kFlags && refract) {  // the dielectric, front-face aware
+    const float cos_in = p.dx * nx + p.dy * ny + p.dz * nz;
+    const bool front = cos_in < 0.f;
+    const float sgn_n = front ? 1.f : -1.f;
+    const float nex = nx * sgn_n, ney = ny * sgn_n, nez = nz * sgn_n;
+    const float eta = front ? 1.0f / w.ior : w.ior;
+    const float dt = p.dx * nex + p.dy * ney + p.dz * nez;
+    const float disc = 1.0f - eta * eta * (1.0f - dt * dt);
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float cosine = fminf(-dt, 1.0f);
+    float r0 = (1.0f - w.ior) / (1.0f + w.ior);
+    r0 = r0 * r0;
+    const float omc = 1.0f - cosine;
+    const float omc2 = omc * omc;
+    const float schlick = r0 + (1.0f - r0) * omc2 * omc2 * omc;
+    const float reflect_prob = disc > 0.f ? schlick : 1.0f;
+    const bool use_refl = hash_uniform(pix_mix, salt + 4u) < reflect_prob;
+    if (w.met <= 0.f && w.rgh <= 0.f && w.ior > 1.0f) {
+      float gx, gy, gz;
+      if (use_refl) {
+        gx = p.dx - 2.0f * dt * nex;
+        gy = p.dy - 2.0f * dt * ney;
+        gz = p.dz - 2.0f * dt * nez;
+      } else {
+        gx = (p.dx - nex * dt) * eta - nex * sq;
+        gy = (p.dy - ney * dt) * eta - ney * sq;
+        gz = (p.dz - nez * dt) * eta - nez * sq;
+      }
+      const float inv = inv_len(gx, gy, gz);
+      ndx = gx * inv; ndy = gy * inv; ndz = gz * inv;
+    }
   }
 
   p.tr *= w.ar; p.tg *= w.ag; p.tb *= w.ab;

@@ -10,11 +10,13 @@ last row and the bf16-pair packing of the shading attributes. Tables stay
 int32 at rest. A mesh has its own tables (``build_tri_clusters``), searched
 after the sphere tables with the same running best hit.
 
-The estimator is the JAX kernel's (v2, pixel jitter or centres, sqrt gamma,
-per-tile segment counts), drawn from its interpret-mode counter hash in the
-same order, over the same screen blocks of 32 rows x 128 lanes: the stream
-of pixel (pxi, pyi) is ``flat = pyi * width + pxi`` over the padded grid
-and seed ``seed + tile * spp + s``.
+The estimator is the JAX kernel's (v2 with the optional dielectric, pixel
+jitter, centres or the R2 lattice, a pinhole or thin-lens camera, sqrt
+gamma, per-tile segment counts), drawn from its interpret-mode counter hash
+in the same order, over the same screen blocks of 32 rows x 128 lanes: the
+stream of pixel (pxi, pyi) is ``flat = pyi * width + pxi`` over the padded
+grid and seed ``seed + tile * spp + s``; the R2 shift's, ``seed + tile *
+spp``. A winner's ior is the bf16 high half of its (rgh, ior) word.
 
 ``render_cluster`` launches ``csrc/cluster.cu`` for scenes on a CUDA device
 and runs ``render_cluster_reference`` for scenes on the CPU; there is no
@@ -403,18 +405,14 @@ def _checked(cl: ClusteredScene, what: str) -> ClusteredScene:
 
 def _prepare(scene, cam, *, width, height, spp, max_depth, cluster_size,
              n_active, mesh, n_tri_active, prebuilt, tri_prebuilt,
-             pre_ordered, enable_refraction, enable_dof, gamma, nee,
-             stratify, tile_mask, rows, row_offset, **_):
+             pre_ordered, gamma, nee, tile_mask, rows, row_offset, **_):
     """Validate a call; build and order the sphere tables, and the
     triangle tables of a mesh, unless given; pack the camera. Returns
     (sphere tables, triangle tables or None, camera (16,), blocks_x,
     blocks_y)."""
     for what, val, item in (
-            ("refraction", enable_refraction, "K2-dof-refract"),
-            ("thin-lens depth of field", enable_dof, "K2-dof-refract"),
             ("linear (gamma=False) output", not gamma, "K2-linear"),
-            ("next-event estimation (nee)", nee, "K2-nee-stratify"),
-            ("stratified sampling", stratify, "K2-nee-stratify"),
+            ("next-event estimation (nee)", nee, "K2-nee"),
             ("tile_mask adaptive sampling", tile_mask is not None,
              "K2-tile-mask"),
             ("rows/row_offset bands", rows is not None or row_offset != 0,
@@ -532,7 +530,8 @@ def _winner_table(rows: torch.Tensor, cols) -> torch.Tensor:
 
 
 def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
-                 width, height, spp, max_depth, jitter, blocks_x, blocks_y):
+                 width, height, spp, max_depth, jitter, blocks_x, blocks_y,
+                 refract=False, dof=False, stratify=False):
     """The kernel's computation as whole-tensor PyTorch ops over every
     lane of every screen block. Returns ((height, width, 3) f32 image,
     (n_tiles,) int32 segment counts)."""
@@ -541,10 +540,10 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
     dev = rows.device
     geo = _bits_f32(rows[:, 0:5])                     # centre, radius, inv_r
     # the winner planes shade_plain takes: cx cy cz inv_r ar ag ab met rgh
-    # er eg eb, from words 0-2, 4 and the bf16 pairs of words 5-9
+    # er eg eb ior, from words 0-2, 4 and the bf16 pairs of words 5-9
     table = _winner_table(rows, (0, 1, 2, 4, (5, "lo"), (5, "hi"),
                                  (6, "lo"), (6, "hi"), (7, "lo"), (8, "lo"),
-                                 (8, "hi"), (9, "lo")))
+                                 (8, "hi"), (9, "lo"), (7, "hi")))
     if tri is not None:
         trows = _tri_sweep_rows(tri)
         tgeo = _bits_f32(trows[:, 0:9])               # v0, e1, e2
@@ -553,7 +552,7 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
         ttable = _winner_table(trows, ((9, "lo"), (9, "hi"), (10, "lo"),
                                        (11, "lo"), (11, "hi"), (12, "lo"),
                                        (12, "hi"), (13, "lo"), (14, "lo"),
-                                       (14, "hi"), (15, "lo")))
+                                       (14, "hi"), (15, "lo"), (13, "hi")))
 
     n_tiles = blocks_x * blocks_y
     n = n_tiles * TILE
@@ -564,9 +563,11 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
     px, py = pxi.to(f32), pyi.to(f32)
     flat = (pyi * width + pxi) & _M32                 # the stream id
     inv_w, inv_h = mk._f32(1.0 / width), mk._f32(1.0 / height)
-    (cpx, cpy, cpz, fwx, fwy, fwz, rix, riy, riz, upx, upy, upz,
-     tf_aspect, tf) = cam.unbind(0)[:14]
     bg = cl.background.to(dev).unbind(0)
+    # the R2 shift (stratify shoots pixel centres without jitter): keyed by
+    # seed + tile * spp, shared by every sample
+    shift = (mk.stratify_shift(flat, (tile * spp + int(seed)) & _M32)
+             if stratify and jitter else None)
     # chunk the sweep to ~2^22 (CPU) or 2^26 (GPU) ray-row pairs
     budget = 1 << (26 if dev.type == "cuda" else 22)
     chunk = max(1, min(rows.shape[0], budget // n))
@@ -586,19 +587,9 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
             salt += 1
             return mk._uniform_from_mix(mix, salt)
 
-        if jitter:
-            xu = U()
-            xv = U()
-        else:
-            xu = xv = 0.5
-        u = (px + xu) * inv_w
-        v = (py + xv) * inv_h
-        vx = (u - 0.5) * 2.0 * tf_aspect
-        vy = (0.5 - v) * 2.0 * tf
-        dx, dy, dz = mk._normalize3(fwx + rix * vx + upx * vy,
-                                    fwy + riy * vx + upy * vy,
-                                    fwz + riz * vx + upz * vy)
-        ox, oy, oz = cpx.expand(n), cpy.expand(n), cpz.expand(n)
+        ox, oy, oz, dx, dy, dz = mk.primary_rays(
+            cam, px, py, inv_w, inv_h, s, U, jitter=jitter, dof=dof,
+            shift=shift)
         tr = torch.ones(n, dtype=f32, device=dev)
         tg, tb = tr, tr
         cr = torch.zeros(n, dtype=f32, device=dev)
@@ -624,7 +615,8 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
                 w = [torch.where(is_tri, e, p) for e, p in zip(enc, w)]
             (ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb,
              act) = mk.shade_plain((ox, oy, oz, dx, dy, dz, tr, tg, tb, cr,
-                                    cg, cb, act), best_t, w, bg, depth_idx, U)
+                                    cg, cb, act), best_t, w, bg, depth_idx, U,
+                                   refract=refract)
         acc = [acc[0] + cr, acc[1] + cg, acc[2] + cb]
 
     inv_spp = mk._f32(1.0 / spp)
@@ -671,7 +663,9 @@ def render_cluster_reference(
                                                          "seed")}
     cl, tri, cam_packed, blocks_x, blocks_y = _prepare(scene, cam, **kw)
     img, segs = _trace_plain(cl, tri, cam_packed, seed, width, height, spp,
-                             max_depth, jitter, blocks_x, blocks_y)
+                             max_depth, jitter, blocks_x, blocks_y,
+                             bool(enable_refraction), bool(enable_dof),
+                             bool(stratify))
     return mk._finish(img, segs, width * height, blocks_x * blocks_y,
                       with_stats)
 
@@ -719,8 +713,10 @@ def render_cluster(
 
     Tables on the CPU run the plain version; tables on a CUDA device launch
     the CUDA kernel (built on first use) and raise if the launch fails.
-    ``render_cluster.launches`` counts kernel launches. Flags the port does
-    not carry yet raise NotImplementedError naming their ROADMAP.md item.
+    ``render_cluster.launches`` counts kernel launches. ``enable_refraction``,
+    ``enable_dof`` and ``stratify`` are the megakernel's (see
+    ``render_megakernel``). Flags the port does not carry yet raise
+    NotImplementedError naming their ROADMAP.md item.
     """
     kw = {k: v for k, v in locals().items() if k not in ("scene", "cam",
                                                          "seed")}
@@ -748,7 +744,9 @@ def render_cluster(
             cl.n_ss, cl.super_boxes.data_ptr(), cl.attr.data_ptr(),
             cl.cluster_size, *t_args, cam_packed.data_ptr(),
             cl.background.data_ptr(), mk._signed32(seed), width, height, spp,
-            max_depth, int(bool(jitter)), out.data_ptr(), segs.data_ptr(),
+            max_depth, int(bool(jitter)), int(bool(enable_refraction)),
+            int(bool(enable_dof)), int(bool(stratify)), out.data_ptr(),
+            segs.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cluster kernel launch failed: CUDA error {err}")

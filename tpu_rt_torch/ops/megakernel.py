@@ -8,8 +8,11 @@ with its f32 face normal flipped to oppose the ray), the v2 estimator
 (miss adds throughput x background; emission before Russian roulette; RR
 after bounce 3 with p = clamp(max throughput, 0.1, 0.95) and survivor
 compensation; metal mirrors with roughness jitter, else diffuse
-normalize(normal + hemisphere-flipped ball point)), pixel jitter or pixel
-centres, the spp mean, sqrt gamma and clamp, and per-tile segment counts.
+normalize(normal + hemisphere-flipped ball point); with
+``enable_refraction`` a dielectric with Schlick's reflectance), pixel jitter,
+pixel centres or the R2 lattice (``stratify``), a pinhole or thin-lens camera
+(``enable_dof``), the spp mean, sqrt gamma and clamp, and per-tile segment
+counts.
 
 The kernel (``csrc/megakernel.cu``) and the plain PyTorch version here both
 draw from the JAX kernel's interpret-mode counter hash in the same order,
@@ -53,6 +56,9 @@ def _f32(x: float) -> float:
 _TWO_PI = _f32(6.2831853071795864)
 _THIRD = _f32(1.0 / 3.0)
 _T_MAX = _f32(T_MAX)
+# R2 lattice steps (tpu_rt/ops/pallas_megakernel.py:R2_ALPHA_U/V)
+R2_ALPHA_U = 0.7548776662466927
+R2_ALPHA_V = 0.5698402909980532
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -100,8 +106,8 @@ def _pack_camera(cam: CameraP) -> torch.Tensor:
 
 
 def _pack_tris(mesh, n_tri_active):
-    """The kernel's (n_tris, 20) f32 triangle table: v0, e1, e2, the face
-    normal, albedo, metallic, roughness, emission, for the first
+    """The kernel's (n_tris, 21) f32 triangle table: v0, e1, e2, the face
+    normal, albedo, metallic, roughness, emission, ior, for the first
     ``n_tri_active`` rows (default: the whole bucket); None without a
     mesh. Padding rows have zero edges, so no ray ever hits them."""
     if mesh is None:
@@ -113,7 +119,7 @@ def _pack_tris(mesh, n_tri_active):
                          f"({mesh.capacity}) or the kernel's {MAX_TRIS}")
     return torch.cat([mesh.v0, mesh.e1, mesh.e2, mesh.normal, mesh.albedo,
                       mesh.metallic[:, None], mesh.roughness[:, None],
-                      mesh.emission], dim=-1)[:n_tris].to(
+                      mesh.emission, mesh.ior[:, None]], dim=-1)[:n_tris].to(
                           torch.float32).contiguous()
 
 
@@ -161,21 +167,23 @@ def _normalize3(x, y, z):
     return x * inv, y * inv, z * inv
 
 
-def shade_plain(state, best_t, w, bg, depth_idx, U, face=None):
+def shade_plain(state, best_t, w, bg, depth_idx, U, face=None,
+                refract=False):
     """One v2 bounce of the plain versions after the nearest-hit search,
     in the JAX kernels' order of operations: background on a miss,
     emission, Russian roulette after bounce RR_START, then the metal or
-    diffuse scatter from one unit-ball draw.
+    diffuse scatter from one unit-ball draw, and with ``refract`` the
+    dielectric (metallic <= 0, roughness <= 0, ior > 1), which refracts or
+    reflects by Schlick's probability from one more draw.
 
     ``state`` is (ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, act);
     ``w`` the winner's (cx, cy, cz, inv_r, ar, ag, ab, met, rgh, er, eg,
-    eb) planes, whose normal is (hit - c) * inv_r; ``face`` optionally
-    (is_face, nx, ny, nz): where ``is_face``, the normal is the face normal
-    flipped to oppose the ray instead. ``U()`` draws the next salt's
-    uniforms. Returns the new state."""
+    eb, ior) planes, whose normal is (hit - c) * inv_r; ``face`` optionally (is_face, nx, ny, nz): where ``is_face``,
+    the normal is the face normal flipped to oppose the ray instead.
+    ``U()`` draws the next salt's uniforms. Returns the new state."""
     ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, act = state
     b_cx, b_cy, b_cz, b_ir, b_ar, b_ag, b_ab, b_met, b_rgh = w[:9]
-    b_er, b_eg, b_eb = w[9:]
+    b_er, b_eg, b_eb = w[9:12]
     bgx, bgy, bgz = bg
     f32 = torch.float32
 
@@ -225,14 +233,97 @@ def shade_plain(state, best_t, w, bg, depth_idx, U, face=None):
     sgn = torch.where(bx * nx + by * ny + bz * nz > 0.0, 1.0, -1.0)
     fx, fy, fz = _normalize3(nx + bx * sgn, ny + by * sgn, nz + bz * sgn)
     is_metal = b_met > 0.0
+    ndx = torch.where(is_metal, mx, fx)
+    ndy = torch.where(is_metal, my, fy)
+    ndz = torch.where(is_metal, mz, fz)
+
+    if refract:
+        b_ior = w[12]
+        front = dx * nx + dy * ny + dz * nz < 0.0
+        sgn_n = torch.where(front, 1.0, -1.0)
+        nex, ney, nez = nx * sgn_n, ny * sgn_n, nz * sgn_n
+        eta = torch.where(front, 1.0 / b_ior, b_ior)
+        dt = dx * nex + dy * ney + dz * nez
+        disc = 1.0 - eta * eta * (1.0 - dt * dt)
+        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        cosine = torch.clamp_max(-dt, 1.0)
+        r0 = (1.0 - b_ior) / (1.0 + b_ior)
+        r0 = r0 * r0
+        omc = 1.0 - cosine
+        omc2 = omc * omc
+        schlick = r0 + (1.0 - r0) * omc2 * omc2 * omc
+        use_refl = U() < torch.where(disc > 0.0, schlick, 1.0)
+        gx, gy, gz = _normalize3(
+            torch.where(use_refl, dx - 2.0 * dt * nex,
+                        (dx - nex * dt) * eta - nex * sq),
+            torch.where(use_refl, dy - 2.0 * dt * ney,
+                        (dy - ney * dt) * eta - ney * sq),
+            torch.where(use_refl, dz - 2.0 * dt * nez,
+                        (dz - nez * dt) * eta - nez * sq))
+        is_glass = (b_met <= 0.0) & (b_rgh <= 0.0) & (b_ior > 1.0)
+        ndx = torch.where(is_glass, gx, ndx)
+        ndy = torch.where(is_glass, gy, ndy)
+        ndz = torch.where(is_glass, gz, ndz)
+
     tr, tg, tb = tr * b_ar, tg * b_ag, tb * b_ab
     ox = torch.where(act, hx, ox)
     oy = torch.where(act, hy, oy)
     oz = torch.where(act, hz, oz)
-    dx = torch.where(act, torch.where(is_metal, mx, fx), dx)
-    dy = torch.where(act, torch.where(is_metal, my, fy), dy)
-    dz = torch.where(act, torch.where(is_metal, mz, fz), dz)
+    dx = torch.where(act, ndx, dx)
+    dy = torch.where(act, ndy, dy)
+    dz = torch.where(act, ndz, dz)
     return ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, act
+
+
+def stratify_shift(flat, seed):
+    """The per-pixel Cranley-Patterson shift of the R2 lattice: salts 9001
+    and 9002 of the stream ``seed`` (the per-tile seed without the sample
+    term, so every sample of a frame shares it)."""
+    mix = flat ^ _mul32(seed & _M32, _C_SEED)
+    return _uniform_from_mix(mix, 9001), _uniform_from_mix(mix, 9002)
+
+
+def primary_rays(cam, px, py, inv_w, inv_h, s, U, *, jitter, dof,
+                 shift=None):
+    """The primary rays of sample ``s`` in the JAX kernels' order of
+    operations: the pixel offset (with ``shift``, the R2 lattice point
+    frac(shift + s * alpha); else ``U()`` jitter or the centre), the
+    pinhole direction, then with ``dof`` the thin lens, whose two draws
+    follow. ``cam`` is the packed (16,) camera. Returns (ox, oy, oz, dx,
+    dy, dz)."""
+    (cpx, cpy, cpz, fwx, fwy, fwz, rix, riy, riz, upx, upy, upz,
+     tf_aspect, tf, ap, fo) = cam.unbind(0)
+    n = px.shape[0]
+    if shift is not None:
+        xu = shift[0] + _f32(np.float32(s) * np.float32(R2_ALPHA_U))
+        xu = xu - torch.floor(xu)
+        xv = shift[1] + _f32(np.float32(s) * np.float32(R2_ALPHA_V))
+        xv = xv - torch.floor(xv)
+    elif jitter:
+        xu = U()
+        xv = U()
+    else:
+        xu = xv = 0.5
+    u = (px + xu) * inv_w
+    v = (py + xv) * inv_h
+    vx = (u - 0.5) * 2.0 * tf_aspect
+    vy = (0.5 - v) * 2.0 * tf
+    dx, dy, dz = _normalize3(fwx + rix * vx + upx * vy,
+                             fwy + riy * vx + upy * vy,
+                             fwz + riz * vx + upz * vy)
+    ox, oy, oz = cpx.expand(n), cpy.expand(n), cpz.expand(n)
+    if dof:
+        tfoc = fo / torch.clamp_min(dx * fwx + dy * fwy + dz * fwz, 1e-6)
+        fpx, fpy, fpz = ox + dx * tfoc, oy + dy * tfoc, oz + dz * tfoc
+        r_l = ap * torch.sqrt(U())
+        ph = _TWO_PI * U()
+        lx = r_l * torch.cos(ph)
+        ly = r_l * torch.sin(ph)
+        ox = ox + rix * lx + upx * ly
+        oy = oy + riy * lx + upy * ly
+        oz = oz + riz * lx + upz * ly
+        dx, dy, dz = _normalize3(fpx - ox, fpy - oy, fpz - oz)
+    return ox, oy, oz, dx, dy, dz
 
 
 def mt_test(o, d, v0, e1, e2):
@@ -266,7 +357,7 @@ def mt_test(o, d, v0, e1, e2):
 
 
 def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
-                 jitter, n_tiles):
+                 jitter, n_tiles, refract=False, dof=False, stratify=False):
     """The kernel's computation as whole-tensor PyTorch ops over every lane
     of every tile, in the JAX kernel's order of operations: the spheres,
     then the triangles of ``tris`` (or None), one row at a time.
@@ -281,12 +372,16 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
     py = (flat // width).to(f32)
     inv_w = _f32(1.0 / width)
     inv_h = _f32(1.0 / height)
-    (cpx, cpy, cpz, fwx, fwy, fwz, rix, riy, riz, upx, upy, upz,
-     tf_aspect, tf) = cam.unbind(0)[:14]
     bgx, bgy, bgz = bg.unbind(0)
     rows = [attr[i].unbind(0) for i in range(attr.shape[0])]
     tri_rows = [] if tris is None else [t.unbind(0) for t in tris]
     tile_seed = (tile + (int(seed) & _M32)) & _M32
+    # the R2 shift (stratify shoots pixel centres without jitter): keyed by
+    # the per-tile seed, drawn once for all samples
+    shift = stratify_shift(flat, tile_seed) if stratify and jitter else None
+    # the winner planes: cx cy cz inv_r ar ag ab met rgh er eg eb ior
+    cols = (0, 1, 2, 14, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+    tcols = tuple(range(12, 21))
 
     acc = [torch.zeros(n, dtype=f32, device=dev) for _ in range(3)]
     segs = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
@@ -300,19 +395,9 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
             salt += 1
             return _uniform_from_mix(mix, salt)
 
-        if jitter:
-            xu = U()
-            xv = U()
-        else:
-            xu = xv = 0.5
-        u = (px + xu) * inv_w
-        v = (py + xv) * inv_h
-        vx = (u - 0.5) * 2.0 * tf_aspect
-        vy = (0.5 - v) * 2.0 * tf
-        dx, dy, dz = _normalize3(fwx + rix * vx + upx * vy,
-                                 fwy + riy * vx + upy * vy,
-                                 fwz + riz * vx + upz * vy)
-        ox, oy, oz = cpx.expand(n), cpy.expand(n), cpz.expand(n)
+        ox, oy, oz, dx, dy, dz = primary_rays(
+            cam, px, py, inv_w, inv_h, s, U, jitter=jitter, dof=dof,
+            shift=shift)
         tr = torch.ones(n, dtype=f32, device=dev)
         tg, tb = tr, tr
         cr = torch.zeros(n, dtype=f32, device=dev)
@@ -324,7 +409,8 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
 
             best_t = torch.full((n,), _T_MAX, dtype=f32, device=dev)
             zero = torch.zeros(n, dtype=f32, device=dev)
-            b = [zero] * 12  # cx cy cz inv_r ar ag ab met rgh er eg eb
+            # the JAX kernel's initial planes: zeros, and ior 1
+            b = [zero] * 12 + [torch.ones_like(zero)]
             for a in rows:
                 ocx, ocy, ocz = ox - a[0], oy - a[1], oz - a[2]
                 half_b = ocx * dx + ocy * dy + ocz * dz
@@ -336,8 +422,7 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
                 root = torch.where(root0 >= 1e-3, root0, sqrtd - half_b)
                 better = (root >= 1e-3) & (root < best_t) & (a[14] > 0.0)
                 best_t = torch.where(better, root, best_t)
-                b = [torch.where(better, a[c], bc) for c, bc in
-                     zip((0, 1, 2, 14, 4, 5, 6, 7, 8, 9, 10, 11), b)]
+                b = [torch.where(better, a[c], bc) for c, bc in zip(cols, b)]
 
             face = None
             if tri_rows:
@@ -354,12 +439,12 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
                     torch.where(better, g[c], fc)
                     for c, fc in zip((9, 10, 11), face[1:])]
                 b = b[:4] + [torch.where(better, g[c], bc) for c, bc in
-                             zip(range(12, 20), b[4:])]
+                             zip(tcols, b[4:])]
 
             (ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb,
              act) = shade_plain((ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg,
                                  cb, act), best_t, b, (bgx, bgy, bgz),
-                                depth_idx, U, face)
+                                depth_idx, U, face, refract)
 
         acc = [acc[0] + cr, acc[1] + cg, acc[2] + cb]
 
@@ -386,6 +471,9 @@ def render_megakernel_reference(
     row_offset: int = 0,
     mesh=None,
     n_tri_active: int | None = None,
+    enable_refraction: bool = False,
+    enable_dof: bool = False,
+    stratify: bool = False,
 ):
     """The plain PyTorch version of the megakernel, on any device.
 
@@ -395,7 +483,9 @@ def render_megakernel_reference(
         scene, cam, n_active, width, height, spp, max_depth, rows, row_offset)
     tris = _pack_tris(mesh, n_tri_active)
     img, segs = _trace_plain(attr, tris, cam_packed, bg, seed, width, height,
-                             spp, max_depth, jitter, n_tiles)
+                             spp, max_depth, jitter, n_tiles,
+                             bool(enable_refraction), bool(enable_dof),
+                             bool(stratify))
     return _finish(img.reshape(height, width, 3), segs, width * height,
                    n_tiles, with_stats)
 
@@ -421,6 +511,9 @@ def render_megakernel(
     row_offset: int = 0,
     mesh=None,
     n_tri_active: int | None = None,
+    enable_refraction: bool = False,
+    enable_dof: bool = False,
+    stratify: bool = False,
 ):
     """Render one batch of ``spp`` samples through the megakernel.
 
@@ -431,6 +524,10 @@ def render_megakernel(
     (default: the whole bucket). ``mesh`` adds a TriangleMesh on the
     scene's device, of which the first ``n_tri_active`` rows (default: the
     whole bucket, at most 256) are swept after the spheres.
+    ``enable_refraction`` turns materials with metallic <= 0, roughness <= 0
+    and ior > 1 into glass; ``enable_dof`` traces the camera's thin lens
+    (``cam.aperture``, ``cam.focus_dist``); ``stratify`` (with ``jitter``)
+    places a pixel's samples on the R2 lattice under a per-pixel shift.
 
     A scene on the CPU runs the plain version; a scene on a CUDA device
     launches the CUDA kernel (built on first use) and raises if the launch
@@ -442,7 +539,9 @@ def render_megakernel(
             scene, cam, seed, width=width, height=height, spp=spp,
             max_depth=max_depth, jitter=jitter, n_active=n_active,
             with_stats=with_stats, rows=rows, row_offset=row_offset,
-            mesh=mesh, n_tri_active=n_tri_active)
+            mesh=mesh, n_tri_active=n_tri_active,
+            enable_refraction=enable_refraction, enable_dof=enable_dof,
+            stratify=stratify)
     if dev.type != "cuda":
         raise ValueError(f"render_megakernel runs on cpu or cuda, not {dev}")
 
@@ -461,7 +560,9 @@ def render_megakernel(
             0 if tris is None else tris.data_ptr(),
             0 if tris is None else tris.shape[0], cam_packed.data_ptr(),
             bg.data_ptr(), _signed32(seed), 0, width, height, spp, max_depth,
-            int(bool(jitter)), n_tiles, out.data_ptr(), n_pix,
+            int(bool(jitter)), int(bool(enable_refraction)),
+            int(bool(enable_dof)), int(bool(stratify)), n_tiles,
+            out.data_ptr(), n_pix,
             segs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")

@@ -12,6 +12,7 @@ sqrt-gamma'd and clamped to [0, 1].
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.types import CameraP, SphereScene
@@ -31,8 +32,9 @@ def select_engine(scene: SphereScene, mode="v2", enable_refraction=False,
     """Resolve the engine ``render`` uses, as the JAX package does on a
     TPU: "cluster" when asked for or past the megakernel's buckets (64
     spheres, 256 triangles), else "megakernel" (its fused "pallas"
-    engine). Configurations neither engine carries yet raise
-    NotImplementedError."""
+    engine). Both engines carry refraction, so ``enable_refraction``
+    (kept for the JAX package's signature) does not change the choice.
+    Configurations neither engine carries yet raise NotImplementedError."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "lax":
@@ -42,12 +44,9 @@ def select_engine(scene: SphereScene, mode="v2", enable_refraction=False,
     cluster = engine == "cluster" or (
         engine == "auto" and (scene.capacity > MAX_SPHERES or (
             mesh is not None and mesh.capacity > MAX_TRIS)))
-    k = "K2" if cluster else "K1"
     if not gamma:
-        raise _not_ported("linear (gamma=False) output", f"{k}-linear")
-    if enable_refraction:
-        raise _not_ported("refraction", f"{k}-refract-dof" if k == "K1"
-                          else "K2-dof-refract")
+        raise _not_ported("linear (gamma=False) output",
+                          f"{'K2' if cluster else 'K1'}-linear")
     return "cluster" if cluster else "megakernel"
 
 
@@ -93,7 +92,10 @@ def render(
     """Render one batch of ``spp`` samples; returns (height, width, 3) f32
     on the scene's device (plus the traced segment count with
     ``with_stats``). ``mesh`` adds a TriangleMesh on the same device (the
-    nearer surface wins per bounce).
+    nearer surface wins per bounce). ``enable_refraction`` makes materials
+    with metallic <= 0, roughness <= 0 and ior > 1 glass; ``enable_dof``
+    traces the camera's thin lens (None: when ``cam.aperture`` > 0);
+    ``stratify`` puts each pixel's samples on the R2 lattice.
 
     ``seed`` is the int stream seed (the JAX package derives it from a key
     or takes it from ``seed=``). ``jitter=False`` shoots pixel centres, the
@@ -109,14 +111,15 @@ def render(
                              engine)
     k = "K2" if resolved == "cluster" else "K1"
     if nee:
-        raise _not_ported("next-event estimation (nee)", f"{k}-nee-stratify")
-    if stratify:
-        raise _not_ported("stratified sampling", f"{k}-nee-stratify")
+        raise _not_ported("next-event estimation (nee)", f"{k}-nee")
     if tile_mask is not None:
         raise _not_ported("tile_mask adaptive sampling", f"{k}-tile-mask")
-    if enable_dof or (enable_dof is None and float(cam.aperture) > 0.0):
-        raise _not_ported("thin-lens depth of field",
-                          "K1-refract-dof" if k == "K1" else "K2-dof-refract")
+    if enable_dof is None:
+        # pulls one scalar from a camera on the device; RayTracer passes
+        # the flag from its host-side aperture instead
+        enable_dof = float(cam.aperture) > 0.0
+    flags = dict(enable_refraction=enable_refraction, enable_dof=enable_dof,
+                 stratify=stratify)
     if n_active is None and prebuilt is None:
         n_active = quantize_count(int(scene.valid.sum()), scene.capacity)
     if tri_prebuilt is not None and resolved != "cluster":
@@ -129,11 +132,12 @@ def render(
             scene, cam, seed, width=width, height=height, spp=spp,
             max_depth=max_depth, jitter=jitter, with_stats=with_stats,
             n_active=n_active, prebuilt=prebuilt, pre_ordered=pre_ordered,
-            mesh=mesh, n_tri_active=n_tri_active, tri_prebuilt=tri_prebuilt)
+            mesh=mesh, n_tri_active=n_tri_active, tri_prebuilt=tri_prebuilt,
+            **flags)
     return render_megakernel(
         scene, cam, seed, width=width, height=height, spp=spp,
         max_depth=max_depth, jitter=jitter, n_active=n_active,
-        with_stats=with_stats, mesh=mesh, n_tri_active=n_tri_active)
+        with_stats=with_stats, mesh=mesh, n_tri_active=n_tri_active, **flags)
 
 
 def tone_map(image: torch.Tensor, exposure: float) -> torch.Tensor:
@@ -143,14 +147,28 @@ def tone_map(image: torch.Tensor, exposure: float) -> torch.Tensor:
     return torch.clamp(image, 0.0, 1.0)
 
 
-def enhance_contrast(image: torch.Tensor) -> torch.Tensor:
-    """Percentile 2-98 contrast stretch.
+def _percentiles(values: torch.Tensor, qs) -> list:
+    """Linearly interpolated quantiles ``qs`` of a 1-D f32 tensor, of any
+    size, in ``jnp.percentile``'s arithmetic: the position q * (n - 1) in
+    f32, the sorted values at its floor and ceiling, weighted by its
+    fraction. (``torch.quantile`` refuses more than 2^24 elements.)"""
+    ordered = torch.sort(values).values
+    n = values.numel()
+    out = []
+    for q in qs:
+        pos = np.float32(q) * np.float32(n - 1)
+        low, high = np.floor(pos), np.ceil(pos)
+        w_high = pos - low
+        w_low = np.float32(1.0) - w_high
+        out.append(ordered[min(int(low), n - 1)] * float(w_low)
+                   + ordered[min(int(high), n - 1)] * float(w_high))
+    return out
 
-    ``torch.quantile`` interpolates linearly, as ``jnp.percentile`` does.
-    It takes at most 2^24 elements (5.59 M RGB pixels): 1080p (6.2 M
-    values) fits, 4K UHD (24.9 M values) raises."""
-    q = torch.tensor([0.02, 0.98], dtype=image.dtype, device=image.device)
-    lo, hi = torch.quantile(image.reshape(-1), q)
+
+def enhance_contrast(image: torch.Tensor) -> torch.Tensor:
+    """Percentile 2-98 contrast stretch, with the percentiles of
+    ``jnp.percentile`` (linear interpolation), at any image size."""
+    lo, hi = _percentiles(image.reshape(-1), (0.02, 0.98))
     stretched = torch.clamp((image - lo) / torch.clamp_min(hi - lo, 1e-12),
                             0.0, 1.0)
     return torch.where(hi > lo, stretched, image)
