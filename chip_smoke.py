@@ -21,7 +21,14 @@ counts, checks the 1/sqrt(N) convergence of its means, and times it:
   kernels: the demo scene, a glass Cornell box, a 10k-sphere glass field and
   the 10k terrain; RayTracer(enable_refraction=True) with an aperture and
   set_stratify(True) on the demo scene and on the glass field, the headless
-  app's --aperture, the display at 4K UHD, and timings.
+  app's --aperture, the display at 4K UHD, and timings;
+* next-event estimation (NEE) and linear output in both kernels: the demo
+  scene, the Cornell box with a bulb, the blocker scene of tests/test_nee.py,
+  the glass field, the terrain and a scene of 12 lights (past the cluster
+  engine's cap of 8), alone, with the flags and linear; RayTracer(nee=True)
+  on the demo scene and on 10k spheres and set_nee(True) on the Cornell box;
+  K1 and K2 means against each other in linear output, NEE's variance
+  against the plain estimator's, and timings at 640x480/8spp and 1080p/4spp.
 
 Each kernel must agree with its plain version bit for bit, segment counts
 included. Every phase raises on failure. The last line of standard output
@@ -95,6 +102,11 @@ LENS_OPS = 46     # per primary ray: d.fwd 5, max 1, div 1, focal point 6,
                   # sqrt + mul 2, angle 1, cos + sin 2, lx ly 2, origin 12,
                   # direction 3 sub + normalize 11
 R2_OPS = 8        # per primary ray: 2 x (mul, add, floor, sub)
+NEE_OPS = 120     # per shadow segment (path_common.cuh, kNee): the cosine
+                  # sampler's 8 beyond the flipped one, suppression test 11,
+                  # pick 1, cone and basis 76, light entry 23, gate 6,
+                  # contribution 15 (the shadow sweep itself is not counted:
+                  # it stops at its first blocker)
 
 # the flags' cells: each flag alone and all three together
 ALL_FLAGS = dict(enable_refraction=True, enable_dof=True, stratify=True)
@@ -154,8 +166,14 @@ def path_ops(segments: int, n_pix: int, spp: int, per_segment: int,
     shade = SHADE_OPS + (REFRACT_OPS if flags.get("enable_refraction") else 0)
     primary = (PRIMARY_OPS + (LENS_OPS if flags.get("enable_dof") else 0)
                + (R2_OPS if flags.get("stratify") else 0))
+    shadow = 0
+    if flags.get("nee"):
+        # the count holds one shadow segment per diffuse hit, so at least
+        # half of it is bounces; the bound takes the split that costs least
+        shadow = segments // 2
+        segments -= shadow
     return (segments * per_segment + max(segments - rays, 0) * shade
-            + rays * primary + n_pix * PIXEL_OPS)
+            + shadow * NEE_OPS + rays * primary + n_pix * PIXEL_OPS)
 
 
 def glass_field(scene):
@@ -206,6 +224,16 @@ def event_kernel_ms(lib, entry: str, fn, frames: int, device) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def mean_gap(a: np.ndarray, b: np.ndarray):
+    """(gap, standard error) of the whole-image means of two stacks of
+    frames, with the frame-to-frame spread of each (tests/test_multilight.py
+    :mean_gap_ok)."""
+    ma = a.reshape(a.shape[0], -1).mean(1)
+    mb = b.reshape(b.shape[0], -1).mean(1)
+    return (float(abs(ma.mean() - mb.mean())),
+            float(np.sqrt(ma.var() / len(ma) + mb.var() / len(mb))))
+
+
 def device_line(what: str, by_kernel: dict, frame_ms: float,
                 name: str) -> str:
     if not by_kernel:
@@ -221,6 +249,7 @@ def device_line(what: str, by_kernel: dict, frame_ms: float,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     if not (ROOT / "tpu_rt_torch" / "csrc").is_dir():
@@ -1280,9 +1309,412 @@ def main() -> int:
                      "plain_shape": "glass field 256x128/4spp/d4",
                      "frame_ms_at_plain_shape": mp["kernel"]}
 
+    # ================= next-event estimation, linear output ================
+    from tpu_rt_torch.ops.cluster import light_table
+    from tpu_rt_torch.ops.megakernel import light_cdf
+
+    NEE = dict(nee=True)
+    NEE_CAM = dict(position=(0, 1.0, 2.0), target=(0, 0.2, -3))
+
+    def spheres_of(rows):
+        return tpu_rt_torch.make_scene(**rows, device=dev)
+
+    # the Cornell box's spheres and a bulb under its ceiling: the walls
+    # occlude the shadow rays (the box's own light is a triangle, which NEE
+    # does not sample)
+    bulb = spheres_of(dict(
+        centers=[(-0.8, 0.6, -3.5), (0.8, 0.5, -2.5), (0.0, 3.3, -3.0)],
+        radii=[0.6, 0.5, 0.25],
+        albedos=[(0.95, 0.95, 0.95), (0.8, 0.7, 0.3), (1.0, 1.0, 1.0)],
+        metallics=[1.0, 0.0, 0.0], roughnesses=[0.02, 0.4, 0.0],
+        emissions=[(0, 0, 0), (0, 0, 0), (10.0, 9.0, 8.0)],
+        background=(0.0, 0.0, 0.0)))
+    bulb_active = dict(mesh=cm, n_active=4, n_tri_active=12)
+
+    def nee_scene(light=True, blocker=False):
+        """tests/test_nee.py:nee_scene: ground, a diffuse ball, a rough
+        metal ball, one small bright light, optionally an opaque blocker
+        between the light and the diffuse ball."""
+        rows = [((0, -100.5, -3), 100.0, (0.6, 0.6, 0.6), 0.0, 0.5,
+                 (0, 0, 0)),
+                ((0, 0.2, -3), 0.7, (0.7, 0.3, 0.3), 0.0, 0.5, (0, 0, 0)),
+                ((1.2, 0.2, -3), 0.5, (0.8, 0.8, 0.4), 1.0, 0.4, (0, 0, 0))]
+        if light:
+            rows.append(((-1.0, 2.5, -2.5), 0.35, (1.0, 1.0, 1.0), 0.0, 0.0,
+                         (14.0, 12.0, 10.0)))
+        if blocker:
+            rows.append(((-0.5, 1.3, -2.75), 0.45, (0.2, 0.2, 0.2), 0.0, 0.5,
+                         (0, 0, 0)))
+        cols = list(zip(*rows))
+        return spheres_of(dict(centers=cols[0], radii=cols[1],
+                               albedos=cols[2], metallics=cols[3],
+                               roughnesses=cols[4], emissions=cols[5],
+                               background=(0.0, 0.0, 0.0)))
+
+    blocker = nee_scene(blocker=True)
+
+    # ---- 23. K1-nee: kernel vs plain, bit for bit ----
+    cam23 = cam_for(PLAIN_SHAPE["width"], PLAIN_SHAPE["height"], aperture=0.1)
+    cam23c = cam_for(PLAIN_SHAPE["width"], PLAIN_SHAPE["height"],
+                     **CORNELL_CAM)
+    cam23b = cam_for(PLAIN_SHAPE["width"], PLAIN_SHAPE["height"], **NEE_CAM)
+    demo_kw = dict(n_active=N_ACTIVE)
+    k1_cases = [
+        ("demo scene", scene, cam23, demo_kw, NEE),
+        ("demo scene + refraction + DOF + stratify", scene, cam23, demo_kw,
+         dict(NEE, **ALL_FLAGS)),
+        ("demo scene, linear", scene, cam23, demo_kw, dict(NEE, gamma=False)),
+        ("Cornell box + bulb", bulb, cam23c, bulb_active, NEE),
+        ("blocker scene", blocker, cam23b, dict(n_active=8), NEE)]
+    mega_nee_err = 0.0
+    for label, sc, cam_, kw_s, flags in k1_cases:
+        for seed in (7, 2**31 - 2):
+            kw = dict(with_stats=True, **kw_s, **PLAIN_SHAPE, **flags)
+            a, seg_a = render_megakernel(sc, cam_, seed, **kw)
+            b, seg_b = render_megakernel_reference(sc, cam_, seed, **kw)
+            stats = compare(a, b)
+            mega_nee_err = max(mega_nee_err, stats["max_abs"])
+            print(f"[23 K1-nee vs plain] {label} 256x128/4spp/d4 seed "
+                  f"{seed}: {stats}, segments {int(seg_a)} vs {int(seg_b)}")
+            check_exact(stats, f"K1-nee {label} seed {seed}", (seg_a, seg_b))
+    kw = dict(n_active=N_ACTIVE, with_stats=True, **PLAIN_SHAPE)
+    a, seg_a = render_megakernel(scene, cam23, 7, nee=True, **kw)
+    b, seg_b = render_megakernel(scene, cam23, 7, **kw)
+    check(not torch.equal(a, b) and int(seg_a) > int(seg_b),
+          "K1: NEE changes the image and adds shadow segments")
+
+    # ---- 24. K1-nee main paths ----
+    # (a) the demo scene: RayTracer(seed, mode, enable_refraction, linear,
+    # nee) with nee=True -> the megakernel
+    rt_n = RayTracer(15, "v2", False, False, True, device=dev)
+    rt_n.set_scene(demo_api_scene())
+    render_megakernel.launches = render_cluster.launches = 0
+    acc, stack = main_path(rt_n)
+    nee_launches = render_megakernel.launches
+    print(f"[24 K1-nee main path] RayTracer(nee=True), demo scene (3 lights "
+          f"in a bucket of 16), x4 at 640x480/8spp/d4: megakernel launches "
+          f"{nee_launches}, cluster launches {render_cluster.launches}")
+    check(nee_launches == 4, "the NEE main path launched the megakernel 4x")
+    check(render_cluster.launches == 0, "the demo scene skips the cluster")
+    check_stack(stack, acc, "NEE main path")
+    cam_n = rt_n.camera.to_params(dev)
+    acc_p, total_p = None, 0
+    for f in range(4):
+        b = render_megakernel_reference(
+            rt_n._scene_arrays, cam_n, batch_seed(15 + 1, f),
+            n_active=N_ACTIVE, nee=True, **INTERACTIVE)
+        acc_p, total_p = accumulate(acc_p, total_p, b, INTERACTIVE["spp"])
+    stats = compare(acc, acc_p)
+    mega_nee_err = max(mega_nee_err, stats["max_abs"])
+    print(f"[24 K1-nee main path] vs the plain chain: accumulator {stats}")
+    check_exact(stats, "NEE main path accumulator")
+
+    # (b) the Cornell box with a bulb: RayTracer + set_mesh + set_nee(True)
+    rt_cn = RayTracer(19, device=dev)
+    rt_cn.set_scene(api_scene_of(bulb))
+    rt_cn.set_mesh(cm)
+    aim(rt_cn, CORNELL_CAM)
+    rt_cn.set_nee(True)
+    render_megakernel.launches = render_cluster.launches = 0
+    acc, stack = main_path(rt_cn)
+    nee_tri_launches = render_megakernel.launches
+    print(f"[24 K1-nee main path] RayTracer + set_mesh(Cornell box) + "
+          f"set_nee(True), 2 spheres and a bulb, x4 at 640x480/8spp/d4: "
+          f"megakernel launches {nee_tri_launches}, cluster launches "
+          f"{render_cluster.launches}")
+    check(nee_tri_launches == 4, "the Cornell NEE path launched K1 4 times")
+    check(render_cluster.launches == 0, "the Cornell box skips the cluster")
+    check_stack(stack, acc, "Cornell NEE main path")
+    cam_cn = rt_cn.camera.to_params(dev)
+    acc_p, total_p = None, 0
+    for f in range(4):
+        b = render_megakernel_reference(
+            rt_cn._scene_arrays, cam_cn, batch_seed(19 + 1, f), nee=True,
+            **bulb_active, **INTERACTIVE)
+        acc_p, total_p = accumulate(acc_p, total_p, b, INTERACTIVE["spp"])
+    stats = compare(acc, acc_p)
+    mega_nee_err = max(mega_nee_err, stats["max_abs"])
+    print(f"[24 K1-nee main path] Cornell + bulb vs the plain chain: "
+          f"accumulator {stats}")
+    check_exact(stats, "Cornell NEE main path accumulator")
+
+    # timing: the two main paths, then the JAX bench's NEE row
+    # (benchmarks/bench_scenes.py:206) at 1080p/4spp/d4
+    n_int = INTERACTIVE["width"] * INTERACTIVE["height"]
+    kw = dict(n_active=N_ACTIVE, nee=True, **INTERACTIVE)
+    k_ms, ev_ms, frame, b_ms, b_by = mesh_timing(
+        "K1-nee RayTracer demo scene 640x480/8spp/d4",
+        lambda i: rt_n.render_device(
+            INTERACTIVE["width"], INTERACTIVE["height"], INTERACTIVE["spp"],
+            INTERACTIVE["max_depth"]),
+        lambda: render_megakernel(scene, cam_n, 0, with_stats=True, **kw)[1],
+        n_int, INTERACTIVE["spp"], "megakernel", N_ACTIVE * SPHERE_TEST_OPS,
+        k1_bytes + 4 + (-(-n_int // 4096)) * 4, NEE, 24)
+    mp = in_turns({
+        "kernel": lambda i: render_megakernel(scene, cam_n, 1200 + i, **kw),
+        "plain": lambda i: render_megakernel_reference(scene, cam_n,
+                                                       1200 + i, **kw)}, 3)
+    print(f"[24 timing] K1-nee demo scene 640x480/8spp/d4: kernel frame "
+          f"{mp['kernel']:.4f} ms, plain {mp['plain']:.4f} ms (median of 2x3 "
+          f"chained frames each, in turns)")
+    mega_nee = {"name": "megakernel-nee", "route": "cuda",
+                "source": "tpu_rt_torch/csrc/megakernel.cu",
+                "replaces": "tpu_rt/ops/pallas_megakernel.py:525",
+                "launches": nee_launches, "max_abs_err": mega_nee_err,
+                "ms": k_ms, "event_ms": ev_ms, "plain_ms": mp["plain"],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "shape": "RayTracer(nee=True) demo scene 640x480/8spp/d4",
+                "plain_shape": "640x480/8spp/d4", "frame_ms": frame}
+    kw_c = dict(nee=True, **bulb_active, **INTERACTIVE)
+    mesh_timing(
+        "K1-nee RayTracer Cornell box + bulb 640x480/8spp/d4",
+        lambda i: rt_cn.render_device(
+            INTERACTIVE["width"], INTERACTIVE["height"], INTERACTIVE["spp"],
+            INTERACTIVE["max_depth"]),
+        lambda: render_megakernel(bulb, cam_cn, 0, with_stats=True,
+                                  **kw_c)[1],
+        n_int, INTERACTIVE["spp"], "megakernel", k1_tri_ops,
+        k1_tri_bytes + 4 + (-(-n_int // 4096)) * 4, NEE, 24)
+    cam24 = cam_for(BENCH["width"], BENCH["height"])
+    n_bench = BENCH["width"] * BENCH["height"]
+    kw_b = dict(n_active=N_ACTIVE, nee=True, **BENCH)
+    mesh_timing(
+        "K1-nee demo scene 1080p/4spp/d4",
+        lambda i: render_megakernel(scene, cam24, 1300 + i, **kw_b),
+        lambda: render_megakernel(scene, cam24, 0, with_stats=True,
+                                  **kw_b)[1],
+        n_bench, BENCH["spp"], "megakernel", N_ACTIVE * SPHERE_TEST_OPS,
+        k1_bytes + 4 + (-(-n_bench // 4096)) * 4, NEE, 24)
+
+    # ---- 25. K2-nee: kernel vs plain, bit for bit ----
+    lt_field = light_table(field)
+    field_kw = dict(prebuilt=tab19, pre_ordered=True, lights=lt_field)
+    rng = np.random.default_rng(12)
+    n12 = 100
+    em12 = np.zeros((n12, 3), np.float32)
+    em12[np.arange(3, n12, 8)[:12]] = rng.uniform(2, 8, (12, 3))
+    twelve = spheres_of(dict(
+        centers=np.c_[rng.uniform(-8, 8, n12), rng.uniform(0.3, 2.5, n12),
+                      rng.uniform(-14, -2, n12)].astype(np.float32),
+        radii=rng.uniform(0.2, 0.6, n12).astype(np.float32),
+        albedos=rng.uniform(0.1, 0.9, (n12, 3)).astype(np.float32),
+        metallics=np.where(rng.uniform(size=n12) < 0.2, 1.0, 0.0).astype(
+            np.float32),
+        roughnesses=rng.uniform(0, 0.6, n12).astype(np.float32),
+        emissions=em12, background=(0.1, 0.1, 0.15)))
+    check(float(light_table(twelve)[-1]) == 8.0,
+          "12 lights: the table takes the first 8")
+    cam25 = cam_for(PLAIN_SHAPE["width"], PLAIN_SHAPE["height"],
+                    position=(0, 4, 8), target=(0, 0.5, -8))
+    k2_cases = [
+        ("glass field (10k)", None, cam19, field_kw, NEE),
+        ("glass field + refraction + DOF + stratify", None, cam19, field_kw,
+         dict(NEE, **ALL_FLAGS)),
+        ("glass field, linear", None, cam19, field_kw, dict(NEE, gamma=False)),
+        ("terrain 10k", ts, cam14, dict(mesh=tm), NEE),
+        ("terrain 10k + refraction + DOF", ts, cam19t, dict(mesh=tm),
+         dict(NEE, enable_refraction=True, enable_dof=True)),
+        ("Cornell box + bulb", bulb, cam23c, dict(mesh=cm), NEE),
+        ("blocker scene", blocker, cam23b, {}, NEE),
+        ("12 lights (cap 8)", twelve, cam25, {}, NEE)]
+    cluster_nee_err = 0.0
+    for label, sc, cam_, kw_s, flags in k2_cases:
+        for seed in (7, 2**31 - 2):
+            kw = dict(with_stats=True, **kw_s, **PLAIN_SHAPE, **flags)
+            a, seg_a = render_cluster(sc, cam_, seed, **kw)
+            b, seg_b = render_cluster_reference(sc, cam_, seed, **kw)
+            stats = compare(a, b)
+            cluster_nee_err = max(cluster_nee_err, stats["max_abs"])
+            print(f"[25 K2-nee vs plain] {label} 256x128/4spp/d4 seed "
+                  f"{seed}: {stats}, segments {int(seg_a)} vs {int(seg_b)}")
+            check_exact(stats, f"K2-nee {label} seed {seed}", (seg_a, seg_b))
+    # the blocker scene through render(engine="cluster"), linear
+    before = render_cluster.launches
+    kw = dict(with_stats=True, nee=True, gamma=False, **PLAIN_SHAPE)
+    a, seg_a = render(blocker, cam23b, 7, engine="cluster", **kw)
+    check(render_cluster.launches == before + 1,
+          "engine='cluster' with NEE launched the cluster kernel")
+    b, seg_b = render_cluster_reference(blocker, cam23b, 7, n_active=8, **kw)
+    stats = compare(a, b)
+    print(f"[25 K2-nee vs plain] blocker scene through engine='cluster', "
+          f"linear: {stats}, segments {int(seg_a)} vs {int(seg_b)}")
+    check_exact(stats, "K2-nee engine='cluster'", (seg_a, seg_b))
+
+    # ---- 26. K2-nee main path: 10k spheres as Scene objects ----
+    rt_k = RayTracer(17, "v2", False, False, True, device=dev)
+    rt_k.set_scene(api_scene)
+    aim(rt_k, BIG_CAM)
+    render_megakernel.launches = render_cluster.launches = 0
+    acc, stack = main_path(rt_k)
+    cluster_nee_launches = render_cluster.launches
+    print(f"[26 K2-nee main path] RayTracer(nee=True), 10k spheres (the "
+          f"table's 8 of {int(light_cdf(rt_k._scene_arrays)[-1])} lights), x4 "
+          f"at 640x480/8spp/d4: cluster launches {cluster_nee_launches}, "
+          f"megakernel launches {render_megakernel.launches}")
+    check(cluster_nee_launches == 4, "the K2 NEE path launched the cluster 4x")
+    check(render_megakernel.launches == 0, "10k spheres skip the megakernel")
+    check_stack(stack, acc, "K2 NEE main path")
+    cam_k = rt_k.camera.to_params(dev)
+    tab_k = order_clusters(build_clusters(rt_k._scene_arrays,
+                                          n_active=rt_k._n_active),
+                           cam_k.position)
+    lt_k = light_table(rt_k._scene_arrays)
+    t0 = time.perf_counter()
+    acc_p, total_p = None, 0
+    for f in range(4):
+        b = render_cluster_reference(
+            None, cam_k, batch_seed(17 + 1, f), prebuilt=tab_k,
+            pre_ordered=True, nee=True, lights=lt_k, **INTERACTIVE)
+        acc_p, total_p = accumulate(acc_p, total_p, b, INTERACTIVE["spp"])
+    torch.cuda.synchronize(dev)
+    stats = compare(acc, acc_p)
+    cluster_nee_err = max(cluster_nee_err, stats["max_abs"])
+    print(f"[26 K2-nee main path] vs the plain chain at the same size "
+          f"(640x480/8spp/d4, {time.perf_counter() - t0:.1f} s): accumulator "
+          f"{stats}")
+    check_exact(stats, "K2 NEE main path accumulator")
+
+    lt_bytes = lt_k.numel() * 4
+    kw = dict(prebuilt=tab_k, pre_ordered=True, nee=True, lights=lt_k,
+              **INTERACTIVE)
+    k_n, ev_n, frame_n, bound_n, bound_by_n = mesh_timing(
+        "K2-nee RayTracer 10k spheres 640x480/8spp/d4",
+        lambda i: rt_k.render_device(
+            INTERACTIVE["width"], INTERACTIVE["height"], INTERACTIVE["spp"],
+            INTERACTIVE["max_depth"]),
+        lambda: render_cluster(None, cam_k, 0, with_stats=True, **kw)[1],
+        n_int, INTERACTIVE["spp"], "cluster_kernel", k2_ops(tab_k),
+        table_bytes(tab_k) + lt_bytes + 16 * 4, NEE, 26)
+    # the JAX bench's NEE rows (benchmarks/bench_scenes.py:213-258)
+    for label, tab_, cam_, lt, tri_ in (
+            ("10k spheres", tab_a, cam_a, light_table(big), None),
+            ("100k spheres", tab_c, cam_a, light_table(huge), None)):
+        kw = dict(prebuilt=tab_, pre_ordered=True, nee=True, lights=lt,
+                  **BENCH)
+        mesh_timing(f"K2-nee {label} 1080p/4spp/d4",
+                    lambda i: render_cluster(None, cam_, 1400 + i, **kw),
+                    lambda: render_cluster(None, cam_, 0, with_stats=True,
+                                           **kw)[1],
+                    n_bench, BENCH["spp"], "cluster_kernel", k2_ops(tab_),
+                    table_bytes(tab_) + lt_bytes + 16 * 4, NEE, 26)
+    tab_t = order_clusters(build_clusters(ts, n_active=3), cam_b.position)
+    tri_t = order_clusters(build_tri_clusters(tm), cam_b.position)
+    kw = dict(prebuilt=tab_t, tri_prebuilt=tri_t, pre_ordered=True, nee=True,
+              lights=light_table(ts), **BENCH)
+    mesh_timing("K2-nee terrain 10k 1080p/4spp/d4",
+                lambda i: render_cluster(None, cam_b, 1500 + i, **kw),
+                lambda: render_cluster(None, cam_b, 0, with_stats=True,
+                                       **kw)[1],
+                n_bench, BENCH["spp"], "cluster_kernel",
+                k2_tri_ops(tab_t, tri_t),
+                table_bytes(tab_t, tri_t) + lt_bytes + 16 * 4, NEE, 26)
+    # the plain version at 256x128 only: its sweep is O(N) per ray
+    tab_9 = order_clusters(build_clusters(big, n_active=BIG["n"]),
+                           cam9.position)
+    kw = dict(prebuilt=tab_9, pre_ordered=True, nee=True,
+              lights=light_table(big), **PLAIN_SHAPE)
+    mp = in_turns({
+        "kernel": lambda i: render_cluster(None, cam9, 1600 + i, **kw),
+        "plain": lambda i: render_cluster_reference(None, cam9, 1600 + i,
+                                                    **kw)}, 3)
+    print(f"[26 timing] K2-nee 10k spheres 256x128/4spp/d4 (the plain "
+          f"version's shape): kernel {mp['kernel']:.4f} ms, plain "
+          f"{mp['plain']:.4f} ms (median of 2x3 chained frames each, in "
+          f"turns)")
+    cluster_nee = {"name": "cluster-nee", "route": "cuda",
+                   "source": "tpu_rt_torch/csrc/cluster.cu",
+                   "replaces": "tpu_rt/ops/pallas_cluster.py:1408",
+                   "launches": cluster_nee_launches,
+                   "max_abs_err": cluster_nee_err, "ms": k_n,
+                   "event_ms": ev_n, "plain_ms": mp["plain"],
+                   "bound_ms": bound_n, "bound_by": bound_by_n,
+                   "library_ms": None,
+                   "shape": "RayTracer(nee=True) 10k spheres 640x480/8spp/d4",
+                   "frame_ms": frame_n,
+                   "plain_shape": "10k spheres 256x128/4spp/d4",
+                   "frame_ms_at_plain_shape": mp["kernel"]}
+
+    # ---- 27. statistics, in linear output ----
+    sw, sh, sspp = 48, 36, 48
+    cam27 = cam_for(sw, sh, **NEE_CAM)
+
+    def bf16(x):
+        return x.to(torch.bfloat16).to(torch.float32)  # RNE, as K2 packs
+
+    # (a) K1 and K2 NEE means on the dome + interior light
+    # (tests/test_multilight.py:55-74), materials in bf16 on both sides
+    dome = spheres_of(dict(
+        centers=[(0.0, -100.5, -3.0), (0.0, 0.2, -3.0), (0.0, 0.0, -3.0),
+                 (-1.0, 2.5, -2.5)],
+        radii=[100.0, 0.7, 60.0, 0.35],
+        albedos=[(0.6, 0.6, 0.6), (0.7, 0.3, 0.3), (0.0, 0.0, 0.0),
+                 (1.0, 1.0, 1.0)],
+        metallics=[0.0, 0.0, 0.0, 0.0], roughnesses=[0.5, 0.5, 1.0, 0.0],
+        emissions=[(0, 0, 0), (0, 0, 0), (0.5, 0.6, 0.8),
+                   (14.0, 12.0, 10.0)],
+        background=(0.0, 0.0, 0.0)))
+    dome = dome._replace(albedo=bf16(dome.albedo),
+                         metallic=bf16(dome.metallic),
+                         roughness=bf16(dome.roughness),
+                         emission=bf16(dome.emission), ior=bf16(dome.ior))
+    n_frames = 32
+    kw = dict(width=sw, height=sh, spp=sspp, max_depth=4, nee=True,
+              gamma=False)
+    k1_frames = np.stack([render_megakernel(
+        dome, cam27, 40 + k * (1 << 16), n_active=dome.capacity,
+        **kw).cpu().numpy() for k in range(n_frames)])
+    k2_frames = np.stack([render(
+        dome, cam27, 50 + k * (1 << 16), engine="cluster",
+        **kw).cpu().numpy() for k in range(n_frames)])
+    gap, se = mean_gap(k1_frames, k2_frames)
+    print(f"[27 NEE statistics] dome + interior light (bf16 materials), "
+          f"{sw}x{sh}/{sspp}spp/d4 linear, {n_frames} frames each: K1 mean "
+          f"{k1_frames.mean():.6f}, K2 mean {k2_frames.mean():.6f}, gap "
+          f"{gap:.6f} = {gap / se:.2f} standard errors")
+    check(gap <= 3.0 * se, "K1 and K2 NEE means agree within 3 SE")
+
+    # (b) NEE's per-pixel variance against the plain estimator's, equal spp
+    lit = nee_scene()
+    var = {}
+    for engine_name, fn in (("K1", render_megakernel), ("K2", render_cluster)):
+        for on in (True, False):
+            frames_ = torch.stack([fn(
+                lit, cam27, 60 + k * (1 << 16), width=sw, height=sh, spp=16,
+                max_depth=4, nee=on, gamma=False) for k in range(n_frames)])
+            var[engine_name, on] = float(frames_.var(dim=0).mean())
+        ratio = var[engine_name, False] / var[engine_name, True]
+        print(f"[27 NEE statistics] nee_scene() {sw}x{sh}/16spp/d4 linear, "
+              f"{engine_name}: per-pixel variance {var[engine_name, True]:.6f}"
+              f" with NEE, {var[engine_name, False]:.6f} without: "
+              f"{ratio:.2f}x lower")
+        check(ratio >= 2.0, f"{engine_name}: NEE's variance at least 2x lower")
+
+    # (c) 1/sqrt(N) with NEE: demo-scene means against an N=512 kernel mean
+    cam27d = cam_for(64, 48)
+
+    def nee_mean(n, seed0):
+        acc_m = torch.zeros((48, 64, 3), dtype=torch.float64, device=dev)
+        for i in range(n):
+            acc_m += render_megakernel(scene, cam27d, (seed0 + i) * (1 << 16),
+                                       width=64, height=48, spp=64,
+                                       max_depth=4, n_active=N_ACTIVE,
+                                       nee=True)
+        return acc_m / n
+
+    ref_mean = nee_mean(512, 80000)
+    r8 = float(torch.sqrt(((nee_mean(8, 90000) - ref_mean) ** 2).mean()))
+    r32 = float(torch.sqrt(((nee_mean(32, 91000) - ref_mean) ** 2).mean()))
+    print(f"[27 NEE statistics] demo scene, NEE, 64x48/64spp/d4: RMSE vs the "
+          f"N=512 kernel mean: N=8 {r8:.6f}, N=32 {r32:.6f}, ratio "
+          f"{r8 / r32:.3f} (1.955 expected)")
+    check(r32 < r8 and 1.4 < r8 / r32 < 2.8, "NEE 1/sqrt(N) scaling")
+
     mega["name"] = "megakernel-spheres"
+    print(f"[28 done] all phases passed in {time.perf_counter() - t_start:.1f}"
+          " s")
     print(json.dumps({"kernels": [mega, mega_tri, cluster, cluster_tri,
-                                  mega_flags, cluster_flags]}))
+                                  mega_flags, cluster_flags, mega_nee,
+                                  cluster_nee]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

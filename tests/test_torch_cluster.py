@@ -272,7 +272,8 @@ def test_select_engine_routes_past_64_spheres():
     assert frame.select_engine(sphere_scene(65)) == "cluster"
     demo = tpu_rt_torch.demo_scene(device=CPU)
     assert frame.select_engine(demo, engine="cluster") == "cluster"
-    with pytest.raises(NotImplementedError, match="K2-linear"):
+    # linear output with engine="auto": the JAX package's lax engine
+    with pytest.raises(NotImplementedError, match="lax integrator"):
         frame.select_engine(sphere_scene(65), gamma=False)
 
 
@@ -286,18 +287,21 @@ def test_render_routes_to_cluster_engine():
     assert torch.equal(a, b)
 
 
+MASK = torch.ones(1, dtype=torch.int32)
 CLUSTER_FLAGS = {
-    # refraction, DOF and stratify render (tests/test_torch_flags_cluster.py);
-    # with NEE, which is not ported yet, they raise
-    "refraction": (dict(enable_refraction=True, nee=True), "K2-nee"),
-    "dof": (dict(enable_dof=True, nee=True), "K2-nee"),
-    "linear": (dict(gamma=False), "K2-linear"),
+    # refraction, DOF, stratify, NEE and linear output render
+    # (tests/test_torch_flags_cluster.py, test_torch_nee.py); with the tile
+    # mask or bands, which are not ported yet, they raise
+    "refraction": (dict(enable_refraction=True, tile_mask=MASK),
+                   "K2-tile-mask"),
+    "dof": (dict(enable_dof=True, tile_mask=MASK), "K2-tile-mask"),
+    "linear": (dict(gamma=False, rows=32), "K2-rows"),
     # a mesh renders (tests/test_torch_cluster_tri.py); with a flag that is
     # not ported yet it raises
     "mesh": (dict(mesh=quad((-1, 0, -2), (1, 0, -2), (1, 1, -2), (-1, 1, -2),
-                            device=CPU), nee=True), "K2-nee"),
-    "nee": (dict(nee=True), "K2-nee"),
-    "stratify": (dict(stratify=True, nee=True), "K2-nee"),
+                            device=CPU), tile_mask=MASK), "K2-tile-mask"),
+    "nee": (dict(nee=True, tile_mask=MASK), "K2-tile-mask"),
+    "stratify": (dict(stratify=True, nee=True, rows=32), "K2-rows"),
     "tile_mask": (dict(tile_mask=torch.ones(1, dtype=torch.int32)),
                   "K2-tile-mask"),
     "rows": (dict(rows=32), "K2-rows"),
@@ -313,7 +317,7 @@ def test_unported_flags_raise(name):
     args = dict(width=16, height=8, spp=1, max_depth=1)
     with pytest.raises(NotImplementedError, match=item):
         cluster.render_cluster(scene, cam, 0, **args, **kw)
-    if name not in ("rows", "row_offset"):  # render() has no bands
+    if "rows" not in kw and "row_offset" not in kw:  # render() has none
         with pytest.raises(NotImplementedError, match=item):
             frame.render(scene, cam, 0, **args, **kw)
 

@@ -124,8 +124,13 @@ def test_render_routes_flags_to_the_cluster_engine(field200):
         ts, tcam, 5, n_active=frame.quantize_count(200, ts.capacity),
         enable_dof=True, **kw, **flags)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="K2-nee"):
-        frame.render(ts, tcam, 5, nee=True, **kw, **flags)
+    # with NEE too (tests/test_torch_nee.py holds NEE against the JAX
+    # package)
+    a = frame.render(ts, tcam, 5, nee=True, **kw, **flags)
+    b = cluster.render_cluster_reference(
+        ts, tcam, 5, n_active=frame.quantize_count(200, ts.capacity),
+        enable_dof=True, nee=True, **kw, **flags)
+    assert torch.equal(a, b)
 
 
 def glass_api_scene(n):

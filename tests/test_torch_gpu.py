@@ -1,7 +1,8 @@
 """tpu_rt_torch on an NVIDIA GPU: the CUDA megakernel and cluster kernel
 against their plain PyTorch versions, with and without triangle meshes and
-with refraction, thin-lens DOF and R2 stratification, their RMSE of means
-against the JAX package's N=4096 goldens, and the display at 4K UHD.
+with refraction, thin-lens DOF, R2 stratification, next-event estimation
+and linear output, their RMSE of means against the JAX package's N=4096
+goldens, and the display at 4K UHD.
 
 Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is
 False. Imports no jax, so it runs on a machine with torch alone:
@@ -302,6 +303,81 @@ def test_cluster_kernel_flags_match_plain(dev, flags, mesh):
                               **FLAG_SETS[flags])
     b, seg_b = render_cluster_reference(spheres, cam, 2**31 - 2, **kw,
                                         **RAGGED, **FLAG_SETS[flags])
+    torch.cuda.synchronize(dev)
+    assert render_cluster.launches == before + 1
+    assert torch.equal(a, b), int((a != b).sum())
+    assert int(seg_a) == int(seg_b)
+
+
+def cornell_bulb(dev):
+    """The Cornell box with an emissive sphere (a bulb) under its ceiling:
+    the walls occlude NEE's shadow rays to it."""
+    spheres, walls = cornell_box(device=dev)
+    bulb = tpu_rt_torch.make_scene(
+        centers=[(-0.8, 0.6, -3.5), (0.8, 0.5, -2.5), (0.0, 3.3, -3.0)],
+        radii=[0.6, 0.5, 0.25],
+        albedos=[(0.95, 0.95, 0.95), (0.8, 0.7, 0.3), (1.0, 1.0, 1.0)],
+        metallics=[1.0, 0.0, 0.0], roughnesses=[0.02, 0.4, 0.0],
+        emissions=[(0, 0, 0), (0, 0, 0), (10.0, 9.0, 8.0)],
+        background=(0.0, 0.0, 0.0), device=dev)
+    return bulb, walls
+
+
+NEE_SETS = {
+    "nee": dict(nee=True),
+    "nee_all_flags": dict(nee=True, enable_refraction=True, enable_dof=True,
+                          stratify=True),
+    "nee_linear": dict(nee=True, gamma=False),
+    "linear": dict(gamma=False),
+}
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["demo", "cornell_bulb"])
+@pytest.mark.parametrize("flags", list(NEE_SETS))
+def test_megakernel_nee_matches_plain(dev, flags, mesh):
+    """K1 with NEE (the demo scene's 3 lights; the bulb behind the Cornell
+    walls), alone, with the PR 4 flags and with linear output, and linear
+    output alone: bit for bit, shadow segments included."""
+    if mesh:
+        spheres, m = cornell_bulb(dev)
+        kw, pose = dict(mesh=m, n_active=4, n_tri_active=12), CORNELL_POSE
+    else:
+        spheres, kw, pose = tpu_rt_torch.demo_scene(device=dev), dict(
+            n_active=N_ACTIVE), {}
+    cam = tpu_rt_torch.make_camera(aspect=200 / 90, aperture=0.1, device=dev,
+                                   **pose)
+    before = render_megakernel.launches
+    a, seg_a = render_megakernel(spheres, cam, 2**31 - 2, **kw, **RAGGED,
+                                 **NEE_SETS[flags])
+    b, seg_b = render_megakernel_reference(spheres, cam, 2**31 - 2, **kw,
+                                           **RAGGED, **NEE_SETS[flags])
+    torch.cuda.synchronize(dev)
+    assert render_megakernel.launches == before + 1
+    assert torch.equal(a, b), int((a != b).sum())
+    assert int(seg_a) == int(seg_b)
+
+
+@pytest.mark.parametrize("mesh", [False, True],
+                         ids=["glass_field", "cornell_bulb"])
+@pytest.mark.parametrize("flags", list(NEE_SETS))
+def test_cluster_kernel_nee_matches_plain(dev, flags, mesh):
+    """K2 with the same sets on the 2000-sphere glass field (about 200
+    lights, of which the table takes the first 8) and on the Cornell box
+    with a bulb (the shadow rays walk the triangle hierarchy)."""
+    if mesh:
+        spheres, m = cornell_bulb(dev)
+        kw, pose = dict(mesh=m), CORNELL_POSE
+    else:
+        spheres = glass_field(2000, 2, 15.0, dev)
+        kw = dict(n_active=2000)
+        pose = dict(position=(0, 3, 14), target=(0, 0, -6))
+    cam = tpu_rt_torch.make_camera(aspect=200 / 90, aperture=0.2, device=dev,
+                                   **pose)
+    before = render_cluster.launches
+    a, seg_a = render_cluster(spheres, cam, 2**31 - 2, **kw, **RAGGED,
+                              **NEE_SETS[flags])
+    b, seg_b = render_cluster_reference(spheres, cam, 2**31 - 2, **kw,
+                                        **RAGGED, **NEE_SETS[flags])
     torch.cuda.synchronize(dev)
     assert render_cluster.launches == before + 1
     assert torch.equal(a, b), int((a != b).sum())

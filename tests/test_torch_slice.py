@@ -106,25 +106,27 @@ def test_display_stack_denoisers_not_ported():
                               methods=("bilateral",))
 
 
+MASK = torch.ones(1, dtype=torch.int32)
 UNSUPPORTED = {
     "mode_v1": dict(mode="v1"),
+    # linear output with engine="auto" is the JAX package's lax engine's
     "linear": dict(gamma=False),
-    # a mesh renders (tests/test_torch_triangle.py); with a flag that is
-    # not ported yet it raises
+    # a mesh, refraction, DOF, stratify and NEE render
+    # (tests/test_torch_triangle.py, test_torch_flags_mega.py,
+    # test_torch_nee.py); with the tile mask, which is not ported yet, they
+    # raise
     "mesh": dict(mesh=quad((-1, 0, -2), (1, 0, -2), (1, 1, -2), (-1, 1, -2),
-                           device=CPU), nee=True),
-    # refraction, DOF and stratify render (tests/test_torch_flags_mega.py);
-    # with NEE, which is not ported yet, they raise
-    "refraction": dict(enable_refraction=True, nee=True),
-    "nee": dict(nee=True),
-    "stratify": dict(stratify=True, nee=True),
-    "tile_mask": dict(tile_mask=torch.ones(1, dtype=torch.int32)),
-    "dof_flag": dict(enable_dof=True, nee=True),
-    "aperture": dict(nee=True),
+                           device=CPU), tile_mask=MASK),
+    "refraction": dict(enable_refraction=True, tile_mask=MASK),
+    "nee": dict(nee=True, tile_mask=MASK),
+    "stratify": dict(stratify=True, tile_mask=MASK),
+    "tile_mask": dict(tile_mask=MASK),
+    "dof_flag": dict(enable_dof=True, tile_mask=MASK),
+    "aperture": dict(nee=True, tile_mask=MASK),
     "engine_lax": dict(engine="lax"),
     # the cluster engine, asked for or past 64 spheres, renders (see
     # tests/test_torch_cluster.py); the flags it does not carry yet raise
-    "engine_cluster": dict(engine="cluster", nee=True),
+    "engine_cluster": dict(engine="cluster", nee=True, tile_mask=MASK),
     "over_64_spheres": dict(gamma=False),
 }
 

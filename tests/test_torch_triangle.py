@@ -270,10 +270,13 @@ def test_select_engine_routes_meshes_as_jax():
     assert frame.select_engine(cs, mesh=cm, engine="cluster") == "cluster"
     big = tri.make_mesh(RNG_VERTS, RNG_FACES, capacity=512, device=CPU)
     assert frame.select_engine(cs, mesh=big) == "cluster"
-    with pytest.raises(NotImplementedError, match="K1-nee"):
-        frame.render(cs, camera_from_numpy(to_np_fields(tpu_rt.make_camera()),
-                                           CPU), 0, width=8, height=8, spp=1,
-                     max_depth=1, mesh=cm, nee=True)
+    # the Cornell box renders with NEE through the megakernel
+    cam = camera_from_numpy(to_np_fields(tpu_rt.make_camera()), CPU)
+    kw = dict(width=8, height=8, spp=1, max_depth=2, nee=True)
+    assert torch.equal(frame.render(cs, cam, 0, mesh=cm, **kw),
+                       mk.render_megakernel_reference(
+                           cs, cam, 0, mesh=cm, n_active=4, n_tri_active=12,
+                           **kw))
 
 
 def test_render_derives_n_tri_active():

@@ -3,7 +3,7 @@
 Counterpart of ``tpu_rt/api/compat.py`` for the slice the port carries:
 ``Vector3``, ``Material``, ``Sphere``, ``Camera`` (with ``to_params``),
 ``Scene`` (with ``to_arrays``) and ``RayTracer`` with ``set_scene``,
-``set_mesh``, ``set_stratify``, ``get_camera``, ``set_camera``,
+``set_mesh``, ``set_stratify``, ``set_nee``, ``get_camera``, ``set_camera``,
 ``move_camera``, ``render`` and ``render_device``. Scene edits mutate
 plain Python objects; ``set_scene`` snapshots them into tensors on the
 tracer's device, and ``render_device`` drives the megakernel there, or the
@@ -20,6 +20,7 @@ import torch
 from ..core import types as _T
 from ..core.types import CameraP
 from ..ops import cluster as _C
+from ..ops import megakernel as _MK
 from ..render import frame as _F
 
 
@@ -222,20 +223,28 @@ class RayTracer:
 
     ``enable_refraction`` makes materials with metallic <= 0, roughness <= 0
     and ior > 1 glass; ``set_stratify`` switches R2 stratified pixel
-    sampling; a camera ``aperture`` > 0 switches the thin lens on. Only
-    ``mode="v2"`` is ported.
+    sampling; a camera ``aperture`` > 0 switches the thin lens on; ``nee``
+    (or ``set_nee``) next-event estimation, whose light cdf or table is
+    built with the cluster tables. Only ``mode="v2"`` is ported;
+    ``linear=True`` (the JAX package's lax engine always) raises.
     """
 
     def __init__(self, seed: int = 0, mode: str = "v2",
-                 enable_refraction: bool = False, *, device="cuda"):
+                 enable_refraction: bool = False, linear: bool = False,
+                 nee: bool = False, *, device="cuda"):
         if mode != "v2":
             raise _F._not_ported(f"mode={mode!r}", "Queue 1, lax integrator")
+        if linear:
+            raise _F._not_ported("RayTracer(linear=True) (the JAX package "
+                                 "renders it with its lax engine)",
+                                 "Queue 1, lax integrator")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"RayTracer(device={device!r}): CUDA is not "
                                "available")
         self._enable_refraction = bool(enable_refraction)
         self._stratify = False
+        self._nee = bool(nee)
         self.camera = Camera()
         self.camera.position = Vector3(0, 2, 5)
         self.camera.target = Vector3(0, 0, -1)
@@ -257,6 +266,8 @@ class RayTracer:
         self._n_tri_active: int | None = None
         self._tri_clustered: _C.ClusteredScene | None = None
         self._tri_ordered: _C.ClusteredScene | None = None
+        # the engine's NEE light cdf (megakernel) or table (cluster)
+        self._lights: torch.Tensor | None = None
 
     def set_scene(self, scene: Scene):
         snap = Scene()
@@ -300,10 +311,11 @@ class RayTracer:
 
     def _build_tables(self):
         """Build the cluster tables of the scene (and mesh) once, when they
-        resolve to the cluster engine; they are ordered at the next
-        render."""
+        resolve to the cluster engine (they are ordered at the next
+        render), and with NEE on the engine's light cdf or table."""
         self._clustered = self._ordered = self._ordered_at = None
         self._tri_clustered = self._tri_ordered = None
+        self._build_lights()
         if (self._scene_arrays is None or not self._scene_snapshot.spheres
                 or self._engine() != "cluster"):
             return
@@ -321,6 +333,22 @@ class RayTracer:
     def set_stratify(self, enable: bool):
         """Switch stratified (R2 low-discrepancy) pixel sampling."""
         self._stratify = bool(enable)
+
+    def _build_lights(self):
+        """With NEE on, build the engine's light cdf (megakernel) or light
+        table (cluster) of the scene once."""
+        self._lights = None
+        if (self._nee and self._scene_arrays is not None
+                and self._scene_snapshot.spheres):
+            self._lights = (_C.light_table(self._scene_arrays)
+                            if self._engine() == "cluster"
+                            else _MK.light_cdf(self._scene_arrays))
+
+    def set_nee(self, enable: bool):
+        """Switch next-event estimation (direct light by shadow rays to the
+        emissive spheres); switching it on builds the light cdf or table."""
+        self._nee = bool(enable)
+        self._build_lights()
 
     def get_camera(self) -> Camera:
         return self.camera.copy()
@@ -369,5 +397,5 @@ class RayTracer:
             n_active=self._n_active, mesh=self._mesh,
             n_tri_active=self._n_tri_active,
             enable_refraction=self._enable_refraction,
-            stratify=self._stratify,
+            stratify=self._stratify, nee=self._nee, lights=self._lights,
             enable_dof=float(self.camera.aperture) > 0.0, **kw)

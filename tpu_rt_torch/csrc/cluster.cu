@@ -3,9 +3,10 @@
 // Replaces the TPU kernel built by tpu_rt/ops/pallas_cluster.py:567
 // _make_kernel (launched by render_cluster) for sphere scenes with or
 // without a triangle mesh: the v2 estimator with the optional dielectric
-// (refraction), pixel jitter, pixel centres or the R2 lattice (stratify), a
-// pinhole or thin-lens camera (DOF), sqrt gamma and clamp, per-tile traced
-// segment counts, and the implicit
+// (refraction) and next-event estimation (NEE), pixel jitter, pixel centres
+// or the R2 lattice (stratify), a pinhole or thin-lens camera (DOF), sqrt
+// gamma and clamp or the linear mean, per-tile traced segment counts, and
+// the implicit
 // 3-level Morton hierarchy of tpu_rt_torch/ops/cluster.py:build_clusters
 // (super-supers -> supers of 8 -> clusters of C spheres, plus G "global"
 // spheres swept for every ray), and a second such hierarchy of triangles
@@ -58,6 +59,16 @@
 //     grid steps. Refracted rays start inside spheres: the slab test clamps
 //     its entry at 1e-3 and the sphere test keeps the far root, so the walk
 //     needs no change for them;
+//   * next-event estimation (pallas_cluster.py:1257-1321, 1408-1520) lives
+//     in the kNee instantiations (with the flags as uniform branches): the
+//     light table of ops/cluster.py:light_table (n_lights_max rows of
+//     cx cy cz r*lw er eg eb cdf, then the light count) is staged into
+//     shared memory; a diffuse lane's shadow ray tests the globals and
+//     walks both hierarchies again with its best t seeded at the light's
+//     entry t less 1e-3, so the slab tests prune every box beyond the
+//     light, and stops at its first hit (ClusterNee below). Only lanes
+//     whose light is in front of the surface walk;
+//   * ``gamma`` = 0 stores the linear mean instead of sqrt gamma and clamp;
 //   * segment counts: one integer atomic per block into its tile's slot.
 //
 // Not done here, and left to later work: warp-cooperative traversal (one
@@ -74,6 +85,8 @@ constexpr int kBlock = 256;    // a 16 x 16 patch; 16 blocks per screen block
 constexpr int kFanout = 8;
 constexpr int kMaxGlobal = 64;
 constexpr int kCols = 16;      // words of a packed sphere or triangle row
+constexpr int kMaxLights = 64; // rows of the NEE light table
+constexpr int kLightCols = 8;  // cx cy cz r*lw er eg eb cdf
 
 struct Ray {
   float ox, oy, oz;
@@ -153,8 +166,9 @@ __device__ __forceinline__ void test_triangle(const int* row, int stride,
 // One table's hierarchy, in storage order, with no stack: each crossed
 // super-super, each of its crossed supers, each of their crossed clusters
 // (box from the last row of the cluster's block), whose C rows are tested.
-template <bool kTri>
-__device__ __forceinline__ void walk(const float* __restrict__ ss_boxes,
+// With kAny it returns true as soon as a cluster gave a hit.
+template <bool kTri, bool kAny = false>
+__device__ __forceinline__ bool walk(const float* __restrict__ ss_boxes,
                                      int n_ss,
                                      const float* __restrict__ super_boxes,
                                      const int* __restrict__ attr, int C,
@@ -176,12 +190,74 @@ __device__ __forceinline__ void walk(const float* __restrict__ ss_boxes,
           else
             test_sphere<true>(blk + j, C, p, best);
         }
+        if constexpr (kAny) {
+          if (best.row != nullptr) return true;
+        }
       }
     }
   }
+  return false;
 }
 
-template <bool kTris, bool kFlags>
+// The cluster engine's NEE light table and shadow test: the pick reads the
+// shared-memory light rows; a shadow ray is blocked when the globals or a
+// walk of either hierarchy, seeded with best t = t_edge, finds a hit
+// (pallas_cluster.py:1498-1506).
+template <bool kTris>
+struct ClusterNee {
+  const float* lights;  // n_lights_max rows of kLightCols
+  int n_lights_max;
+  float n_lights;
+  const int* glob;
+  int n_global;
+  const int* tglob;
+  int n_tri_global;
+  const float* ss_boxes;
+  int n_ss;
+  const float* super_boxes;
+  const int* attr;
+  int C;
+  const float* tss_boxes;
+  int n_tri_ss;
+  const float* tsuper_boxes;
+  const int* tattr;
+  int tri_C;
+  int segs;
+
+  // the first row whose cdf reaches u (pallas_cluster.py:1433-1442)
+  __device__ __forceinline__ Light pick(float u) const {
+    for (int n = 0; n < n_lights_max; ++n) {
+      const float* l = lights + n * kLightCols;
+      if (l[7] >= u) return Light{l[0], l[1], l[2], l[3], l[4], l[5], l[6]};
+    }
+    return Light{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  }
+
+  __device__ __forceinline__ bool occluded(float hx, float hy, float hz,
+                                           float dx, float dy, float dz,
+                                           float t_edge) const {
+    Path s{};
+    s.ox = hx; s.oy = hy; s.oz = hz;
+    s.dx = dx; s.dy = dy; s.dz = dz;
+    Best best{t_edge, nullptr, 1, false};
+    for (int g = 0; g < n_global; ++g)
+      test_sphere<false>(glob + g * kCols, 1, s, best);
+    if constexpr (kTris) {
+      for (int g = 0; g < n_tri_global; ++g)
+        test_triangle<false>(tglob + g * kCols, 1, s, best);
+    }
+    if (best.row != nullptr) return true;
+    const Ray r{hx, hy, hz, safe_inv(dx), safe_inv(dy), safe_inv(dz)};
+    if (walk<false, true>(ss_boxes, n_ss, super_boxes, attr, C, r, s, best))
+      return true;
+    if constexpr (kTris)
+      return walk<true, true>(tss_boxes, n_tri_ss, tsuper_boxes, tattr,
+                              tri_C, r, s, best);
+    return false;
+  }
+};
+
+template <bool kTris, bool kFlags, bool kNee>
 __global__ void __launch_bounds__(kBlock)
 cluster_kernel(const int* __restrict__ glob_g, int n_global,
                const float* __restrict__ ss_boxes, int n_ss,
@@ -192,13 +268,15 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
                const float* __restrict__ tsuper_boxes,
                const int* __restrict__ tattr, int tri_C,
                const float* __restrict__ cam_g, const float* __restrict__ bg_g,
+               const float* __restrict__ lights_g, int n_lights_max,
                uint32_t seed, int width, int height, int blocks_x,
                float inv_w, float inv_h, int spp, float inv_spp,
                int max_depth, int jitter, int refract, int dof,
-               int stratify, float* __restrict__ out,
+               int stratify, int gamma, float* __restrict__ out,
                int* __restrict__ segs) {
   __shared__ int glob[kMaxGlobal * kCols];
   __shared__ int tglob[kTris ? kMaxGlobal * kCols : 1];
+  __shared__ float lights[kNee ? kMaxLights * kLightCols + 1 : 1];
   __shared__ float cam[16];
   __shared__ float bg[3];
 
@@ -207,6 +285,11 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
   if constexpr (kTris) {
     for (int i = threadIdx.x; i < n_tri_global * kCols; i += kBlock)
       tglob[i] = tglob_g[i];
+  }
+  if constexpr (kNee) {
+    // the rows, then the light count
+    for (int i = threadIdx.x; i <= n_lights_max * kLightCols; i += kBlock)
+      lights[i] = lights_g[i];
   }
   if (threadIdx.x < 16) cam[threadIdx.x] = cam_g[threadIdx.x];
   if (threadIdx.x < 3) bg[threadIdx.x] = bg_g[threadIdx.x];
@@ -232,6 +315,11 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
   const Sampling sm = make_sampling<kFlags>(
       jitter, stratify, dof, flat, seed + (uint32_t)tile * (uint32_t)spp);
   const bool refr = kFlags && refract;
+  ClusterNee<kTris> nee{lights, n_lights_max,
+                        kNee ? lights[n_lights_max * kLightCols] : 0.f, glob,
+                        n_global, tglob, n_tri_global, ss_boxes, n_ss,
+                        super_boxes, attr, C, tss_boxes, n_tri_ss,
+                        tsuper_boxes, tattr, tri_C, 0};
 
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   int seg_count = 0;
@@ -304,8 +392,9 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
           __uint_as_float(p2 << 16),
           __uint_as_float(p3 << 16), __uint_as_float(p3 & 0xFFFF0000u),
           __uint_as_float(p4 << 16), __uint_as_float(p2 & 0xFFFF0000u)};
-      if (!shade_hit<kFlags>(p, surf, best.t, k, pix_mix,
-                             bounce_salt(sm.primary, refr, k), refr))
+      if (!shade_hit<kFlags, kNee>(p, surf, best.t, k, pix_mix,
+                                   bounce_salt(sm.primary, refr, kNee, k),
+                                   refr, false, &nee, kTris && best.tri))
         break;
     }
     acc_r += p.cr;
@@ -315,13 +404,19 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
 
   if (pxi < width && pyi < height) {
     float* o = out + ((size_t)pyi * width + pxi) * 3;
-    o[0] = fminf(fmaxf(sqrtf(fmaxf(acc_r * inv_spp, 0.f)), 0.f), 1.f);
-    o[1] = fminf(fmaxf(sqrtf(fmaxf(acc_g * inv_spp, 0.f)), 0.f), 1.f);
-    o[2] = fminf(fmaxf(sqrtf(fmaxf(acc_b * inv_spp, 0.f)), 0.f), 1.f);
+    if (gamma) {
+      o[0] = fminf(fmaxf(sqrtf(fmaxf(acc_r * inv_spp, 0.f)), 0.f), 1.f);
+      o[1] = fminf(fmaxf(sqrtf(fmaxf(acc_g * inv_spp, 0.f)), 0.f), 1.f);
+      o[2] = fminf(fmaxf(sqrtf(fmaxf(acc_b * inv_spp, 0.f)), 0.f), 1.f);
+    } else {  // the linear mean
+      o[0] = acc_r * inv_spp;
+      o[1] = acc_g * inv_spp;
+      o[2] = acc_b * inv_spp;
+    }
   }
 
   // ---- per-tile segment count: one atomic per block ----
-  add_block_count<kBlock>(seg_count, segs, tile);
+  add_block_count<kBlock>(seg_count + nee.segs, segs, tile);
 }
 
 }  // namespace
@@ -332,10 +427,12 @@ extern "C" {
 // words, `ss_boxes` (n_ss, 8) and `super_boxes` (8 n_ss, 8) f32, `attr`
 // (64 n_ss, C/8 + 1, 128) int32 words; the `t`-prefixed triangle tables
 // have the same layout (n_tri_ss 0 and null pointers: no mesh); `cam` (16,)
-// and `bg` (3,) f32, all on the device. `out` is (height, width, 3) f32;
-// `segs` (n_tiles,) int32, zeroed by the caller, with n_tiles =
-// ceil(width/128) * ceil(height/32). `refract`, `dof` and `stratify` switch
-// the optional flags on. Allocates nothing and does not synchronise.
+// and `bg` (3,) f32, all on the device; with `nee`, `lights` is the
+// (8 n_lights_max + 1,) f32 light table (ops/cluster.py:light_table).
+// `out` is (height, width, 3) f32; `segs` (n_tiles,) int32, zeroed by the
+// caller, with n_tiles = ceil(width/128) * ceil(height/32). `refract`,
+// `dof`, `stratify` and `nee` switch the optional flags on; `gamma` 0
+// stores the linear mean. Allocates nothing and does not synchronise.
 // Returns cudaGetLastError() of the launch.
 int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
                          int n_ss, const float* super_boxes, const int* attr,
@@ -343,10 +440,11 @@ int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
                          const float* tss_boxes, int n_tri_ss,
                          const float* tsuper_boxes, const int* tattr,
                          int tri_cluster_size, const float* cam,
-                         const float* bg, int seed, int width, int height,
+                         const float* bg, const float* lights,
+                         int n_lights_max, int seed, int width, int height,
                          int spp, int max_depth, int jitter, int refract,
-                         int dof, int stratify, float* out, int* segs,
-                         void* stream) {
+                         int dof, int stratify, int nee, int gamma,
+                         float* out, int* segs, void* stream) {
   if (n_global < 0 || n_global > kMaxGlobal || n_ss < 1 ||
       cluster_size < 8 || cluster_size % 8 != 0 || n_tri_ss < 0 ||
       (n_tri_ss > 0 &&
@@ -354,6 +452,8 @@ int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
         tri_cluster_size < 8 || tri_cluster_size % 8 != 0 ||
         tss_boxes == nullptr || tsuper_boxes == nullptr ||
         tattr == nullptr || (n_tri_global > 0 && tglob == nullptr))) ||
+      (nee && (lights == nullptr || n_lights_max < 0 ||
+               n_lights_max > kMaxLights)) ||
       width < 1 || height < 1 || spp < 1 || max_depth < 1)
     return (int)cudaErrorInvalidValue;
   const int blocks_x = (width + kLanes - 1) / kLanes;
@@ -363,16 +463,19 @@ int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
   const float inv_spp = (float)(1.0 / (double)spp);
   const int blocks = blocks_x * blocks_y * (kTile / kBlock);
   const bool flags = refract || dof || stratify;
-  auto kernel = n_tri_ss > 0 ? (flags ? cluster_kernel<true, true>
-                                      : cluster_kernel<true, false>)
-                             : (flags ? cluster_kernel<false, true>
-                                      : cluster_kernel<false, false>);
+  auto kernel =
+      nee ? (n_tri_ss > 0 ? cluster_kernel<true, true, true>
+                          : cluster_kernel<false, true, true>)
+          : n_tri_ss > 0 ? (flags ? cluster_kernel<true, true, false>
+                                  : cluster_kernel<true, false, false>)
+                         : (flags ? cluster_kernel<false, true, false>
+                                  : cluster_kernel<false, false, false>);
   kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
       glob, n_global, ss_boxes, n_ss, super_boxes, attr, cluster_size, tglob,
       n_tri_global, tss_boxes, n_tri_ss, tsuper_boxes, tattr,
-      tri_cluster_size, cam, bg, (uint32_t)seed, width, height, blocks_x,
-      inv_w, inv_h, spp, inv_spp, max_depth, jitter, refract, dof, stratify,
-      out, segs);
+      tri_cluster_size, cam, bg, lights, n_lights_max, (uint32_t)seed, width,
+      height, blocks_x, inv_w, inv_h, spp, inv_spp, max_depth, jitter,
+      refract, dof, stratify, gamma, out, segs);
   return (int)cudaGetLastError();
 }
 

@@ -4,9 +4,10 @@
 // (launched by render_pallas) for the configurations the main render path
 // and the small-mesh path run: sphere scenes of at most 64 spheres, beside
 // at most 256 triangles or none, the v2 estimator with the optional
-// dielectric (refraction), i.i.d. pixel jitter, pixel centres or the R2
-// lattice (stratify), a pinhole or thin-lens camera (DOF), sqrt gamma and
-// clamp, and per-tile traced segment counts.
+// dielectric (refraction) and next-event estimation (NEE), i.i.d. pixel
+// jitter, pixel centres or the R2 lattice (stratify), a pinhole or
+// thin-lens camera (DOF), sqrt gamma and clamp or the linear mean, and
+// per-tile traced segment counts.
 // Randomness is the counter hash of the JAX kernel's interpret mode
 // (_hash_uniform), drawn in the same order, so this kernel can be held
 // stream for stream against the JAX package and against the plain PyTorch
@@ -40,6 +41,14 @@
 //     branches (path_common.cuh); the flag-free instantiations compile
 //     without them. The R2 shift is drawn once per thread, keyed by the
 //     per-tile seed without the sample term (salts 9001, 9002);
+//   * next-event estimation (pallas_megakernel.py:403-424, 525-675) lives
+//     in the kNee instantiations (with the flags as uniform branches): the
+//     light pick reads the cdf the wrapper writes into attribute column 15
+//     (the first row whose cdf reaches the draw), the light count rides a
+//     4th background word, and the shadow ray sweeps the same shared-memory
+//     spheres and triangles, stopping at the first blocker before the
+//     light (MegaNee below);
+//   * ``gamma`` = 0 stores the linear mean instead of sqrt gamma and clamp;
 //   * no global state (no __constant__ symbol): a launch writes only its own
 //     output and counts, so renders on two streams cannot race;
 //   * segment counts: a block reduction, then one integer atomicAdd per block
@@ -65,19 +74,65 @@ constexpr int kMaxTris = 256;
 // ior 20
 constexpr int kTriCols = 21;
 
-template <bool kTris, bool kFlags>
+// The megakernel's NEE light table: the shared-memory attribute rows, whose
+// column 15 holds the uniform light cdf, and the rows the shadow ray sweeps.
+struct MegaNee {
+  const float* attr;
+  int n_spheres;
+  const float* tris;
+  int n_tris;
+  float n_lights;
+  int segs;
+
+  // the first row whose cdf reaches u (pallas_megakernel.py:549-558)
+  __device__ __forceinline__ Light pick(float u) const {
+    for (int n = 0; n < n_spheres; ++n) {
+      const float* a = attr + n * kCols;
+      if (a[15] >= u) return Light{a[0], a[1], a[2], a[3], a[9], a[10], a[11]};
+    }
+    return Light{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  }
+
+  // any sphere root or Moller-Trumbore t in [1e-3, t_edge) along (h, d)
+  // (pallas_megakernel.py:613-657)
+  __device__ __forceinline__ bool occluded(float hx, float hy, float hz,
+                                           float dx, float dy, float dz,
+                                           float t_edge) const {
+    for (int n = 0; n < n_spheres; ++n) {
+      const float* a = attr + n * kCols;
+      const float ocx = hx - a[0];
+      const float ocy = hy - a[1];
+      const float ocz = hz - a[2];
+      const float half_b = ocx * dx + ocy * dy + ocz * dz;
+      const float cq = (ocx * ocx + ocy * ocy + ocz * ocz) - a[3] * a[3];
+      const float sqrtd = sqrtf(half_b * half_b - cq);
+      const float root0 = -half_b - sqrtd;
+      const float root = root0 >= 1e-3f ? root0 : sqrtd - half_b;
+      if (root >= 1e-3f && root < t_edge && a[14] > 0.f) return true;
+    }
+    for (int n = 0; n < n_tris; ++n) {
+      const float* g = tris + n * kTriCols;
+      if (mt_test(hx, hy, hz, dx, dy, dz, g[0], g[1], g[2], g[3], g[4], g[5],
+                  g[6], g[7], g[8]) < t_edge)
+        return true;
+    }
+    return false;
+  }
+};
+
+template <bool kTris, bool kFlags, bool kNee>
 __global__ void __launch_bounds__(kBlock)
 megakernel(const float* __restrict__ attr_g, int n_spheres,
            const float* __restrict__ tris_g, int n_tris,
            const float* __restrict__ cam_g, const float* __restrict__ bg_g,
            uint32_t seed, uint32_t pixel_offset, int width, float inv_w,
            float inv_h, int spp, float inv_spp, int max_depth, int jitter,
-           int refract, int dof, int stratify, float* __restrict__ out,
-           int n_pix, int* __restrict__ segs) {
+           int refract, int dof, int stratify, int gamma,
+           float* __restrict__ out, int n_pix, int* __restrict__ segs) {
   __shared__ float attr[kMaxSpheres * kCols];
   __shared__ float tris[kTris ? kMaxTris * kTriCols : 1];
   __shared__ float cam[16];
-  __shared__ float bg[3];
+  __shared__ float bg[4];  // background rgb, then (NEE) the light count
 
   for (int i = threadIdx.x; i < n_spheres * kCols; i += kBlock)
     attr[i] = attr_g[i];
@@ -86,7 +141,7 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
       tris[i] = tris_g[i];
   }
   if (threadIdx.x < 16) cam[threadIdx.x] = cam_g[threadIdx.x];
-  if (threadIdx.x < 3) bg[threadIdx.x] = bg_g[threadIdx.x];
+  if (threadIdx.x < (kNee ? 4 : 3)) bg[threadIdx.x] = bg_g[threadIdx.x];
   __syncthreads();
 
   const int gid = blockIdx.x * kBlock + threadIdx.x;
@@ -101,6 +156,8 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
   const Sampling sm =
       make_sampling<kFlags>(jitter, stratify, dof, flat, tile_seed);
   const bool refr = kFlags && refract;
+  MegaNee nee{attr, n_spheres, tris, kTris ? n_tris : 0, kNee ? bg[3] : 0.f,
+              0};
 
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   int seg_count = 0;
@@ -164,15 +221,16 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
             (p.dx * g[9] + p.dy * g[10] + p.dz * g[11]) < 0.f ? 1.f : -1.f;
         const Surface surf{g[9],  g[10], g[11], sgn,   g[12], g[13], g[14],
                            g[15], g[16], g[17], g[18], g[19], g[20]};
-        alive = shade_hit<kFlags>(p, surf, best_t, k, pix_mix,
-                                  bounce_salt(sm.primary, refr, k), refr,
-                                  true);
+        alive = shade_hit<kFlags, kNee>(
+            p, surf, best_t, k, pix_mix,
+            bounce_salt(sm.primary, refr, kNee, k), refr, true, &nee, true);
       } else {
         const float* w = attr + best * kCols;
         const Surface surf{w[0], w[1], w[2], w[14], w[4],  w[5], w[6],
                            w[7], w[8], w[9], w[10], w[11], w[12]};
-        alive = shade_hit<kFlags>(p, surf, best_t, k, pix_mix,
-                                  bounce_salt(sm.primary, refr, k), refr);
+        alive = shade_hit<kFlags, kNee>(
+            p, surf, best_t, k, pix_mix,
+            bounce_salt(sm.primary, refr, kNee, k), refr, false, &nee);
       }
       if (!alive) break;
     }
@@ -183,13 +241,19 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
 
   if (gid < n_pix) {
     float* o = out + (size_t)gid * 3;
-    o[0] = fminf(fmaxf(sqrtf(fmaxf(acc_r * inv_spp, 0.f)), 0.f), 1.f);
-    o[1] = fminf(fmaxf(sqrtf(fmaxf(acc_g * inv_spp, 0.f)), 0.f), 1.f);
-    o[2] = fminf(fmaxf(sqrtf(fmaxf(acc_b * inv_spp, 0.f)), 0.f), 1.f);
+    if (gamma) {
+      o[0] = fminf(fmaxf(sqrtf(fmaxf(acc_r * inv_spp, 0.f)), 0.f), 1.f);
+      o[1] = fminf(fmaxf(sqrtf(fmaxf(acc_g * inv_spp, 0.f)), 0.f), 1.f);
+      o[2] = fminf(fmaxf(sqrtf(fmaxf(acc_b * inv_spp, 0.f)), 0.f), 1.f);
+    } else {  // the linear mean
+      o[0] = acc_r * inv_spp;
+      o[1] = acc_g * inv_spp;
+      o[2] = acc_b * inv_spp;
+    }
   }
 
   // ---- per-tile segment count: one atomic per block ----
-  add_block_count<kBlock>(seg_count, segs, tile);
+  add_block_count<kBlock>(seg_count + nee.segs, segs, tile);
 }
 
 }  // namespace
@@ -199,16 +263,17 @@ extern "C" {
 // Launches the megakernel on `stream`. `out` is (n_pix, 3) f32, `segs`
 // (n_tiles,) int32 and zeroed by the caller; `attr` (n_spheres, 16), `tris`
 // (n_tris, 21) (or null with n_tris 0), `cam` (16,) and `bg` (3,) f32 on the
-// device. `refract`, `dof` and `stratify` switch the optional flags on.
-// Allocates nothing and does not synchronise. Returns cudaGetLastError()
-// of the launch.
+// device; with `nee`, attr column 15 holds the light cdf and `bg` (4,) ends
+// with the light count. `refract`, `dof`, `stratify` and `nee` switch the
+// optional flags on; `gamma` 0 stores the linear mean. Allocates nothing
+// and does not synchronise. Returns cudaGetLastError() of the launch.
 int tpurt_megakernel_launch(const float* attr, int n_spheres,
                             const float* tris, int n_tris, const float* cam,
                             const float* bg, int seed, int pixel_offset,
                             int width, int height, int spp, int max_depth,
                             int jitter, int refract, int dof, int stratify,
-                            int n_tiles, float* out, int n_pix, int* segs,
-                            void* stream) {
+                            int nee, int gamma, int n_tiles, float* out,
+                            int n_pix, int* segs, void* stream) {
   if (n_spheres < 1 || n_spheres > kMaxSpheres || n_tris < 0 ||
       n_tris > kMaxTris || (n_tris > 0 && tris == nullptr) || width < 1 ||
       height < 1 || spp < 1 || max_depth < 1 || n_tiles < 1)
@@ -218,14 +283,17 @@ int tpurt_megakernel_launch(const float* attr, int n_spheres,
   const float inv_spp = (float)(1.0 / (double)spp);
   const int blocks = n_tiles * (kTile / kBlock);
   const bool flags = refract || dof || stratify;
-  auto kernel = n_tris > 0 ? (flags ? megakernel<true, true>
-                                    : megakernel<true, false>)
-                           : (flags ? megakernel<false, true>
-                                    : megakernel<false, false>);
+  auto kernel =
+      nee ? (n_tris > 0 ? megakernel<true, true, true>
+                        : megakernel<false, true, true>)
+          : n_tris > 0 ? (flags ? megakernel<true, true, false>
+                                : megakernel<true, false, false>)
+                       : (flags ? megakernel<false, true, false>
+                                : megakernel<false, false, false>);
   kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
       attr, n_spheres, tris, n_tris, cam, bg, (uint32_t)seed,
       (uint32_t)pixel_offset, width, inv_w, inv_h, spp, inv_spp, max_depth,
-      jitter, refract, dof, stratify, out, n_pix, segs);
+      jitter, refract, dof, stratify, gamma, out, n_pix, segs);
   return (int)cudaGetLastError();
 }
 

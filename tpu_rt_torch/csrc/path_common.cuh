@@ -8,7 +8,11 @@
 // The optional flags (refraction, thin lens, R2 stratification) live in
 // the instantiations with kFlags = true, where each is a uniform runtime
 // branch; kFlags = false compiles the flag-free kernel, whose instruction
-// stream has none of them.
+// stream has none of them. Next-event estimation (NEE) lives in the
+// instantiations with kNee = true (always beside kFlags = true): the
+// cosine diffuse sampler, one shadow ray per diffuse hit towards a light
+// picked by the kernel's light table, and the post-diffuse suppression of
+// sphere emission (shade_hit).
 //
 // Build without fast-math: the sphere test's root selection relies on IEEE
 // compares with the NaN of sqrt(negative) being false. Build without FMA
@@ -30,6 +34,8 @@ constexpr float kTwoPi = 6.2831853071795864f;
 // JAX rounds tpu_rt/ops/pallas_megakernel.py:R2_ALPHA_U/V
 constexpr float kR2AlphaU = 0.7548776662466927f;
 constexpr float kR2AlphaV = 0.5698402909980532f;
+// 1/pi as the JAX kernels' NEE estimator writes it, rounded to f32
+constexpr float kInvPi = 0.3183098861837907f;
 
 // Counter hash U[0,1): tpu_rt/ops/pallas_megakernel.py:_hash_uniform in
 // uint32 arithmetic (the JAX version wraps int32; signed overflow is UB in
@@ -83,14 +89,17 @@ __device__ __forceinline__ float mt_test(float ox, float oy, float oz,
 // Salts follow the JAX kernels' call-site counter over their unrolled
 // trace: the primary ray draws ``primary`` salts (2 for i.i.d. jitter, plus
 // 2 for the lens); bounce k then draws one RR salt when k > kRRStart, 3
-// unit-ball salts, and one dielectric salt when refraction is on (drawn for
-// every material, as the JAX kernels draw it for every lane). Returns the
-// salt drawn last before bounce k. Derived from k, never carried, so a path
-// that ends early cannot shift another's stream.
+// unit-ball salts, one dielectric salt when refraction is on, and with NEE
+// the light pick, then the two cone draws (each drawn for every material,
+// as the JAX kernels draw them for every lane). Returns the salt drawn last
+// before bounce k. Derived from k, never carried, so a path that ends early
+// cannot shift another's stream.
 __device__ __forceinline__ uint32_t bounce_salt(uint32_t primary,
-                                                bool refract, int k) {
+                                                bool refract, bool nee,
+                                                int k) {
   const int rr_before = k - 1 > kRRStart ? k - 1 - kRRStart : 0;
-  return primary + (refract ? 4u : 3u) * (uint32_t)(k - 1) +
+  return primary +
+         ((refract ? 4u : 3u) + (nee ? 3u : 0u)) * (uint32_t)(k - 1) +
          (uint32_t)rr_before;
 }
 
@@ -99,7 +108,17 @@ struct Path {
   float dx, dy, dz;  // unit direction
   float tr, tg, tb;  // throughput
   float cr, cg, cb;  // radiance gathered so far
+  bool no_emit;      // NEE: the last scatter was diffuse
 };
+
+// A light of the NEE pick: centre, radius, emission (zeros when no row of
+// the table is picked, as the JAX kernels' initial planes).
+struct Light {
+  float cx, cy, cz, r, er, eg, eb;
+};
+
+// The light table of the kernels without NEE: never called.
+struct NoNee {};
 
 // The winner of a nearest-hit search: centre, 1/radius, shading attributes.
 // (A megakernel triangle winner carries its face normal in cx..cz and the
@@ -188,7 +207,7 @@ __device__ __forceinline__ Path primary_ray(const Camera& c, float px,
   const float dz = c.fz + c.rz * vx + c.uz * vy;
   const float inv = inv_len(dx, dy, dz);
   Path p{c.px, c.py, c.pz, dx * inv, dy * inv, dz * inv,
-         1.f, 1.f, 1.f, 0.f, 0.f, 0.f};
+         1.f, 1.f, 1.f, 0.f, 0.f, 0.f, false};
   if (kFlags && sm.dof) {
     const float cosf_ = p.dx * c.fx + p.dy * c.fy + p.dz * c.fz;
     const float tfoc = c.focus / fmaxf(cosf_, 1e-6f);
@@ -222,14 +241,40 @@ __device__ __forceinline__ Path primary_ray(const Camera& c, float px,
 // path. The normal is (hit - c) * ir, or with ``face_normal`` c * ir (a
 // face normal times the sign that opposes it to the ray); callers that
 // never pass it compile to the sphere arithmetic.
-template <bool kFlags>
+//
+// With kNee (pallas_megakernel.py:403-424, 467-479, 525-675): a hit after a
+// diffuse scatter adds no emission, unless a triangle won (``tri_winner``;
+// triangles are not in the light table) or the ray starts inside the
+// winning sphere (|o - c|^2 ir^2 < 1: an enclosing light no shadow ray
+// reaches); diffuse lanes sample normalize(n + unit-ball direction), the
+// exact cosine density; and every diffuse lane (glass is specular) picks
+// a light ``nee->pick(u)``, samples the cone it subtends, and adds
+// tr * albedo * cos * Le * (solid angle) * n_lights / pi unless the light
+// is behind the surface, encloses the hit, or ``nee->occluded`` finds a
+// primitive before the light's entry t less 1e-3. Each diffuse lane adds
+// one segment to ``nee->segs`` (its shadow ray, traced or not).
+template <bool kFlags, bool kNee = false, class Nee = NoNee>
 __device__ __forceinline__ bool shade_hit(Path& p, const Surface& w, float t,
                                           int k, uint32_t pix_mix,
                                           uint32_t salt, bool refract,
-                                          bool face_normal = false) {
-  p.cr = p.cr + p.tr * w.er;
-  p.cg = p.cg + p.tg * w.eg;
-  p.cb = p.cb + p.tb * w.eb;
+                                          bool face_normal = false,
+                                          Nee* nee = nullptr,
+                                          bool tri_winner = false) {
+  bool emit = true;
+  if constexpr (kNee) {
+    if (p.no_emit && !tri_winner) {
+      const float ex = p.ox - w.cx;
+      const float ey = p.oy - w.cy;
+      const float ez = p.oz - w.cz;
+      const float eoc2 = ex * ex + ey * ey + ez * ez;
+      emit = eoc2 * (w.ir * w.ir) < 1.0f;  // inside the winner: exempt
+    }
+  }
+  if (emit) {
+    p.cr = p.cr + p.tr * w.er;
+    p.cg = p.cg + p.tg * w.eg;
+    p.cb = p.cb + p.tb * w.eb;
+  }
 
   if (k > kRRStart) {
     const float xi = hash_uniform(pix_mix, ++salt);
@@ -260,13 +305,28 @@ __device__ __forceinline__ bool shade_hit(Path& p, const Surface& w, float t,
   const float bz = bz0 * rad;
 
   float ndx, ndy, ndz;
-  if (w.met > 0.f) {  // metal: mirror + roughness jitter
+  bool diffuse = !(w.met > 0.f);
+  if (!diffuse) {  // metal: mirror + roughness jitter
     const float d_dot_n = p.dx * nx + p.dy * ny + p.dz * nz;
     const float mx = p.dx - 2.0f * d_dot_n * nx + bx * w.rgh;
     const float my = p.dy - 2.0f * d_dot_n * ny + by * w.rgh;
     const float mz = p.dz - 2.0f * d_dot_n * nz + bz * w.rgh;
     const float inv = inv_len(mx, my, mz);
     ndx = mx * inv; ndy = my * inv; ndz = mz * inv;
+  } else if constexpr (kNee) {
+    // the exact cosine sampler: normal + unit-sphere direction, or the
+    // normal itself where the sum vanishes
+    const float is = inv_len(bx, by, bz);
+    const float cdx = nx + bx * is;
+    const float cdy = ny + by * is;
+    const float cdz = nz + bz * is;
+    const float l2 = cdx * cdx + cdy * cdy + cdz * cdz;
+    if (l2 < 1e-12f) {
+      ndx = nx; ndy = ny; ndz = nz;
+    } else {
+      const float inv = inv_len(cdx, cdy, cdz);
+      ndx = cdx * inv; ndy = cdy * inv; ndz = cdz * inv;
+    }
   } else {  // diffuse: normal + ball point flipped into the hemisphere
     const float sgn = (bx * nx + by * ny + bz * nz) > 0.f ? 1.f : -1.f;
     const float fx = nx + bx * sgn;
@@ -306,6 +366,74 @@ __device__ __forceinline__ bool shade_hit(Path& p, const Surface& w, float t,
       }
       const float inv = inv_len(gx, gy, gz);
       ndx = gx * inv; ndy = gy * inv; ndz = gz * inv;
+      diffuse = false;  // glass is specular for NEE
+    }
+  }
+
+  if constexpr (kNee) {
+    p.no_emit = diffuse;
+    if (diffuse) {
+      ++nee->segs;
+      // the pick and cone draws follow the dielectric salt
+      const uint32_t ns = salt + (refract ? 4u : 3u);
+      const Light L = nee->pick(hash_uniform(pix_mix, ns + 1u));
+      // the cone the light subtends from the hit point
+      const float tlx = L.cx - hx;
+      const float tly = L.cy - hy;
+      const float tlz = L.cz - hz;
+      const float d2 = fmaxf(tlx * tlx + tly * tly + tlz * tlz, 1e-12f);
+      const float sin2 = (L.r * L.r) / d2;
+      const bool inside = sin2 >= 1.0f;
+      const float cos_max = sqrtf(fminf(fmaxf(1.0f - sin2, 0.0f), 1.0f));
+      const float xi1 = hash_uniform(pix_mix, ns + 2u);
+      const float xi2 = hash_uniform(pix_mix, ns + 3u);
+      const float cos_t = 1.0f - xi1 * (1.0f - cos_max);
+      const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
+      const float phi_l = kTwoPi * xi2;
+      const float inv_dl = 1.0f / sqrtf(d2);
+      const float wx = tlx * inv_dl;
+      const float wy = tly * inv_dl;
+      const float wz = tlz * inv_dl;
+      // orthonormal basis around w (branchless axis pick)
+      const bool big = fabsf(wx) > 0.9f;
+      const float ax = big ? 0.0f : 1.0f;
+      const float ay = big ? 1.0f : 0.0f;
+      float t1x = ay * wz;  // cross(a, w), az == 0
+      float t1y = -ax * wz;
+      float t1z = ax * wy - ay * wx;
+      const float it = inv_len(t1x, t1y, t1z);
+      t1x = t1x * it; t1y = t1y * it; t1z = t1z * it;
+      const float t2x = wy * t1z - wz * t1y;
+      const float t2y = wz * t1x - wx * t1z;
+      const float t2z = wx * t1y - wy * t1x;
+      const float sc = sin_t * cosf(phi_l);
+      const float ss = sin_t * sinf(phi_l);
+      const float ldx = wx * cos_t + t1x * sc + t2x * ss;
+      const float ldy = wy * cos_t + t1y * sc + t2y * ss;
+      const float ldz = wz * cos_t + t1z * sc + t2z * ss;
+      const float weight = kTwoPi * (1.0f - cos_max);  // 1 / pdf(omega)
+      // t to the light's entry along the shadow ray
+      const float lox = hx - L.cx;
+      const float loy = hy - L.cy;
+      const float loz = hz - L.cz;
+      const float lhb = lox * ldx + loy * ldy + loz * ldz;
+      const float lcq = lox * lox + loy * loy + loz * loz - L.r * L.r;
+      const float ldisc = lhb * lhb - lcq;
+      const float lsq = sqrtf(fmaxf(ldisc, 0.0f));
+      const float lt0 = -lhb - lsq;
+      const float lt1 = -lhb + lsq;
+      const float t_light = lt0 >= 1e-3f ? lt0 : lt1;
+      const bool light_ok = ldisc >= 0.0f && t_light >= 1e-3f;
+      const float ndl = nx * ldx + ny * ldy + nz * ldz;
+      // the light's own entry root is t_light, so the strict margin
+      // keeps it from occluding itself
+      if (light_ok && !inside && ndl > 0.0f && nee->n_lights > 0.0f &&
+          !nee->occluded(hx, hy, hz, ldx, ldy, ldz, t_light - 1e-3f)) {
+        const float scale = ndl * weight * (nee->n_lights * kInvPi);
+        p.cr = p.cr + p.tr * w.ar * scale * L.er;
+        p.cg = p.cg + p.tg * w.ag * scale * L.eg;
+        p.cb = p.cb + p.tb * w.ab * scale * L.eb;
+      }
     }
   }
 

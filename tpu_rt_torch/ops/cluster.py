@@ -10,20 +10,25 @@ last row and the bf16-pair packing of the shading attributes. Tables stay
 int32 at rest. A mesh has its own tables (``build_tri_clusters``), searched
 after the sphere tables with the same running best hit.
 
-The estimator is the JAX kernel's (v2 with the optional dielectric, pixel
-jitter, centres or the R2 lattice, a pinhole or thin-lens camera, sqrt
-gamma, per-tile segment counts), drawn from its interpret-mode counter hash
+The estimator is the JAX kernel's (v2 with the optional dielectric and
+next-event estimation, pixel jitter, centres or the R2 lattice, a pinhole or
+thin-lens camera, sqrt gamma or the linear mean, per-tile segment counts),
+drawn from its interpret-mode counter hash
 in the same order, over the same screen blocks of 32 rows x 128 lanes: the
 stream of pixel (pxi, pyi) is ``flat = pyi * width + pxi`` over the padded
 grid and seed ``seed + tile * spp + s``; the R2 shift's, ``seed + tile *
-spp``. A winner's ior is the bf16 high half of its (rgh, ior) word.
+spp``. A winner's ior is the bf16 high half of its (rgh, ior) word. NEE
+picks its lights from :func:`light_table`: the first ``n_lights_max``
+emissive spheres by index, as the JAX package caps them.
 
 ``render_cluster`` launches ``csrc/cluster.cu`` for scenes on a CUDA device
 and runs ``render_cluster_reference`` for scenes on the CPU; there is no
 other path. The plain version finds each nearest hit by sweeping the
 globals and then every non-padding table row in storage order, spheres
 before triangles. The hierarchy walk visits clusters in that same order
-and its boxes only prune, so both compute the same function.
+and its boxes only prune, so both compute the same function; a shadow ray
+is occluded when that search finds a hit before the light's entry t less
+1e-3.
 """
 
 from __future__ import annotations
@@ -47,6 +52,8 @@ DEFAULT_GLOBAL = 4
 DEFAULT_TRI_GLOBAL = 2  # largest-area triangles swept densely
 FANOUT = 8           # children per super and supers per super-super
 MAX_GLOBAL = 64      # size of the kernel's shared-memory global table
+MAX_LIGHTS = 64      # rows of the kernel's shared-memory NEE light table
+DEFAULT_LIGHTS = 8   # the JAX package's n_lights_max
 BIG = 3.0e38         # inverted-box sentinel of empty clusters
 
 _M32 = mk._M32
@@ -365,6 +372,32 @@ def order_clusters(cl: ClusteredScene, cam_pos: torch.Tensor
                        attr=cl.attr[child].contiguous())
 
 
+def light_table(scene: SphereScene,
+                n_lights_max: int = DEFAULT_LIGHTS) -> torch.Tensor:
+    """The cluster engine's NEE light table, (8 R + 1,) f32 on the scene's
+    device with R = min(n_lights_max, capacity): the first R spheres with
+    the emissive ones first (valid, max emission > 0, radius > 0; stable by
+    index), each row [cx cy cz r*lw er eg eb cdf] with lw 1 for a light
+    and 0 otherwise and the cdf uniform over the rows' lights, then the
+    light count. As ``tpu_rt/ops/pallas_cluster.py:1735-1757``: lights past
+    the first ``n_lights_max`` are neither sampled nor exempt from the
+    post-diffuse suppression. Build it once per scene (``RayTracer`` does,
+    at ``set_scene``)."""
+    if not 1 <= int(n_lights_max) <= MAX_LIGHTS:
+        raise ValueError(f"n_lights_max must be in 1..{MAX_LIGHTS}, got "
+                         f"{n_lights_max}")
+    em_max = scene.emission.amax(dim=-1)
+    is_light = scene.valid & (em_max > 0.0) & (scene.radius > 0.0)
+    order = torch.argsort((~is_light).to(torch.int8), stable=True)
+    idx = order[:int(n_lights_max)]
+    lw = is_light[idx].to(torch.float32)
+    n_lights = lw.sum()
+    cdf = torch.cumsum(lw, 0) / torch.clamp_min(n_lights, 1.0)
+    rows = torch.cat([scene.center[idx], scene.radius[idx, None] * lw[:, None],
+                      scene.emission[idx], cdf[:, None]], dim=-1)
+    return torch.cat([rows.reshape(-1), n_lights[None]]).to(torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # render
 # ---------------------------------------------------------------------------
@@ -405,14 +438,13 @@ def _checked(cl: ClusteredScene, what: str) -> ClusteredScene:
 
 def _prepare(scene, cam, *, width, height, spp, max_depth, cluster_size,
              n_active, mesh, n_tri_active, prebuilt, tri_prebuilt,
-             pre_ordered, gamma, nee, tile_mask, rows, row_offset, **_):
+             pre_ordered, nee, n_lights_max, lights, tile_mask, rows,
+             row_offset, **_):
     """Validate a call; build and order the sphere tables, and the
-    triangle tables of a mesh, unless given; pack the camera. Returns
-    (sphere tables, triangle tables or None, camera (16,), blocks_x,
-    blocks_y)."""
+    triangle tables of a mesh, unless given; with ``nee`` the light table,
+    unless given; pack the camera. Returns (sphere tables, triangle tables
+    or None, light table or None, camera (16,), blocks_x, blocks_y)."""
     for what, val, item in (
-            ("linear (gamma=False) output", not gamma, "K2-linear"),
-            ("next-event estimation (nee)", nee, "K2-nee"),
             ("tile_mask adaptive sampling", tile_mask is not None,
              "K2-tile-mask"),
             ("rows/row_offset bands", rows is not None or row_offset != 0,
@@ -440,7 +472,25 @@ def _prepare(scene, cam, *, width, height, spp, max_depth, cluster_size,
             raise ValueError("the triangle tables lie on "
                              f"{tri.attr.device}, the sphere tables on "
                              f"{cl.attr.device}")
-    return (cl, tri, mk._pack_camera(cam).to(cl.attr.device).contiguous(),
+    if not nee:
+        lights = None
+    elif lights is None:
+        if scene is None:
+            raise ValueError("nee needs the scene or lights= from "
+                             "light_table(scene)")
+        lights = light_table(scene, n_lights_max)
+    if lights is not None:
+        n = lights.numel() - 1
+        if (lights.dtype != torch.float32 or lights.dim() != 1 or n % 8
+                or not 0 <= n // 8 <= MAX_LIGHTS
+                or lights.device != cl.attr.device):
+            raise ValueError(
+                f"lights must be a light_table: (8 R + 1,) float32 with R <= "
+                f"{MAX_LIGHTS} on {cl.attr.device}, got {lights.dtype} "
+                f"{tuple(lights.shape)} on {lights.device}")
+        lights = lights.contiguous()
+    return (cl, tri, lights,
+            mk._pack_camera(cam).to(cl.attr.device).contiguous(),
             -(-width // LANES), -(-height // SUBLANES))
 
 
@@ -531,10 +581,12 @@ def _winner_table(rows: torch.Tensor, cols) -> torch.Tensor:
 
 def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
                  width, height, spp, max_depth, jitter, blocks_x, blocks_y,
-                 refract=False, dof=False, stratify=False):
+                 refract=False, dof=False, stratify=False, lights=None,
+                 gamma=True):
     """The kernel's computation as whole-tensor PyTorch ops over every
-    lane of every screen block. Returns ((height, width, 3) f32 image,
-    (n_tiles,) int32 segment counts)."""
+    lane of every screen block; with a light table ``lights``, NEE, whose
+    shadow rays search every row as the nearest-hit search does. Returns
+    ((height, width, 3) f32 image, (n_tiles,) int32 segment counts)."""
     f32 = torch.float32
     rows = _sweep_rows(cl)
     dev = rows.device
@@ -572,6 +624,17 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
     budget = 1 << (26 if dev.type == "cuda" else 22)
     chunk = max(1, min(rows.shape[0], budget // n))
     tchunk = max(1, budget // n)
+    light = None
+    if lights is not None:
+        def occluded(o, d, t_edge):
+            best_t, _ = _nearest(o, d, geo, chunk)
+            if tri is not None:
+                best_t, _ = _nearest_tri(o, d, tgeo, tchunk, best_t)
+            return best_t < t_edge
+
+        tab = lights[:-1].view(-1, 8)
+        light = mk.NeePlain(lights[-1], lambda u: mk.pick_light(
+            tab[:, 7], tab[:, :7], u), occluded)
 
     acc = [torch.zeros(n, dtype=f32, device=dev) for _ in range(3)]
     segs = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
@@ -595,12 +658,15 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
         cr = torch.zeros(n, dtype=f32, device=dev)
         cg, cb = cr, cr
         act = torch.ones(n, dtype=torch.bool, device=dev)
+        if light is not None:
+            light.no_emit = torch.zeros_like(act)
 
         for depth_idx in range(1, max_depth + 1):
             segs += act.view(n_tiles, TILE).sum(1, dtype=torch.int32)
             o, d = (ox, oy, oz), (dx, dy, dz)
             best_t, best_i = _nearest(o, d, geo, chunk)
             w = list(table[best_i].unbind(1))
+            is_tri = None
             if tri is not None:
                 best_t, best_j = _nearest_tri(o, d, tgeo, tchunk, best_t)
                 # a triangle winner's normal n rides the sphere planes as
@@ -616,13 +682,13 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
             (ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb,
              act) = mk.shade_plain((ox, oy, oz, dx, dy, dz, tr, tg, tb, cr,
                                     cg, cb, act), best_t, w, bg, depth_idx, U,
-                                   refract=refract)
+                                   refract=refract, nee=light, tri=is_tri)
+            if light is not None:  # one shadow segment per diffuse lane
+                segs += light.diffuse.view(n_tiles, TILE).sum(
+                    1, dtype=torch.int32)
         acc = [acc[0] + cr, acc[1] + cg, acc[2] + cb]
 
-    inv_spp = mk._f32(1.0 / spp)
-    img = torch.stack([
-        torch.clamp(torch.sqrt(torch.clamp_min(a * inv_spp, 0.0)), 0.0, 1.0)
-        for a in acc], dim=-1)
+    img = mk._output(acc, mk._f32(1.0 / spp), gamma)
     # screen blocks -> image rows and columns
     img = img.view(blocks_y, blocks_x, SUBLANES, LANES, 3).permute(
         0, 2, 1, 3, 4).reshape(blocks_y * SUBLANES, blocks_x * LANES, 3)
@@ -655,17 +721,20 @@ def render_cluster_reference(
     nee: bool = False,
     stratify: bool = False,
     tile_mask=None,
+    n_lights_max: int = DEFAULT_LIGHTS,
+    lights: torch.Tensor | None = None,
 ):
     """The plain PyTorch version of the cluster kernel, on any device.
 
     Same contract as :func:`render_cluster`."""
     kw = {k: v for k, v in locals().items() if k not in ("scene", "cam",
                                                          "seed")}
-    cl, tri, cam_packed, blocks_x, blocks_y = _prepare(scene, cam, **kw)
+    cl, tri, lights, cam_packed, blocks_x, blocks_y = _prepare(scene, cam,
+                                                               **kw)
     img, segs = _trace_plain(cl, tri, cam_packed, seed, width, height, spp,
                              max_depth, jitter, blocks_x, blocks_y,
                              bool(enable_refraction), bool(enable_dof),
-                             bool(stratify))
+                             bool(stratify), lights, bool(gamma))
     return mk._finish(img, segs, width * height, blocks_x * blocks_y,
                       with_stats)
 
@@ -696,12 +765,15 @@ def render_cluster(
     nee: bool = False,
     stratify: bool = False,
     tile_mask=None,
+    n_lights_max: int = DEFAULT_LIGHTS,
+    lights: torch.Tensor | None = None,
 ):
     """Render one batch of ``spp`` samples of a large scene through the
     cluster engine.
 
-    Returns (height, width, 3) f32 in [0, 1], and with ``with_stats`` also
-    the traced segment count over real pixels (an int32 0-dim tensor).
+    Returns (height, width, 3) f32 in [0, 1] (with ``gamma=False`` the
+    linear mean, unclamped), and with ``with_stats`` also the traced
+    segment count over real pixels (an int32 0-dim tensor).
     ``seed`` is an int taken modulo 2^32. ``prebuilt`` passes tables from
     :func:`build_clusters` (then ``scene`` may be None); ``pre_ordered``
     promises they, and ``tri_prebuilt``, went through
@@ -714,8 +786,10 @@ def render_cluster(
     Tables on the CPU run the plain version; tables on a CUDA device launch
     the CUDA kernel (built on first use) and raise if the launch fails.
     ``render_cluster.launches`` counts kernel launches. ``enable_refraction``,
-    ``enable_dof`` and ``stratify`` are the megakernel's (see
-    ``render_megakernel``). Flags the port does not carry yet raise
+    ``enable_dof``, ``stratify`` and ``nee`` are the megakernel's (see
+    ``render_megakernel``); NEE samples the light table ``lights``
+    (:func:`light_table` of the scene with ``n_lights_max`` rows, built
+    here when None). Flags the port does not carry yet raise
     NotImplementedError naming their ROADMAP.md item.
     """
     kw = {k: v for k, v in locals().items() if k not in ("scene", "cam",
@@ -726,7 +800,8 @@ def render_cluster(
     if dev.type != "cuda":
         raise ValueError(f"render_cluster runs on cpu or cuda, not {dev}")
 
-    cl, tri, cam_packed, blocks_x, blocks_y = _prepare(scene, cam, **kw)
+    cl, tri, lights, cam_packed, blocks_x, blocks_y = _prepare(scene, cam,
+                                                               **kw)
     lib = build.load()
     n_tiles = blocks_x * blocks_y
     if tri is None:  # no mesh: no triangle tables (n_tri_ss = 0)
@@ -743,9 +818,13 @@ def render_cluster(
             cl.glob_attr.data_ptr(), cl.n_global, cl.ss_boxes.data_ptr(),
             cl.n_ss, cl.super_boxes.data_ptr(), cl.attr.data_ptr(),
             cl.cluster_size, *t_args, cam_packed.data_ptr(),
-            cl.background.data_ptr(), mk._signed32(seed), width, height, spp,
-            max_depth, int(bool(jitter)), int(bool(enable_refraction)),
-            int(bool(enable_dof)), int(bool(stratify)), out.data_ptr(),
+            cl.background.data_ptr(),
+            0 if lights is None else lights.data_ptr(),
+            0 if lights is None else (lights.numel() - 1) // 8,
+            mk._signed32(seed), width, height, spp, max_depth,
+            int(bool(jitter)), int(bool(enable_refraction)),
+            int(bool(enable_dof)), int(bool(stratify)),
+            int(lights is not None), int(bool(gamma)), out.data_ptr(),
             segs.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -11,12 +11,14 @@ import torch
 from ..core.types import SphereScene
 
 
-def attribute_matrix(scene: SphereScene) -> torch.Tensor:
+def attribute_matrix(scene: SphereScene,
+                     light_cdf: torch.Tensor | None = None) -> torch.Tensor:
     """Packed (N, 16) per-sphere attribute matrix.
 
     Columns: center xyz, radius, albedo rgb, metallic, roughness, emission
     rgb, ior, object_id, inv_radius (0 on padding rows, which the kernel
-    uses to mask them), pad (the NEE light cdf in the JAX package).
+    uses to mask them), pad: zeros, or the (N,) NEE ``light_cdf``
+    (``ops/megakernel.py:light_cdf``), as the JAX package writes it there.
     """
     inv_r = torch.where(scene.radius > 0.0, 1.0 / scene.radius,
                         torch.zeros_like(scene.radius))
@@ -31,7 +33,8 @@ def attribute_matrix(scene: SphereScene) -> torch.Tensor:
             scene.ior[:, None],                             # 12
             scene.object_id.to(torch.float32)[:, None],     # 13
             inv_r[:, None],                                 # 14
-            torch.zeros_like(inv_r)[:, None],               # 15 pad
+            (torch.zeros_like(inv_r) if light_cdf is None
+             else light_cdf.to(inv_r.dtype))[:, None],      # 15 pad
         ],
         dim=-1,
     )

@@ -9,10 +9,13 @@ with its f32 face normal flipped to oppose the ray), the v2 estimator
 after bounce 3 with p = clamp(max throughput, 0.1, 0.95) and survivor
 compensation; metal mirrors with roughness jitter, else diffuse
 normalize(normal + hemisphere-flipped ball point); with
-``enable_refraction`` a dielectric with Schlick's reflectance), pixel jitter,
-pixel centres or the R2 lattice (``stratify``), a pinhole or thin-lens camera
-(``enable_dof``), the spp mean, sqrt gamma and clamp, and per-tile segment
-counts.
+``enable_refraction`` a dielectric with Schlick's reflectance; with ``nee``
+next-event estimation: the cosine diffuse sampler, one shadow ray per
+diffuse hit to a solid-angle-sampled emissive sphere picked from the light
+cdf of :func:`light_cdf`, and the post-diffuse suppression of sphere
+emission), pixel jitter, pixel centres or the R2 lattice (``stratify``), a
+pinhole or thin-lens camera (``enable_dof``), the spp mean with sqrt gamma
+and clamp or linear (``gamma=False``), and per-tile segment counts.
 
 The kernel (``csrc/megakernel.cu``) and the plain PyTorch version here both
 draw from the JAX kernel's interpret-mode counter hash in the same order,
@@ -55,6 +58,7 @@ def _f32(x: float) -> float:
 
 _TWO_PI = _f32(6.2831853071795864)
 _THIRD = _f32(1.0 / 3.0)
+_INV_PI = _f32(0.3183098861837907)  # the NEE estimator's 1/pi
 _T_MAX = _f32(T_MAX)
 # R2 lattice steps (tpu_rt/ops/pallas_megakernel.py:R2_ALPHA_U/V)
 R2_ALPHA_U = 0.7548776662466927
@@ -123,9 +127,26 @@ def _pack_tris(mesh, n_tri_active):
                           torch.float32).contiguous()
 
 
+def light_cdf(scene: SphereScene) -> torch.Tensor:
+    """The megakernel's NEE light pick, (capacity + 1,) f32 on the scene's
+    device: the uniform cdf over the bucket's emissive spheres (valid, max
+    emission > 0, radius > 0) row by row, then their count, as
+    ``tpu_rt/ops/pallas_megakernel.py:878-887`` computes them. The cdf
+    rides attribute column 15 and the count a 4th background word. Build
+    it once per scene (``RayTracer`` does, at ``set_scene``)."""
+    em_max = scene.emission.amax(dim=-1)
+    is_light = scene.valid & (em_max > 0.0) & (scene.radius > 0.0)
+    lw = is_light.to(torch.float32)
+    n_lights = lw.sum()
+    cdf = torch.cumsum(lw, 0) / torch.clamp_min(n_lights, 1.0)
+    return torch.cat([cdf, n_lights[None]])
+
+
 def _prepare(scene: SphereScene, cam: CameraP, n_active, width, height,
-             spp, max_depth, rows, row_offset):
-    """Validate a call and pack the kernel's inputs on the scene's device."""
+             spp, max_depth, rows, row_offset, nee=False, lights=None):
+    """Validate a call and pack the kernel's inputs on the scene's device:
+    with ``nee``, the light cdf (``lights``, else built here) in attribute
+    column 15 and the light count as a 4th background word."""
     if rows is not None or row_offset != 0:
         raise NotImplementedError(
             "rows/row_offset bands are not ported to tpu_rt_torch yet "
@@ -139,10 +160,22 @@ def _prepare(scene: SphereScene, cam: CameraP, n_active, width, height,
         raise ValueError(f"n_active={n_spheres} exceeds the scene bucket "
                          f"({scene.capacity}) or the kernel's {MAX_SPHERES}")
     dev = scene.device
+    cdf = None
+    bg = scene.background
+    if nee:
+        if lights is None:
+            lights = light_cdf(scene)
+        if lights.shape != (scene.capacity + 1,) or lights.device != dev:
+            raise ValueError(
+                f"lights must be light_cdf(scene): ({scene.capacity + 1},) "
+                f"on {dev}, got {tuple(lights.shape)} on {lights.device}")
+        cdf = lights[:-1]
+        bg = torch.cat([bg, lights[-1:]])
     # the kernel reads f32, contiguous, on the scene's device
-    attr = attribute_matrix(scene)[:n_spheres].to(torch.float32).contiguous()
+    attr = attribute_matrix(scene, cdf)[:n_spheres].to(
+        torch.float32).contiguous()
     cam_packed = _pack_camera(cam).to(dev).contiguous()
-    bg = scene.background.to(torch.float32).contiguous()
+    bg = bg.to(torch.float32).contiguous()
     n_tiles = -(-width * height // TILE)
     return attr, cam_packed, bg, n_tiles
 
@@ -158,17 +191,48 @@ def _finish(img, segs, n_pix, n_tiles, with_stats):
     return img, (total * scale).to(torch.int32)
 
 
-def _normalize3(x, y, z):
-    n2 = torch.clamp_min(x * x + y * y + z * z, 1e-20)
+def _rsqrt(x):
     # The kernels take 1.0f / sqrtf. torch.rsqrt rounds as that on the CPU
     # (and as XLA:CPU's rsqrt), but on CUDA it is rsqrtf, up to 2 ulp off,
     # which turns paths at silhouettes; there the plain version divides.
-    inv = torch.rsqrt(n2) if n2.device.type == "cpu" else 1.0 / torch.sqrt(n2)
+    return torch.rsqrt(x) if x.device.type == "cpu" else 1.0 / torch.sqrt(x)
+
+
+def _normalize3(x, y, z):
+    inv = _rsqrt(torch.clamp_min(x * x + y * y + z * z, 1e-20))
     return x * inv, y * inv, z * inv
 
 
+def pick_light(cdf, values, u):
+    """The NEE light pick: for each draw ``u``, the row of ``values``
+    ((M, 7): centre, radius, emission) whose entry of the nondecreasing
+    ``cdf`` (M,) is the first to reach it, which is the number of entries
+    below it; zeros where none does (the kernels' scan over the rows).
+    Returns the 7 planes."""
+    idx = (cdf[None, :] < u[:, None]).sum(dim=1)
+    table = torch.cat([values, values.new_zeros((1, values.shape[1]))])
+    return table[idx].unbind(1)
+
+
+class NeePlain:
+    """What the plain versions' NEE needs of an engine: the light count
+    ``n_lights`` (0-dim), ``pick(u)`` (:func:`pick_light`'s planes) and
+    ``occluded((hx, hy, hz), (dx, dy, dz), t_edge)`` (whether a primitive
+    lies in [1e-3, t_edge) along each ray); and of one path sample
+    ``no_emit`` (the lanes whose last scatter was diffuse), which
+    :func:`shade_plain` reads and updates, and ``diffuse``, the lanes that
+    traced a shadow segment in its last call."""
+
+    def __init__(self, n_lights, pick, occluded):
+        self.n_lights = n_lights
+        self.pick = pick
+        self.occluded = occluded
+        self.no_emit = None
+        self.diffuse = None
+
+
 def shade_plain(state, best_t, w, bg, depth_idx, U, face=None,
-                refract=False):
+                refract=False, nee=None, tri=None):
     """One v2 bounce of the plain versions after the nearest-hit search,
     in the JAX kernels' order of operations: background on a miss,
     emission, Russian roulette after bounce RR_START, then the metal or
@@ -180,7 +244,13 @@ def shade_plain(state, best_t, w, bg, depth_idx, U, face=None,
     ``w`` the winner's (cx, cy, cz, inv_r, ar, ag, ab, met, rgh, er, eg,
     eb, ior) planes, whose normal is (hit - c) * inv_r; ``face`` optionally (is_face, nx, ny, nz): where ``is_face``,
     the normal is the face normal flipped to oppose the ray instead.
-    ``U()`` draws the next salt's uniforms. Returns the new state."""
+    ``U()`` draws the next salt's uniforms. With ``nee`` (a
+    :class:`NeePlain`; ``tri`` marks triangle winners, or None) the bounce
+    is the NEE one (pallas_megakernel.py:403-424, 467-479, 525-675): a hit
+    after a diffuse scatter adds no emission unless a triangle won or the
+    ray starts inside the winning sphere; diffuse lanes take the cosine
+    sampler, draw a light, its cone and a shadow ray, and add the light
+    unless something occludes it. Returns the new state."""
     ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, act = state
     b_cx, b_cy, b_cz, b_ir, b_ar, b_ag, b_ab, b_met, b_rgh = w[:9]
     b_er, b_eg, b_eb = w[9:12]
@@ -193,7 +263,15 @@ def shade_plain(state, best_t, w, bg, depth_idx, U, face=None,
     cg = cg + missf * tg * bgy
     cb = cb + missf * tb * bgz
     act = act & hit
-    emitf = act.to(f32)
+    if nee is not None:
+        eocx, eocy, eocz = ox - b_cx, oy - b_cy, oz - b_cz
+        eoc2 = eocx * eocx + eocy * eocy + eocz * eocz
+        suppress = nee.no_emit & ~(eoc2 * (b_ir * b_ir) < 1.0)
+        if tri is not None:
+            suppress = suppress & ~tri
+        emitf = (act & ~suppress).to(f32)
+    else:
+        emitf = act.to(f32)
     cr = cr + emitf * tr * b_er
     cg = cg + emitf * tg * b_eg
     cb = cb + emitf * tb * b_eb
@@ -230,9 +308,22 @@ def shade_plain(state, best_t, w, bg, depth_idx, U, face=None,
     mx, my, mz = _normalize3(dx - 2.0 * d_dot_n * nx + bx * b_rgh,
                              dy - 2.0 * d_dot_n * ny + by * b_rgh,
                              dz - 2.0 * d_dot_n * nz + bz * b_rgh)
-    sgn = torch.where(bx * nx + by * ny + bz * nz > 0.0, 1.0, -1.0)
-    fx, fy, fz = _normalize3(nx + bx * sgn, ny + by * sgn, nz + bz * sgn)
+    if nee is not None:
+        # the exact cosine sampler: normal + unit-sphere direction
+        sx, sy, sz = _normalize3(bx, by, bz)
+        cdx, cdy, cdz = nx + sx, ny + sy, nz + sz
+        l2 = cdx * cdx + cdy * cdy + cdz * cdz
+        deg = l2 < 1e-12
+        inv = _rsqrt(torch.clamp_min(l2, 1e-20))
+        fx = torch.where(deg, nx, cdx * inv)
+        fy = torch.where(deg, ny, cdy * inv)
+        fz = torch.where(deg, nz, cdz * inv)
+    else:
+        sgn = torch.where(bx * nx + by * ny + bz * nz > 0.0, 1.0, -1.0)
+        fx, fy, fz = _normalize3(nx + bx * sgn, ny + by * sgn,
+                                 nz + bz * sgn)
     is_metal = b_met > 0.0
+    is_spec = is_metal
     ndx = torch.where(is_metal, mx, fx)
     ndy = torch.where(is_metal, my, fy)
     ndz = torch.where(is_metal, mz, fz)
@@ -264,6 +355,12 @@ def shade_plain(state, best_t, w, bg, depth_idx, U, face=None,
         ndx = torch.where(is_glass, gx, ndx)
         ndy = torch.where(is_glass, gy, ndy)
         ndz = torch.where(is_glass, gz, ndz)
+        is_spec = is_spec | is_glass
+
+    if nee is not None:
+        cr, cg, cb = _direct_light(nee, act & ~is_spec, (hx, hy, hz),
+                                   (nx, ny, nz), (tr, tg, tb), w[4:7],
+                                   (cr, cg, cb), U)
 
     tr, tg, tb = tr * b_ar, tg * b_ag, tb * b_ab
     ox = torch.where(act, hx, ox)
@@ -273,6 +370,69 @@ def shade_plain(state, best_t, w, bg, depth_idx, U, face=None,
     dy = torch.where(act, ndy, dy)
     dz = torch.where(act, ndz, dz)
     return ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, act
+
+
+def _direct_light(nee, diffuse, h, n, thr, albedo, col, U):
+    """NEE's shadow ray from the ``diffuse`` lanes (pallas_megakernel.py:
+    536-675): the light pick and two cone draws (drawn for every lane),
+    the direction in the cone the picked light subtends, the light's entry
+    t, and, where the light is in front of the surface, does not enclose
+    the hit and nothing occludes it, the gathered radiance col + thr *
+    albedo * cos * weight * n_lights / pi * Le. Sets ``nee.no_emit`` and
+    ``nee.diffuse`` to the diffuse lanes. Returns the new (cr, cg, cb)."""
+    hx, hy, hz = h
+    nx, ny, nz = n
+    l_cx, l_cy, l_cz, l_r, l_er, l_eg, l_eb = nee.pick(U())
+    tlx, tly, tlz = l_cx - hx, l_cy - hy, l_cz - hz
+    d2 = torch.clamp_min(tlx * tlx + tly * tly + tlz * tlz, 1e-12)
+    sin2 = (l_r * l_r) / d2
+    inside = sin2 >= 1.0
+    cos_max = torch.sqrt(torch.clamp(1.0 - sin2, 0.0, 1.0))
+    xi1, xi2 = U(), U()
+    cos_t = 1.0 - xi1 * (1.0 - cos_max)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    phi_l = _TWO_PI * xi2
+    inv_dl = _rsqrt(d2)
+    wx, wy, wz = tlx * inv_dl, tly * inv_dl, tlz * inv_dl
+    # orthonormal basis around w (branchless axis pick)
+    big = torch.abs(wx) > 0.9
+    ax = torch.where(big, 0.0, 1.0)
+    ay = torch.where(big, 1.0, 0.0)
+    t1x, t1y, t1z = _normalize3(ay * wz, -ax * wz, ax * wy - ay * wx)
+    t2x = wy * t1z - wz * t1y
+    t2y = wz * t1x - wx * t1z
+    t2z = wx * t1y - wy * t1x
+    sc = sin_t * torch.cos(phi_l)
+    ss = sin_t * torch.sin(phi_l)
+    ldx = wx * cos_t + t1x * sc + t2x * ss
+    ldy = wy * cos_t + t1y * sc + t2y * ss
+    ldz = wz * cos_t + t1z * sc + t2z * ss
+    weight = _TWO_PI * (1.0 - cos_max)  # 1 / pdf(omega)
+    # t to the light's entry along the shadow ray
+    lox, loy, loz = hx - l_cx, hy - l_cy, hz - l_cz
+    lhb = lox * ldx + loy * ldy + loz * ldz
+    lcq = lox * lox + loy * loy + loz * loz - l_r * l_r
+    ldisc = lhb * lhb - lcq
+    lsq = torch.sqrt(torch.clamp_min(ldisc, 0.0))
+    lt0 = -lhb - lsq
+    lt1 = -lhb + lsq
+    t_light = torch.where(lt0 >= 1e-3, lt0, lt1)
+    light_ok = (ldisc >= 0.0) & (t_light >= 1e-3)
+    t_edge = t_light - 1e-3
+    ndl = nx * ldx + ny * ldy + nz * ldz
+    gate = (diffuse & light_ok & ~inside & (ndl > 0.0)
+            & (nee.n_lights > 0.0))
+    # only the gated lanes trace their shadow ray (the others' result is
+    # unused): the lanes are independent, so the subset changes no value
+    idx = gate.nonzero()[:, 0]
+    occ = nee.occluded((hx[idx], hy[idx], hz[idx]),
+                       (ldx[idx], ldy[idx], ldz[idx]), t_edge[idx])
+    gate = gate.index_put((idx,), ~occ)
+    scale = gate.to(torch.float32) * ndl * weight * (nee.n_lights * _INV_PI)
+    (tr, tg, tb), (ar, ag, ab), (cr, cg, cb) = thr, albedo, col
+    nee.no_emit = nee.diffuse = diffuse
+    return (cr + tr * ar * scale * l_er, cg + tg * ag * scale * l_eg,
+            cb + tb * ab * scale * l_eb)
 
 
 def stratify_shift(flat, seed):
@@ -356,11 +516,41 @@ def mt_test(o, d, v0, e1, e2):
     return ok, tt
 
 
+def _sphere_occluded(rows, o, d, t_edge):
+    """Whether any sphere row (attribute planes: centre 0-2, radius 3,
+    inv_r 14) has a root in [1e-3, t_edge) along (o, d): the JAX shadow
+    sweep's NaN-propagating root select (pallas_megakernel.py:613-629)."""
+    (ox, oy, oz), (dx, dy, dz) = o, d
+    occ = torch.zeros_like(t_edge, dtype=torch.bool)
+    for a in rows:
+        ocx, ocy, ocz = ox - a[0], oy - a[1], oz - a[2]
+        half_b = ocx * dx + ocy * dy + ocz * dz
+        cq = ocx * ocx + ocy * ocy + ocz * ocz - a[3] * a[3]
+        sqrtd = torch.sqrt(half_b * half_b - cq)
+        root0 = -half_b - sqrtd
+        root = torch.where(root0 >= 1e-3, root0, sqrtd - half_b)
+        occ = occ | ((root >= 1e-3) & (root < t_edge) & (a[14] > 0.0))
+    return occ
+
+
+def _output(acc, inv_spp, gamma):
+    """The spp mean of each channel: sqrt gamma and clamp, or linear."""
+    if gamma:
+        acc = [torch.clamp(torch.sqrt(torch.clamp_min(a * inv_spp, 0.0)),
+                           0.0, 1.0) for a in acc]
+    else:
+        acc = [a * inv_spp for a in acc]
+    return torch.stack(acc, dim=-1)
+
+
 def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
-                 jitter, n_tiles, refract=False, dof=False, stratify=False):
+                 jitter, n_tiles, refract=False, dof=False, stratify=False,
+                 nee=False, gamma=True):
     """The kernel's computation as whole-tensor PyTorch ops over every lane
     of every tile, in the JAX kernel's order of operations: the spheres,
-    then the triangles of ``tris`` (or None), one row at a time.
+    then the triangles of ``tris`` (or None), one row at a time. With
+    ``nee``, attribute column 15 holds the light cdf and ``bg`` (4,) ends
+    with the light count.
 
     Returns ((n_pix, 3) f32 image, (n_tiles,) int32 segment counts)."""
     dev = attr.device
@@ -372,7 +562,7 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
     py = (flat // width).to(f32)
     inv_w = _f32(1.0 / width)
     inv_h = _f32(1.0 / height)
-    bgx, bgy, bgz = bg.unbind(0)
+    bgx, bgy, bgz = bg[:3].unbind(0)
     rows = [attr[i].unbind(0) for i in range(attr.shape[0])]
     tri_rows = [] if tris is None else [t.unbind(0) for t in tris]
     tile_seed = (tile + (int(seed) & _M32)) & _M32
@@ -382,6 +572,17 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
     # the winner planes: cx cy cz inv_r ar ag ab met rgh er eg eb ior
     cols = (0, 1, 2, 14, 4, 5, 6, 7, 8, 9, 10, 11, 12)
     tcols = tuple(range(12, 21))
+    light = None
+    if nee:
+        def occluded(o, d, t_edge):
+            occ = _sphere_occluded(rows, o, d, t_edge)
+            for g in tri_rows:
+                ok, tt = mt_test(o, d, g[0:3], g[3:6], g[6:9])
+                occ = occ | (ok & (tt < t_edge))
+            return occ
+
+        light = NeePlain(bg[3], lambda u: pick_light(
+            attr[:, 15], attr[:, [0, 1, 2, 3, 9, 10, 11]], u), occluded)
 
     acc = [torch.zeros(n, dtype=f32, device=dev) for _ in range(3)]
     segs = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
@@ -403,6 +604,8 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
         cr = torch.zeros(n, dtype=f32, device=dev)
         cg, cb = cr, cr
         act = torch.ones(n, dtype=torch.bool, device=dev)
+        if light is not None:
+            light.no_emit = torch.zeros_like(act)
 
         for depth_idx in range(1, max_depth + 1):
             segs += act.view(n_tiles, TILE).sum(1, dtype=torch.int32)
@@ -444,14 +647,15 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
             (ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb,
              act) = shade_plain((ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg,
                                  cb, act), best_t, b, (bgx, bgy, bgz),
-                                depth_idx, U, face, refract)
+                                depth_idx, U, face, refract, light,
+                                None if face is None else face[0])
+            if light is not None:  # one shadow segment per diffuse lane
+                segs += light.diffuse.view(n_tiles, TILE).sum(
+                    1, dtype=torch.int32)
 
         acc = [acc[0] + cr, acc[1] + cg, acc[2] + cb]
 
-    inv_spp = _f32(1.0 / spp)
-    img = torch.stack([
-        torch.clamp(torch.sqrt(torch.clamp_min(a * inv_spp, 0.0)), 0.0, 1.0)
-        for a in acc], dim=-1)
+    img = _output(acc, _f32(1.0 / spp), gamma)
     return img[:width * height], segs
 
 
@@ -474,18 +678,23 @@ def render_megakernel_reference(
     enable_refraction: bool = False,
     enable_dof: bool = False,
     stratify: bool = False,
+    nee: bool = False,
+    gamma: bool = True,
+    lights: torch.Tensor | None = None,
 ):
     """The plain PyTorch version of the megakernel, on any device.
 
     Same contract as :func:`render_megakernel`: (height, width, 3) f32 in
-    [0, 1], plus the real-pixel segment count when ``with_stats``."""
+    [0, 1] (the linear mean with ``gamma=False``), plus the real-pixel
+    segment count when ``with_stats``."""
     attr, cam_packed, bg, n_tiles = _prepare(
-        scene, cam, n_active, width, height, spp, max_depth, rows, row_offset)
+        scene, cam, n_active, width, height, spp, max_depth, rows, row_offset,
+        nee, lights)
     tris = _pack_tris(mesh, n_tri_active)
     img, segs = _trace_plain(attr, tris, cam_packed, bg, seed, width, height,
                              spp, max_depth, jitter, n_tiles,
                              bool(enable_refraction), bool(enable_dof),
-                             bool(stratify))
+                             bool(stratify), bool(nee), bool(gamma))
     return _finish(img.reshape(height, width, 3), segs, width * height,
                    n_tiles, with_stats)
 
@@ -514,11 +723,15 @@ def render_megakernel(
     enable_refraction: bool = False,
     enable_dof: bool = False,
     stratify: bool = False,
+    nee: bool = False,
+    gamma: bool = True,
+    lights: torch.Tensor | None = None,
 ):
     """Render one batch of ``spp`` samples through the megakernel.
 
-    Returns (height, width, 3) f32 in [0, 1], and with ``with_stats`` also
-    the traced segment count over real pixels (an int32 0-dim tensor).
+    Returns (height, width, 3) f32 in [0, 1] (with ``gamma=False`` the
+    linear mean, unclamped), and with ``with_stats`` also the traced
+    segment count over real pixels (an int32 0-dim tensor).
     ``seed`` is an int taken modulo 2^32 (int32 wrap, as in the JAX
     package); ``n_active`` the number of leading scene rows to sweep
     (default: the whole bucket). ``mesh`` adds a TriangleMesh on the
@@ -528,6 +741,10 @@ def render_megakernel(
     and ior > 1 into glass; ``enable_dof`` traces the camera's thin lens
     (``cam.aperture``, ``cam.focus_dist``); ``stratify`` (with ``jitter``)
     places a pixel's samples on the R2 lattice under a per-pixel shift.
+    ``nee`` adds next-event estimation towards the scene's emissive
+    spheres, whose light cdf ``lights`` (:func:`light_cdf`, built here when
+    None) a caller rendering many frames builds once; each shadow ray
+    counts as one more segment.
 
     A scene on the CPU runs the plain version; a scene on a CUDA device
     launches the CUDA kernel (built on first use) and raises if the launch
@@ -541,12 +758,13 @@ def render_megakernel(
             with_stats=with_stats, rows=rows, row_offset=row_offset,
             mesh=mesh, n_tri_active=n_tri_active,
             enable_refraction=enable_refraction, enable_dof=enable_dof,
-            stratify=stratify)
+            stratify=stratify, nee=nee, gamma=gamma, lights=lights)
     if dev.type != "cuda":
         raise ValueError(f"render_megakernel runs on cpu or cuda, not {dev}")
 
     attr, cam_packed, bg, n_tiles = _prepare(
-        scene, cam, n_active, width, height, spp, max_depth, rows, row_offset)
+        scene, cam, n_active, width, height, spp, max_depth, rows, row_offset,
+        nee, lights)
     tris = _pack_tris(mesh, n_tri_active)
     if tris is not None and tris.device != dev:
         raise ValueError(f"the mesh lies on {tris.device}, the scene on {dev}")
@@ -561,8 +779,8 @@ def render_megakernel(
             0 if tris is None else tris.shape[0], cam_packed.data_ptr(),
             bg.data_ptr(), _signed32(seed), 0, width, height, spp, max_depth,
             int(bool(jitter)), int(bool(enable_refraction)),
-            int(bool(enable_dof)), int(bool(stratify)), n_tiles,
-            out.data_ptr(), n_pix,
+            int(bool(enable_dof)), int(bool(stratify)), int(bool(nee)),
+            int(bool(gamma)), n_tiles, out.data_ptr(), n_pix,
             segs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")

@@ -7,7 +7,8 @@ configuration the port does not carry raises ``NotImplementedError``
 naming its ROADMAP.md item; no other engine is ever used in its place.
 
 Outputs match the reference contract: a batch is the sample mean,
-sqrt-gamma'd and clamped to [0, 1].
+sqrt-gamma'd and clamped to [0, 1] (or, with ``gamma=False`` and an engine
+named, the linear mean).
 """
 
 from __future__ import annotations
@@ -34,19 +35,21 @@ def select_engine(scene: SphereScene, mode="v2", enable_refraction=False,
     spheres, 256 triangles), else "megakernel" (its fused "pallas"
     engine). Both engines carry refraction, so ``enable_refraction``
     (kept for the JAX package's signature) does not change the choice.
-    Configurations neither engine carries yet raise NotImplementedError."""
+    With ``engine="auto"`` the JAX package renders ``gamma=False`` with its
+    lax integrator; that, and the other configurations neither engine
+    carries yet, raise NotImplementedError."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "lax":
         raise _not_ported("engine='lax'", "Queue 1, lax integrator")
     if mode != "v2":
         raise _not_ported(f"mode={mode!r}", "Queue 1, lax integrator")
+    if not gamma and engine == "auto":
+        raise _not_ported("linear (gamma=False) output with engine='auto' "
+                          "(the lax engine's)", "Queue 1, lax integrator")
     cluster = engine == "cluster" or (
         engine == "auto" and (scene.capacity > MAX_SPHERES or (
             mesh is not None and mesh.capacity > MAX_TRIS)))
-    if not gamma:
-        raise _not_ported("linear (gamma=False) output",
-                          f"{'K2' if cluster else 'K1'}-linear")
     return "cluster" if cluster else "megakernel"
 
 
@@ -88,6 +91,7 @@ def render(
     pre_ordered: bool = False,
     n_tri_active: int | None = None,
     tri_prebuilt: ClusteredScene | None = None,
+    lights: torch.Tensor | None = None,
 ):
     """Render one batch of ``spp`` samples; returns (height, width, 3) f32
     on the scene's device (plus the traced segment count with
@@ -95,7 +99,12 @@ def render(
     nearer surface wins per bounce). ``enable_refraction`` makes materials
     with metallic <= 0, roughness <= 0 and ior > 1 glass; ``enable_dof``
     traces the camera's thin lens (None: when ``cam.aperture`` > 0);
-    ``stratify`` puts each pixel's samples on the R2 lattice.
+    ``stratify`` puts each pixel's samples on the R2 lattice; ``nee`` adds
+    next-event estimation towards the emissive spheres (``lights``: the
+    engine's light cdf or table, ``ops/megakernel.py:light_cdf`` or
+    ``ops/cluster.py:light_table``, built per call when None).
+    ``gamma=False`` returns the linear mean; with ``engine="auto"`` it
+    raises, as the JAX package renders it with its lax engine.
 
     ``seed`` is the int stream seed (the JAX package derives it from a key
     or takes it from ``seed=``). ``jitter=False`` shoots pixel centres, the
@@ -109,17 +118,15 @@ def render(
     """
     resolved = select_engine(scene, mode, enable_refraction, gamma, mesh,
                              engine)
-    k = "K2" if resolved == "cluster" else "K1"
-    if nee:
-        raise _not_ported("next-event estimation (nee)", f"{k}-nee")
     if tile_mask is not None:
+        k = "K2" if resolved == "cluster" else "K1"
         raise _not_ported("tile_mask adaptive sampling", f"{k}-tile-mask")
     if enable_dof is None:
         # pulls one scalar from a camera on the device; RayTracer passes
         # the flag from its host-side aperture instead
         enable_dof = float(cam.aperture) > 0.0
     flags = dict(enable_refraction=enable_refraction, enable_dof=enable_dof,
-                 stratify=stratify)
+                 stratify=stratify, nee=nee, gamma=gamma, lights=lights)
     if n_active is None and prebuilt is None:
         n_active = quantize_count(int(scene.valid.sum()), scene.capacity)
     if tri_prebuilt is not None and resolved != "cluster":
