@@ -28,7 +28,15 @@ counts, checks the 1/sqrt(N) convergence of its means, and times it:
   engine's cap of 8), alone, with the flags and linear; RayTracer(nee=True)
   on the demo scene and on 10k spheres and set_nee(True) on the Cornell box;
   K1 and K2 means against each other in linear output, NEE's variance
-  against the plain estimator's, and timings at 640x480/8spp and 1080p/4spp.
+  against the plain estimator's, and timings at 640x480/8spp and 1080p/4spp;
+* adaptive tile masks and bands of rows in both kernels: masked and banded
+  kernels against their plain versions in every instantiation, masked
+  kernels against unmasked ones at full size, K2 bands stitched against the
+  full frame; the adaptive main paths (RayTracer.render_device(tile_mask=)
+  -> accumulate_tiled -> the app's per-tile controller -> display_stack on
+  the demo scene, and render(tile_mask=) -> accumulate_tiled_mapped on 10k
+  spheres) against their plain chains, and timings at 100%, about 50% and
+  about 10% of the tiles active.
 
 Each kernel must agree with its plain version bit for bit, segment counts
 included. Every phase raises on failure. The last line of standard output
@@ -1709,12 +1717,443 @@ def main() -> int:
           f"{r8 / r32:.3f} (1.955 expected)")
     check(r32 < r8 and 1.4 < r8 / r32 < 2.8, "NEE 1/sqrt(N) scaling")
 
+    # ================= adaptive tile masks, bands of rows ==================
+    from tpu_rt_torch.ops.megakernel import TILE
+    from tpu_rt_torch.render.frame import (
+        accumulate_tiled, accumulate_tiled_mapped, cluster_tile_map)
+
+    mask_rng = np.random.default_rng(28)
+
+    def share_mask(n, share):
+        """A random mask of n tiles with about ``share`` of them on (at
+        least one on, and one off unless share is 1)."""
+        if share >= 1.0:
+            return np.ones(n, np.int32)
+        m = (mask_rng.uniform(size=n) < share).astype(np.int32)
+        first, second = mask_rng.permutation(n)[:2]
+        m[first], m[second] = 1, 0
+        return m
+
+    def k1_on(mask, n_pix, shape):
+        """The pixels of a megakernel render whose tile is on."""
+        return torch.from_numpy(np.repeat(mask != 0, TILE)[:n_pix]).to(
+            dev).reshape(shape)
+
+    def k2_on(mask, w, h):
+        tmap, _ = cluster_tile_map(w, h, device=dev)
+        return torch.from_numpy(mask).to(dev)[tmap.long()] != 0
+
+    # every instantiation: no mesh / mesh x flag-free / kFlags / kNee
+    K1_CASES = [("demo scene", scene, dict(n_active=N_ACTIVE), {}),
+                ("demo scene", scene, dict(n_active=N_ACTIVE), ALL_FLAGS),
+                ("demo scene", scene, dict(n_active=N_ACTIVE),
+                 dict(NEE, **ALL_FLAGS)),
+                ("Cornell box + bulb", bulb, bulb_active, {}),
+                ("Cornell box + bulb", bulb, bulb_active, ALL_FLAGS),
+                ("Cornell box + bulb", bulb, bulb_active,
+                 dict(NEE, **ALL_FLAGS))]
+    K2_CASES = [("glass field (10k)", None, cam19, field_kw, {}),
+                ("glass field (10k)", None, cam19, field_kw, ALL_FLAGS),
+                ("glass field (10k)", None, cam19, field_kw,
+                 dict(NEE, **ALL_FLAGS)),
+                ("terrain 10k", ts, cam19t, dict(mesh=tm), {}),
+                ("terrain 10k", ts, cam19t, dict(mesh=tm), ALL_FLAGS),
+                ("terrain 10k", ts, cam19t, dict(mesh=tm),
+                 dict(NEE, **ALL_FLAGS))]
+
+    def flag_label(flags):
+        return ("kNee" if flags.get("nee") else "kFlags" if flags
+                else "flag-free")
+
+    # ---- 28. tile masks: kernel vs plain in every instantiation, and the
+    # masked kernel against the unmasked kernel at full size ----
+    cam28 = cam_for(PLAIN_SHAPE["width"], PLAIN_SHAPE["height"], aperture=0.1)
+    cam28c = cam_for(PLAIN_SHAPE["width"], PLAIN_SHAPE["height"],
+                     aperture=0.1, **CORNELL_CAM)
+    mask8 = share_mask(8, 0.5)  # PLAIN_SHAPE: 8 tiles, or 2 x 4 blocks
+    print(f"[28 tile masks] mask of the 256x128 frames: {mask8.tolist()}")
+    mega_mask_err = cluster_mask_err = 0.0
+    for label, sc, kw_s, flags in K1_CASES:
+        cam_ = cam28c if sc is bulb else cam28
+        for seed in (7, 2**31 - 2):
+            kw = dict(with_stats=True, tile_mask=mask8, **kw_s, **PLAIN_SHAPE,
+                      **flags)
+            a, seg_a = render_megakernel(sc, cam_, seed, **kw)
+            b, seg_b = render_megakernel_reference(sc, cam_, seed, **kw)
+            stats = compare(a, b)
+            mega_mask_err = max(mega_mask_err, stats["max_abs"])
+            print(f"[28 K1 mask vs plain] {label} {flag_label(flags)} "
+                  f"256x128/4spp/d4 seed {seed}: {stats}, segments "
+                  f"{int(seg_a)} vs {int(seg_b)}")
+            check_exact(stats, f"K1 mask {label} {flag_label(flags)} seed "
+                        f"{seed}", (seg_a, seg_b))
+    for label, sc, cam_, kw_s, flags in K2_CASES:
+        for seed in (7, 2**31 - 2):
+            kw = dict(with_stats=True, tile_mask=mask8, **kw_s, **PLAIN_SHAPE,
+                      **flags)
+            a, seg_a = render_cluster(sc, cam_, seed, **kw)
+            b, seg_b = render_cluster_reference(sc, cam_, seed, **kw)
+            stats = compare(a, b)
+            cluster_mask_err = max(cluster_mask_err, stats["max_abs"])
+            print(f"[28 K2 mask vs plain] {label} {flag_label(flags)} "
+                  f"256x128/4spp/d4 seed {seed}: {stats}, segments "
+                  f"{int(seg_a)} vs {int(seg_b)}")
+            check_exact(stats, f"K2 mask {label} {flag_label(flags)} seed "
+                        f"{seed}", (seg_a, seg_b))
+
+    def masked_vs_unmasked(label, fn, n_tiles, on_of):
+        """fn(mask or None) -> (image, segments). The masked kernel's active
+        tiles equal the unmasked kernel's bit for bit and its skipped tiles
+        are zeros; a mask and its complement count the unmasked render's
+        segments (each total is scaled to real pixels and truncated, so
+        within 1), so the skipped tiles count none."""
+        m = share_mask(n_tiles, 0.5)
+        full, s_full = fn(None)
+        part, s_part = fn(torch.from_numpy(m).to(dev))
+        rest, s_rest = fn(torch.from_numpy(1 - m).to(dev))
+        on = on_of(m)
+        same = bool(torch.equal(part[on], full[on])
+                    and torch.equal(rest[~on], full[~on]))
+        zeros = not bool(part[~on].any() or rest[on].any())
+        gap = int(s_part) + int(s_rest) - int(s_full)
+        print(f"[28 masked vs unmasked kernel] {label}: {int(m.sum())} of "
+              f"{n_tiles} tiles on; active equal {same}, skipped zero "
+              f"{zeros}; segments {int(s_part)} + {int(s_rest)} vs "
+              f"{int(s_full)}")
+        check(same and zeros and abs(gap) <= 1 and 0 < int(s_part)
+              < int(s_full), f"{label}: masked kernel vs unmasked kernel")
+
+    for name, shape in (("640x480/8spp/d4", INTERACTIVE),
+                        ("1080p/4spp/d4", BENCH)):
+        w, h = shape["width"], shape["height"]
+        cam_t = cam_for(w, h)
+        masked_vs_unmasked(
+            f"K1 demo scene {name}",
+            lambda m: render_megakernel(scene, cam_t, 29, tile_mask=m,
+                                        with_stats=True, n_active=N_ACTIVE,
+                                        **shape),
+            -(-w * h // TILE), lambda m: k1_on(m, w * h, (h, w)))
+        cam_t = cam_for(w, h, **BIG_CAM)
+        tab_t = order_clusters(build_clusters(big, n_active=BIG["n"]),
+                               cam_t.position)
+        masked_vs_unmasked(
+            f"K2 10k spheres {name}",
+            lambda m: render_cluster(None, cam_t, 29, tile_mask=m,
+                                     prebuilt=tab_t, pre_ordered=True,
+                                     with_stats=True, **shape),
+            cluster_tile_map(w, h, device="cpu")[1],
+            lambda m: k2_on(m, w, h))
+
+    # ---- 29. bands of rows ----
+    # K1: the band's own tile seeds, so a band is held against the plain
+    # version's band (40 rows: 10240 pixels, the third tile ragged)
+    for label, sc, kw_s, flags in K1_CASES:
+        cam_ = cam28c if sc is bulb else cam28
+        for off in (0, 88):
+            kw = dict(with_stats=True, rows=40, row_offset=off, **kw_s,
+                      **PLAIN_SHAPE, **flags)
+            a, seg_a = render_megakernel(sc, cam_, 7, **kw)
+            b, seg_b = render_megakernel_reference(sc, cam_, 7, **kw)
+            stats = compare(a, b)
+            mega_mask_err = max(mega_mask_err, stats["max_abs"])
+            check(tuple(a.shape) == (40, PLAIN_SHAPE["width"], 3),
+                  "K1 band shape")
+            print(f"[29 K1 band vs plain] {label} {flag_label(flags)} rows "
+                  f"[{off}, {off + 40}) of 256x128/4spp/d4: {stats}, "
+                  f"segments {int(seg_a)} vs {int(seg_b)}")
+            check_exact(stats, f"K1 band {label} {flag_label(flags)} "
+                        f"offset {off}", (seg_a, seg_b))
+    # K2: kernel band vs plain band in every instantiation
+    for label, sc, cam_, kw_s, flags in K2_CASES:
+        kw = dict(with_stats=True, rows=64, row_offset=32, **kw_s,
+                  **PLAIN_SHAPE, **flags)
+        a, seg_a = render_cluster(sc, cam_, 7, **kw)
+        b, seg_b = render_cluster_reference(sc, cam_, 7, **kw)
+        stats = compare(a, b)
+        cluster_mask_err = max(cluster_mask_err, stats["max_abs"])
+        print(f"[29 K2 band vs plain] {label} {flag_label(flags)} rows "
+              f"[32, 96) of 256x128/4spp/d4: {stats}, segments {int(seg_a)} "
+              f"vs {int(seg_b)}")
+        check_exact(stats, f"K2 band {label} {flag_label(flags)}",
+                    (seg_a, seg_b))
+
+    # K2: streams keyed by the frame's tile, so the kernel's bands stitched
+    # together equal its full frame, with NEE and stratify on
+    def stitched(label, fn, height, band_rows):
+        full, s_full = fn(None, 0)
+        parts = [fn(band_rows, o) for o in range(0, height, band_rows)]
+        same = bool(torch.equal(torch.cat([p for p, _ in parts]), full))
+        total = sum(int(s) for _, s in parts)
+        print(f"[29 K2 bands] {label} in bands of {band_rows} rows, "
+              f"stitched: equal to the full frame {same}; segments {total} "
+              f"vs {int(s_full)}")
+        check(same and total == int(s_full), f"{label}: stitched bands")
+
+    strat_nee = dict(NEE, stratify=True)
+    cam29 = cam_for(640, 480, **TERRAIN_CAM)
+    tab29 = order_clusters(build_clusters(ts, n_active=3), cam29.position)
+    tri29 = order_clusters(build_tri_clusters(tm), cam29.position)
+    stitched("terrain 10k + NEE + stratify 640x480/8spp/d4",
+             lambda r, o: render_cluster(
+                 None, cam29, 31, prebuilt=tab29, tri_prebuilt=tri29,
+                 pre_ordered=True, lights=light_table(ts), rows=r,
+                 row_offset=o, with_stats=True, **INTERACTIVE, **strat_nee),
+             480, 160)
+    cam29b = cam_for(1920, 1024, **BIG_CAM)
+    tab29b = order_clusters(build_clusters(big, n_active=BIG["n"]),
+                            cam29b.position)
+    stitched("10k spheres + NEE + stratify 1920x1024/4spp/d4",
+             lambda r, o: render_cluster(
+                 None, cam29b, 32, prebuilt=tab29b, pre_ordered=True,
+                 lights=light_table(big), rows=r, row_offset=o,
+                 with_stats=True, width=1920, height=1024, spp=4,
+                 max_depth=4, **strat_nee),
+             1024, 256)
+
+    # ---- 30. the adaptive main paths ----
+    def controller(mask, streak, change, target):
+        """The app's per-tile rule (tpu_rt/app/interaction.py:935-962): a
+        tile's streak grows while it is active and its change is under the
+        target; it leaves the mask at a streak of 2."""
+        active = mask > 0
+        streak = np.where(active & (change < target), streak + 1, 0)
+        return (active & (streak < 2)).astype(np.int32), streak
+
+    def adaptive_chain(render_batch, merge, n_tiles, batches, target,
+                       display=True):
+        """Batches of render_batch(f, mask) -> merge -> the controller (->
+        display_stack), until ``batches`` or until every tile has left;
+        returns (accumulator, the masks rendered, the last mask, stack)."""
+        w, h = INTERACTIVE["width"], INTERACTIVE["height"]
+        acc_ = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+        counts = torch.zeros((n_tiles,), dtype=torch.float32, device=dev)
+        mask = np.ones(n_tiles, np.int32)
+        streak = np.zeros(n_tiles, np.int32)
+        masks, stack_ = [], None
+        for f in range(batches):
+            if not mask.any():
+                break
+            masks.append(mask)
+            batch_ = render_batch(f, mask)
+            acc_, counts, change = merge(acc_, counts, batch_, torch.from_numpy(
+                mask).to(dev), INTERACTIVE["spp"])
+            mask, streak = controller(mask, streak, change.cpu().numpy(),
+                                      target)
+            if display:
+                stack_ = display_stack(acc_, EXPOSURE, as_uint8=True)
+        torch.cuda.synchronize(dev)
+        return acc_, masks, mask, stack_
+
+    # (a) K1: RayTracer(seed=21) on the demo scene, render_device(tile_mask=)
+    # -> accumulate_tiled -> the controller -> display_stack, 64 samples
+    ADAPTIVE_TARGET = 0.02
+    n_int_tiles = -(-n_int // TILE)
+    rt_ad = RayTracer(seed=21, device=dev)
+    rt_ad.set_scene(demo_api_scene())
+    adaptive_flags = []
+
+    def k1_batch(f, mask):
+        out = rt_ad.render_device(INTERACTIVE["width"], INTERACTIVE["height"],
+                                  INTERACTIVE["spp"],
+                                  INTERACTIVE["max_depth"], tile_mask=mask)
+        adaptive_flags.append((rt_ad._last_adaptive, rt_ad._last_engine))
+        return out
+
+    def k1_merge(acc_, counts, batch_, mask, n):
+        return accumulate_tiled(acc_, counts, batch_, mask, n, TILE)
+
+    render_megakernel.launches = render_cluster.launches = 0
+    acc, masks, last, stack = adaptive_chain(k1_batch, k1_merge,
+                                             n_int_tiles, 8, ADAPTIVE_TARGET)
+    adaptive_launches = render_megakernel.launches
+    print(f"[30 adaptive main path] RayTracer demo scene 640x480/8spp/d4, "
+          f"render_device(tile_mask=) -> accumulate_tiled -> controller "
+          f"(noise_target {ADAPTIVE_TARGET}) -> display_stack: "
+          f"{len(masks)} batches, active tiles per batch "
+          f"{[int(m.sum()) for m in masks]} of {n_int_tiles}; megakernel "
+          f"launches {adaptive_launches}, cluster launches "
+          f"{render_cluster.launches}; _last_adaptive/_last_engine "
+          f"{sorted(set(adaptive_flags))}")
+    check(adaptive_launches == len(masks),
+          "the adaptive path launched the megakernel once per batch")
+    check(render_cluster.launches == 0, "the demo scene skips the cluster")
+    check(set(adaptive_flags) == {(True, "pallas")},
+          "render_device applied the mask on the pallas engine")
+    check(int(last.sum()) < n_int_tiles and any(
+        0 < int(m.sum()) < n_int_tiles for m in masks),
+        "tiles left the mask, and a batch rendered under a partial mask")
+    check_stack(stack, acc, "adaptive main path")
+    cam_ad = rt_ad.camera.to_params(dev)
+    acc_p, masks_p, _, _ = adaptive_chain(
+        lambda f, mask: render_megakernel_reference(
+            scene, cam_ad, batch_seed(21 + 1, f), n_active=N_ACTIVE,
+            tile_mask=mask, **INTERACTIVE),
+        k1_merge, n_int_tiles, 8, ADAPTIVE_TARGET, display=False)
+    stats = compare(acc, acc_p)
+    mega_mask_err = max(mega_mask_err, stats["max_abs"])
+    same_masks = (len(masks_p) == len(masks)
+                  and all(map(np.array_equal, masks, masks_p)))
+    print(f"[30 adaptive main path] vs the plain chain: accumulator {stats}; "
+          f"masks equal {same_masks}")
+    check(same_masks, "the plain chain's masks equal the kernel chain's")
+    check_exact(stats, "adaptive main path accumulator")
+
+    # (b) K2: render(tile_mask=) on 10k spheres (its engine resolves to the
+    # cluster engine; tables built and ordered once) -> accumulate_tiled_mapped
+    # over cluster_tile_map -> the controller -> display_stack. Half its
+    # blocks are sky (no change at all) and the rest fall under 0.02 at
+    # once, so the target is the median change, among the blocks that
+    # change, of a second batch over a first at other seeds: the sky and
+    # about half the other blocks leave after the third batch.
+    cam_k2 = cam_for(INTERACTIVE["width"], INTERACTIVE["height"], **BIG_CAM)
+    tab_k2 = order_clusters(build_clusters(big, n_active=BIG["n"]),
+                            cam_k2.position)
+    tmap_k2, n_k2_tiles = cluster_tile_map(INTERACTIVE["width"],
+                                           INTERACTIVE["height"], device=dev)
+
+    def k2_merge(acc_, counts, batch_, mask, n):
+        return accumulate_tiled_mapped(acc_, counts, batch_, mask, n,
+                                       tmap_k2, n_k2_tiles)
+
+    ones_k2 = torch.ones((n_k2_tiles,), dtype=torch.int32, device=dev)
+    acc_c, counts_c, _ = k2_merge(
+        torch.zeros((INTERACTIVE["height"], INTERACTIVE["width"], 3),
+                    device=dev), torch.zeros(n_k2_tiles, device=dev),
+        render(big, cam_k2, 9000, prebuilt=tab_k2, pre_ordered=True,
+               **INTERACTIVE), ones_k2, INTERACTIVE["spp"])
+    _, _, change_c = k2_merge(acc_c, counts_c, render(
+        big, cam_k2, 9001, prebuilt=tab_k2, pre_ordered=True, **INTERACTIVE),
+        ones_k2, INTERACTIVE["spp"])
+    k2_target = float(change_c[change_c > 0].median())
+    render_megakernel.launches = render_cluster.launches = 0
+    acc, masks2, last2, stack = adaptive_chain(
+        lambda f, mask: render(big, cam_k2, batch_seed(23 + 1, f),
+                               prebuilt=tab_k2, pre_ordered=True,
+                               tile_mask=mask, **INTERACTIVE),
+        k2_merge, n_k2_tiles, 4, k2_target)
+    cluster_mask_launches = render_cluster.launches
+    print(f"[30 adaptive main path] render(tile_mask=) 10k spheres "
+          f"640x480/8spp/d4 -> accumulate_tiled_mapped -> controller "
+          f"(noise_target {k2_target:.6f}) -> display_stack: "
+          f"{len(masks2)} batches, active blocks per batch "
+          f"{[int(m.sum()) for m in masks2]} of {n_k2_tiles}; cluster "
+          f"launches {cluster_mask_launches}, megakernel launches "
+          f"{render_megakernel.launches}")
+    check(cluster_mask_launches == len(masks2),
+          "the K2 adaptive path launched the cluster kernel once per batch")
+    check(render_megakernel.launches == 0, "10k spheres skip the megakernel")
+    check(int(last2.sum()) < n_k2_tiles and any(
+        0 < int(m.sum()) < n_k2_tiles for m in masks2),
+        "K2: blocks left the mask, and a batch rendered under a partial mask")
+    check_stack(stack, acc, "K2 adaptive path")
+    t0 = time.perf_counter()
+    acc_p, masks2_p, _, _ = adaptive_chain(
+        lambda f, mask: render_cluster_reference(
+            None, cam_k2, batch_seed(23 + 1, f), prebuilt=tab_k2,
+            pre_ordered=True, tile_mask=mask, **INTERACTIVE),
+        k2_merge, n_k2_tiles, 4, k2_target, display=False)
+    stats = compare(acc, acc_p)
+    cluster_mask_err = max(cluster_mask_err, stats["max_abs"])
+    same_masks = (len(masks2_p) == len(masks2)
+                  and all(map(np.array_equal, masks2, masks2_p)))
+    print(f"[30 adaptive main path] K2 vs the plain chain at the same size "
+          f"({time.perf_counter() - t0:.1f} s): accumulator {stats}; masks "
+          f"equal {same_masks}")
+    check(same_masks, "K2: the plain chain's masks equal the kernel chain's")
+    check_exact(stats, "K2 adaptive path accumulator")
+
+    # ---- 31. timing by active share ----
+    shares = (1.0, 0.5, 0.1)
+    timed_masks = {}
+    k1_share = {}
+    for share in shares:
+        m = share_mask(n_int_tiles, share)
+        md = torch.from_numpy(m).to(dev)
+        timed_masks["K1", share] = m
+        kw = dict(n_active=N_ACTIVE, tile_mask=md, **INTERACTIVE)
+        n_on = int(m.sum()) * TILE
+        k1_share[share] = mesh_timing(
+            f"K1 tile mask {int(m.sum())} of {n_int_tiles} tiles on "
+            f"(~{share:.0%}) demo scene 640x480/8spp/d4",
+            lambda i: render_megakernel(scene, cam_ad, 1700 + i, **kw),
+            lambda: render_megakernel(scene, cam_ad, 0, with_stats=True,
+                                      **kw)[1],
+            n_on, INTERACTIVE["spp"], "megakernel", N_ACTIVE * SPHERE_TEST_OPS,
+            k1_bytes + n_int_tiles * 8 + (n_int - n_on) * 12, phase=31)
+    kw = dict(n_active=N_ACTIVE, tile_mask=torch.from_numpy(
+        timed_masks["K1", 0.5]).to(dev), **INTERACTIVE)
+    mp = in_turns({
+        "kernel": lambda i: render_megakernel(scene, cam_ad, 1800 + i, **kw),
+        "plain": lambda i: render_megakernel_reference(scene, cam_ad,
+                                                       1800 + i, **kw)}, 3)
+    print(f"[31 timing] K1 tile mask ~50% 640x480/8spp/d4: kernel frame "
+          f"{mp['kernel']:.4f} ms, plain {mp['plain']:.4f} ms (median of 2x3 "
+          f"chained frames each, in turns)")
+    k_ms, ev_ms, frame, b_ms, b_by = k1_share[0.5]
+    mega_mask = {"name": "megakernel-tile-mask", "route": "cuda",
+                 "source": "tpu_rt_torch/csrc/megakernel.cu",
+                 "replaces": "tpu_rt/ops/pallas_megakernel.py:768",
+                 "launches": adaptive_launches,
+                 "max_abs_err": mega_mask_err, "ms": k_ms, "event_ms": ev_ms,
+                 "plain_ms": mp["plain"], "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None,
+                 "shape": f"demo scene 640x480/8spp/d4, "
+                          f"{int(timed_masks['K1', 0.5].sum())} of "
+                          f"{n_int_tiles} tiles on",
+                 "plain_shape": "the same", "frame_ms": frame,
+                 "share_ms": {f"{s:.0%}": k1_share[s][0] for s in shares}}
+
+    n_bench_tiles = cluster_tile_map(BENCH["width"], BENCH["height"],
+                                     device="cpu")[1]
+    k2_share = {}
+    for share in shares:
+        m = share_mask(n_bench_tiles, share)
+        md = torch.from_numpy(m).to(dev)
+        timed_masks["K2", share] = m
+        kw = dict(prebuilt=tab_a, pre_ordered=True, tile_mask=md, **BENCH)
+        n_on = int(k2_on(m, BENCH["width"], BENCH["height"]).sum())
+        k2_share[share] = mesh_timing(
+            f"K2 tile mask {int(m.sum())} of {n_bench_tiles} blocks on "
+            f"(~{share:.0%}) 10k spheres 1080p/4spp/d4",
+            lambda i: render_cluster(None, cam_a, 1900 + i, **kw),
+            lambda: render_cluster(None, cam_a, 0, with_stats=True, **kw)[1],
+            n_on, BENCH["spp"], "cluster_kernel", k2_ops(tab_a),
+            table_bytes(tab_a) + 16 * 4 + n_bench_tiles * 4
+            + (n_bench - n_on) * 12, phase=31)
+    # the plain version at 256x128 only: its sweep is O(N) per ray
+    kw = dict(prebuilt=tab_9, pre_ordered=True, tile_mask=mask8,
+              **PLAIN_SHAPE)
+    mp = in_turns({
+        "kernel": lambda i: render_cluster(None, cam9, 2000 + i, **kw),
+        "plain": lambda i: render_cluster_reference(None, cam9, 2000 + i,
+                                                    **kw)}, 3)
+    print(f"[31 timing] K2 tile mask {int(mask8.sum())} of 8 blocks 10k "
+          f"spheres 256x128/4spp/d4 (the plain version's shape): kernel "
+          f"{mp['kernel']:.4f} ms, plain {mp['plain']:.4f} ms (median of 2x3 "
+          f"chained frames each, in turns)")
+    k_ms, ev_ms, frame, b_ms, b_by = k2_share[0.5]
+    cluster_mask = {"name": "cluster-tile-mask", "route": "cuda",
+                    "source": "tpu_rt_torch/csrc/cluster.cu",
+                    "replaces": "tpu_rt/ops/pallas_cluster.py:1565",
+                    "launches": cluster_mask_launches,
+                    "max_abs_err": cluster_mask_err, "ms": k_ms,
+                    "event_ms": ev_ms, "plain_ms": mp["plain"],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "shape": f"10k spheres 1080p/4spp/d4, "
+                             f"{int(timed_masks['K2', 0.5].sum())} of "
+                             f"{n_bench_tiles} blocks on",
+                    "frame_ms": frame,
+                    "plain_shape": f"10k spheres 256x128/4spp/d4, "
+                                   f"{int(mask8.sum())} of 8 blocks on",
+                    "frame_ms_at_plain_shape": mp["kernel"],
+                    "share_ms": {f"{s:.0%}": k2_share[s][0] for s in shares}}
+
     mega["name"] = "megakernel-spheres"
-    print(f"[28 done] all phases passed in {time.perf_counter() - t_start:.1f}"
+    print(f"[32 done] all phases passed in {time.perf_counter() - t_start:.1f}"
           " s")
     print(json.dumps({"kernels": [mega, mega_tri, cluster, cluster_tri,
                                   mega_flags, cluster_flags, mega_nee,
-                                  cluster_nee]}))
+                                  cluster_nee, mega_mask, cluster_mask]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -268,7 +268,7 @@ def test_wrapper_on_cpu_is_the_plain_version(scene200):
 
 
 def test_select_engine_routes_past_64_spheres():
-    assert frame.select_engine(sphere_scene(64)) == "megakernel"
+    assert frame.select_engine(sphere_scene(64)) == "pallas"
     assert frame.select_engine(sphere_scene(65)) == "cluster"
     demo = tpu_rt_torch.demo_scene(device=CPU)
     assert frame.select_engine(demo, engine="cluster") == "cluster"
@@ -290,36 +290,56 @@ def test_render_routes_to_cluster_engine():
 MASK = torch.ones(1, dtype=torch.int32)
 CLUSTER_FLAGS = {
     # refraction, DOF, stratify, NEE and linear output render
-    # (tests/test_torch_flags_cluster.py, test_torch_nee.py); with the tile
-    # mask or bands, which are not ported yet, they raise
-    "refraction": (dict(enable_refraction=True, tile_mask=MASK),
-                   "K2-tile-mask"),
-    "dof": (dict(enable_dof=True, tile_mask=MASK), "K2-tile-mask"),
-    "linear": (dict(gamma=False, rows=32), "K2-rows"),
-    # a mesh renders (tests/test_torch_cluster_tri.py); with a flag that is
-    # not ported yet it raises
+    # (tests/test_torch_flags_cluster.py, test_torch_nee.py), and so do they
+    # under a tile mask or in bands: an all-ones mask renders what no mask
+    # does, and a band of 32 rows is those rows of the full frame
+    "refraction": (dict(enable_refraction=True, tile_mask=MASK), "mask"),
+    "dof": (dict(enable_dof=True, tile_mask=MASK), "mask"),
+    "linear": (dict(gamma=False, rows=32), "band"),
+    # a mesh renders (tests/test_torch_cluster_tri.py), masked too
     "mesh": (dict(mesh=quad((-1, 0, -2), (1, 0, -2), (1, 1, -2), (-1, 1, -2),
-                            device=CPU), tile_mask=MASK), "K2-tile-mask"),
-    "nee": (dict(nee=True, tile_mask=MASK), "K2-tile-mask"),
-    "stratify": (dict(stratify=True, nee=True, rows=32), "K2-rows"),
-    "tile_mask": (dict(tile_mask=torch.ones(1, dtype=torch.int32)),
-                  "K2-tile-mask"),
-    "rows": (dict(rows=32), "K2-rows"),
-    "row_offset": (dict(row_offset=32), "K2-rows"),
+                            device=CPU), tile_mask=MASK), "mask"),
+    "nee": (dict(nee=True, tile_mask=MASK), "mask"),
+    "stratify": (dict(stratify=True, nee=True, rows=32), "band"),
+    "tile_mask": (dict(tile_mask=torch.ones(1, dtype=torch.int32)), "mask"),
+    "rows": (dict(rows=32), "band"),
+    # a band past the frame's last row
+    "row_offset": (dict(row_offset=32), ValueError),
 }
 
 
 @pytest.mark.parametrize("name", list(CLUSTER_FLAGS))
 def test_unported_flags_raise(name):
-    kw, item = CLUSTER_FLAGS[name]
+    """The tile mask and bands raised until they were ported; now an
+    all-ones mask equals the unmasked render (through render_cluster and
+    render), the bands [0, 32) and [32, 64) equal those rows of the full
+    frame with their segment counts adding up, and a band outside the
+    frame raises ValueError."""
+    kw, holds = CLUSTER_FLAGS[name]
     scene = sphere_scene(70)
     cam = tpu_rt_torch.make_camera(device=CPU)
-    args = dict(width=16, height=8, spp=1, max_depth=1)
-    with pytest.raises(NotImplementedError, match=item):
-        cluster.render_cluster(scene, cam, 0, **args, **kw)
-    if "rows" not in kw and "row_offset" not in kw:  # render() has none
-        with pytest.raises(NotImplementedError, match=item):
-            frame.render(scene, cam, 0, **args, **kw)
+    args = dict(width=16, height=8, spp=1, max_depth=1, with_stats=True)
+    if holds == "mask":
+        unmasked = {k: v for k, v in kw.items() if k != "tile_mask"}
+        for fn in (cluster.render_cluster, frame.render):
+            a, sa = fn(scene, cam, 0, **args, **kw)
+            b, sb = fn(scene, cam, 0, **args, **unmasked)
+            assert torch.equal(a, b) and int(sa) == int(sb) > 0
+    elif holds == "band":
+        # whole screen blocks: the segment totals need no scaling
+        args.update(width=128, height=64)
+        full, s_full = cluster.render_cluster(
+            scene, cam, 0, **args, **{k: v for k, v in kw.items()
+                                      if k != "rows"})
+        top, s_top = cluster.render_cluster(scene, cam, 0, **args, **kw)
+        low, s_low = cluster.render_cluster(scene, cam, 0, row_offset=32,
+                                            **args, **kw)
+        assert top.shape == low.shape == (32, 128, 3)
+        assert torch.equal(torch.cat([top, low]), full)
+        assert int(s_top) + int(s_low) == int(s_full)
+    else:
+        with pytest.raises(holds, match="band"):
+            cluster.render_cluster(scene, cam, 0, **args, **kw)
 
 
 def api_scene(n):

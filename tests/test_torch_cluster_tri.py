@@ -230,7 +230,7 @@ def test_render_routes_a_large_mesh_to_the_cluster_engine():
         n_tri_active=frame.quantize_count(288, 512), **kw)
     assert torch.equal(a, b)
     with pytest.raises(ValueError, match="tri_prebuilt"):
-        frame.render(ts, tcam, 5, engine="megakernel",
+        frame.render(ts, tcam, 5, engine="pallas",
                      tri_prebuilt=cluster.build_tri_clusters(tm), **kw)
 
 

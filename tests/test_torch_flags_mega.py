@@ -141,7 +141,7 @@ def test_raytracer_with_all_flags_end_to_end():
     for _ in range(2):
         batch = rt.render_device(w, h, spp, 4)
         acc, total = frame.accumulate(acc, total, batch, spp)
-    assert rt._last_engine == "megakernel"
+    assert rt._last_engine == "pallas"
     assert mk.render_megakernel.launches == before  # CPU: the plain version
 
     cam = rt.camera.to_params(CPU)

@@ -1,7 +1,7 @@
 """tpu_rt_torch on an NVIDIA GPU: the CUDA megakernel and cluster kernel
 against their plain PyTorch versions, with and without triangle meshes and
-with refraction, thin-lens DOF, R2 stratification, next-event estimation
-and linear output, their RMSE of means against the JAX package's N=4096
+with refraction, thin-lens DOF, R2 stratification, next-event estimation,
+linear output, adaptive tile masks and bands of rows, their RMSE of means against the JAX package's N=4096
 goldens, and the display at 4K UHD.
 
 Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is
@@ -25,6 +25,7 @@ from tpu_rt_torch.ops.megakernel import (
     render_megakernel, render_megakernel_reference)
 from tpu_rt_torch.ops.triangle import box, merge_meshes
 from tpu_rt_torch.render.display import display_stack
+from tpu_rt_torch.render.frame import cluster_tile_map
 
 pytestmark = pytest.mark.cuda
 
@@ -382,6 +383,93 @@ def test_cluster_kernel_nee_matches_plain(dev, flags, mesh):
     assert render_cluster.launches == before + 1
     assert torch.equal(a, b), int((a != b).sum())
     assert int(seg_a) == int(seg_b)
+
+
+ADAPTIVE_SETS = {
+    "no_flags": {},
+    "all_flags": dict(enable_refraction=True, enable_dof=True, stratify=True),
+    "nee_all_flags": dict(nee=True, enable_refraction=True, enable_dof=True,
+                          stratify=True),
+}
+# 256x128: 8 megakernel tiles, or 2 x 4 cluster screen blocks
+ADAPTIVE = dict(width=256, height=128, spp=2, max_depth=4, with_stats=True)
+HALF = np.array([1, 0, 0, 1, 1, 0, 1, 0], np.int32)
+
+
+def kernel_and_plain(kernel, plain, *args, **kw):
+    """Both versions on the same inputs: bit for bit, segments included;
+    returns the kernel's (image, segments)."""
+    a, seg_a = kernel(*args, **kw)
+    b, seg_b = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b), int((a != b).sum())
+    assert int(seg_a) == int(seg_b)
+    return a, seg_a
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["demo", "cornell_bulb"])
+@pytest.mark.parametrize("flags", list(ADAPTIVE_SETS))
+def test_megakernel_masks_and_bands_match_plain(dev, flags, mesh):
+    """K1 under a tile mask, in a band whose last tile is ragged, and in a
+    masked band, in every instantiation: bit for bit against the plain
+    version; the masked kernel's active tiles equal the unmasked kernel's
+    and its skipped tiles are zeros."""
+    if mesh:
+        spheres, m = cornell_bulb(dev)
+        kw, pose = dict(mesh=m, n_active=4, n_tri_active=12), CORNELL_POSE
+    else:
+        spheres, kw, pose = tpu_rt_torch.demo_scene(device=dev), dict(
+            n_active=N_ACTIVE), {}
+    cam = tpu_rt_torch.make_camera(aspect=2.0, aperture=0.1, device=dev,
+                                   **pose)
+    kw.update(ADAPTIVE, **ADAPTIVE_SETS[flags])
+    args = (spheres, cam, 2**31 - 2)
+    pair = (render_megakernel, render_megakernel_reference)
+    before = render_megakernel.launches
+    full, _ = render_megakernel(*args, **kw)
+    masked, _ = kernel_and_plain(*pair, *args, tile_mask=HALF, **kw)
+    on = torch.from_numpy(np.repeat(HALF != 0, 4096)).to(dev).reshape(128,
+                                                                      256)
+    assert torch.equal(masked[on], full[on]) and not masked[~on].any()
+    # 40 rows from row 88: 10240 pixels, the third tile ragged
+    kernel_and_plain(*pair, *args, rows=40, row_offset=88, **kw)
+    kernel_and_plain(*pair, *args, rows=40, row_offset=88,
+                     tile_mask=torch.tensor([1, 0, 1], dtype=torch.int32),
+                     **kw)
+    assert render_megakernel.launches == before + 4
+
+
+@pytest.mark.parametrize("mesh", [False, True],
+                         ids=["glass_field", "cornell_bulb"])
+@pytest.mark.parametrize("flags", list(ADAPTIVE_SETS))
+def test_cluster_kernel_masks_and_bands_match_plain(dev, flags, mesh):
+    """K2 under a mask of its screen blocks and in bands of 32 rows, in
+    every instantiation: bit for bit against the plain version; the
+    masked kernel's active blocks equal the unmasked kernel's, and the
+    kernel's bands stitched together equal its full frame."""
+    if mesh:
+        spheres, m = cornell_bulb(dev)
+        kw, pose = dict(mesh=m), CORNELL_POSE
+    else:
+        spheres = glass_field(2000, 2, 15.0, dev)
+        kw = dict(n_active=2000)
+        pose = dict(position=(0, 3, 14), target=(0, 0, -6))
+    cam = tpu_rt_torch.make_camera(aspect=2.0, aperture=0.2, device=dev,
+                                   **pose)
+    kw.update(ADAPTIVE, **ADAPTIVE_SETS[flags])
+    args = (spheres, cam, 2**31 - 2)
+    pair = (render_cluster, render_cluster_reference)
+    full, seg_full = render_cluster(*args, **kw)
+    masked, _ = kernel_and_plain(*pair, *args, tile_mask=HALF, **kw)
+    tmap, _ = cluster_tile_map(256, 128, device=dev)
+    on = torch.from_numpy(HALF).to(dev)[tmap.long()] != 0
+    assert torch.equal(masked[on], full[on]) and not masked[~on].any()
+    bands = [kernel_and_plain(*pair, *args, rows=32, row_offset=o, **kw)
+             for o in (0, 32, 64, 96)]
+    assert torch.equal(torch.cat([b for b, _ in bands]), full)
+    assert sum(int(s) for _, s in bands) == int(seg_full)
+    kernel_and_plain(*pair, *args, rows=64, row_offset=32,
+                     tile_mask=HALF[:4], **kw)
 
 
 def test_display_stack_at_4k_uhd(dev):

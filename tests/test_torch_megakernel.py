@@ -113,11 +113,17 @@ def test_wrapper_on_cpu_is_the_plain_version():
 
 
 @pytest.mark.parametrize("kw, exc", [
-    (dict(rows=16), NotImplementedError),
-    (dict(row_offset=8), NotImplementedError),
+    # bands that leave the frame's 16 rows (bands raised until they were
+    # ported; tests/test_torch_adaptive.py renders them)
+    (dict(rows=17), ValueError),
+    (dict(row_offset=8), ValueError),
     (dict(n_active=17), ValueError),
     (dict(spp=0), ValueError),
-])
+    (dict(rows=0), ValueError),
+    (dict(rows=8, row_offset=-1), ValueError),
+    (dict(tile_mask=np.ones(2, np.int32)), ValueError),  # the frame has 1
+], ids=["rows_past_frame", "offset_past_frame", "n_active", "spp",
+        "rows_0", "offset_negative", "mask_length"])
 def test_wrapper_rejects(kw, exc):
     scene = tpu_rt_torch.demo_scene(device=CPU)
     cam = tpu_rt_torch.make_camera(device=CPU)

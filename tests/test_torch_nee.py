@@ -253,7 +253,7 @@ def test_render_routes_nee_and_linear_output():
                      **kw)
     assert torch.equal(b, cluster.render_cluster_reference(
         ts, tcam, 5, n_active=8, nee=True, gamma=False, **kw))
-    c = frame.render(ts, tcam, 5, gamma=False, engine="megakernel", **kw)
+    c = frame.render(ts, tcam, 5, gamma=False, engine="pallas", **kw)
     assert torch.equal(c, mk.render_megakernel_reference(
         ts, tcam, 5, n_active=8, gamma=False, **kw))
     with pytest.raises(NotImplementedError, match="lax integrator"):

@@ -41,7 +41,7 @@ def test_main_path_matches_jax_chain():
         acc, total = frame.accumulate(acc, total, batch, SPP)
     stack = display.display_stack(acc, app_run.EXPOSURE, as_uint8=True)
     assert render_megakernel.launches == before  # CPU: the plain version
-    assert rt._last_engine == "megakernel"
+    assert rt._last_engine == "pallas"
     assert total == BATCHES * SPP
     assert stack.shape == (2, H, W, 3) and stack.dtype == torch.uint8
 
@@ -113,8 +113,8 @@ UNSUPPORTED = {
     "linear": dict(gamma=False),
     # a mesh, refraction, DOF, stratify and NEE render
     # (tests/test_torch_triangle.py, test_torch_flags_mega.py,
-    # test_torch_nee.py); with the tile mask, which is not ported yet, they
-    # raise
+    # test_torch_nee.py), and so do they under a tile mask: an all-ones
+    # mask renders what no mask does
     "mesh": dict(mesh=quad((-1, 0, -2), (1, 0, -2), (1, 1, -2), (-1, 1, -2),
                            device=CPU), tile_mask=MASK),
     "refraction": dict(enable_refraction=True, tile_mask=MASK),
@@ -125,7 +125,7 @@ UNSUPPORTED = {
     "aperture": dict(nee=True, tile_mask=MASK),
     "engine_lax": dict(engine="lax"),
     # the cluster engine, asked for or past 64 spheres, renders (see
-    # tests/test_torch_cluster.py); the flags it does not carry yet raise
+    # tests/test_torch_cluster.py), under a mask of its screen blocks too
     "engine_cluster": dict(engine="cluster", nee=True, tile_mask=MASK),
     "over_64_spheres": dict(gamma=False),
 }
@@ -133,6 +133,10 @@ UNSUPPORTED = {
 
 @pytest.mark.parametrize("name", list(UNSUPPORTED))
 def test_render_raises_for_configurations_not_ported(name):
+    """The configurations the port does not carry raise, naming their
+    ROADMAP.md item. The tile-mask cases raised until the mask was ported;
+    now each renders, and with an all-ones mask equals the unmasked
+    render."""
     kw = UNSUPPORTED[name]
     n = 65 if name == "over_64_spheres" else 9
     scene = tpu_rt_torch.make_scene(
@@ -140,17 +144,25 @@ def test_render_raises_for_configurations_not_ported(name):
         np.zeros(n), np.zeros((n, 3)), device=CPU)
     cam = tpu_rt_torch.make_camera(
         aperture=0.1 if name == "aperture" else 0.0, device=CPU)
+    args = dict(width=16, height=8, spp=1, max_depth=1)
+    if "tile_mask" in kw:
+        unmasked = {k: v for k, v in kw.items() if k != "tile_mask"}
+        a, sa = frame.render(scene, cam, 0, with_stats=True, **args, **kw)
+        b, sb = frame.render(scene, cam, 0, with_stats=True, **args,
+                             **unmasked)
+        assert torch.equal(a, b) and int(sa) == int(sb) > 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        frame.render(scene, cam, 0, width=16, height=8, spp=1, max_depth=1,
-                     **kw)
+        frame.render(scene, cam, 0, **args, **kw)
 
 
 def test_select_engine():
     scene = tpu_rt_torch.demo_scene(device=CPU)
-    assert frame.select_engine(scene) == "megakernel"
-    assert frame.select_engine(scene, engine="megakernel") == "megakernel"
-    with pytest.raises(ValueError):
-        frame.select_engine(scene, engine="warp")
+    assert frame.select_engine(scene) == "pallas"
+    assert frame.select_engine(scene, engine="pallas") == "pallas"
+    for name in ("warp", "megakernel"):  # names the JAX package lacks
+        with pytest.raises(ValueError):
+            frame.select_engine(scene, engine=name)
 
 
 @pytest.mark.parametrize("n, cap", [(0, 16), (9, 16), (16, 16), (70, 128),

@@ -265,7 +265,7 @@ def test_select_engine_routes_meshes_as_jax():
     cs, cm = scenes.cornell_box(device=CPU)
     ts, tm = scenes.terrain_mesh(n=24, seed=1, device=CPU)  # 1058 triangles
     assert cm.capacity == 128 and tm.capacity == 2048
-    assert frame.select_engine(cs, mesh=cm) == "megakernel"
+    assert frame.select_engine(cs, mesh=cm) == "pallas"
     assert frame.select_engine(ts, mesh=tm) == "cluster"
     assert frame.select_engine(cs, mesh=cm, engine="cluster") == "cluster"
     big = tri.make_mesh(RNG_VERTS, RNG_FACES, capacity=512, device=CPU)
@@ -324,7 +324,7 @@ def test_raytracer_set_mesh_cornell_end_to_end():
     for _ in range(2):
         batch = rt.render_device(w, h, spp, 3)
         acc, total = frame.accumulate(acc, total, batch, spp)
-    assert rt._last_engine == "megakernel"
+    assert rt._last_engine == "pallas"
     stack = display.display_stack(acc, 1.5, as_uint8=True)
     assert stack.shape == (2, h, w, 3) and int(stack.max()) > 0
 

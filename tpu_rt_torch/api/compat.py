@@ -256,6 +256,8 @@ class RayTracer:
         # set at set_scene time on the host, so a render pulls nothing back
         self._n_active: int | None = None
         self._last_engine: str | None = None
+        # whether the last batch rendered with its tile mask (megakernel)
+        self._last_adaptive: bool = False
         # cluster engine tables: built per snapshot, ordered per position
         self._clustered: _C.ClusteredScene | None = None
         self._ordered: _C.ClusteredScene | None = None
@@ -368,15 +370,26 @@ class RayTracer:
         return img.cpu().numpy().reshape(-1)
 
     def render_device(self, width: int, height: int, samples_per_pixel: int,
-                      max_depth: int):
+                      max_depth: int, tile_mask=None):
         """One progressive batch as an (h, w, 3) tensor on the tracer's
-        device, or None for a scene without spheres (mesh or not)."""
+        device, or None for a scene without spheres (mesh or not).
+
+        ``tile_mask`` (adaptive sampling, megakernel engine only): int32
+        (n_tiles,) over the 4096-pixel tiles; a tile with 0 is skipped and
+        returns zeros; merge with ``render/frame.py:accumulate_tiled``. As
+        in the JAX package, a batch that resolves to the cluster engine
+        drops the mask and renders every tile, and ``_last_adaptive`` says
+        whether the mask was applied."""
         self.camera.aspect_ratio = width / height
         if self._scene_arrays is None or not self._scene_snapshot.spheres:
             return None
         seed = batch_seed(self._seed_base, self._frame)
         self._frame += 1
         self._last_engine = self._engine()
+        self._last_adaptive = (tile_mask is not None
+                               and self._last_engine == "pallas")
+        if not self._last_adaptive:
+            tile_mask = None
         cam = self.camera.to_params(self.device)
         kw = {}
         if self._last_engine == "cluster":
@@ -398,4 +411,5 @@ class RayTracer:
             n_tri_active=self._n_tri_active,
             enable_refraction=self._enable_refraction,
             stratify=self._stratify, nee=self._nee, lights=self._lights,
-            enable_dof=float(self.camera.aperture) > 0.0, **kw)
+            enable_dof=float(self.camera.aperture) > 0.0,
+            tile_mask=tile_mask, **kw)

@@ -69,7 +69,22 @@
 //     light, and stops at its first hit (ClusterNee below). Only lanes
 //     whose light is in front of the surface walk;
 //   * ``gamma`` = 0 stores the linear mean instead of sqrt gamma and clamp;
-//   * segment counts: one integer atomic per block into its tile's slot.
+//   * segment counts: one integer atomic per block into its tile's slot;
+//   * a band of rows (pallas_cluster.py:627-659, 1726-1729, 1850-1860):
+//     rows and its first row row0 are multiples of 32; the grid covers the
+//     band's screen blocks, pixel rows start at row0, and every stream is
+//     keyed by the frame's tile (row0 / 32) * blocks_x + tile, so stitched
+//     bands equal the full frame stream for stream. The launch folds the
+//     band's first tile into the seed (seed + tile0 * spp, uint32 wrap as
+//     the int32 sum), so the kernel keeps the band's own tile, which is
+//     also the segment slot and the mask index, and no more values live
+//     across the path loop than without bands;
+//   * the adaptive tile mask (pallas_cluster.py:1565-1580, 1808-1812): a
+//     screen block spans 16 CUDA blocks, so the test is uniform per block.
+//     A block whose screen block is masked writes zeros to its in-frame
+//     pixels and returns at the top, before the shared-memory loads and
+//     their barrier (the caller zeroed its segment slot). It is one
+//     branch, not a template instantiation.
 //
 // Not done here, and left to later work: warp-cooperative traversal (one
 // box or sphere per lane), and staging cluster blocks into shared memory
@@ -257,6 +272,25 @@ struct ClusterNee {
   }
 };
 
+struct Pixel {
+  int x, y;
+};
+
+// thread -> (tile, sub, lane): block b of a tile covers rows
+// (b / 8) * 16 + [0, 16) and lanes (b % 8) * 16 + [0, 16); warp w of the
+// block rows (w / 2) * 4 + [0, 4) and lanes (w % 2) * 8 + [0, 8). Returns
+// the frame pixel (column, row) of the thread, in a band from row0.
+__device__ __forceinline__ Pixel pixel_of(int blocks_x, int row0) {
+  const int tile = blockIdx.x / 16;
+  const int patch = blockIdx.x % 16;
+  const int warp = threadIdx.x >> 5;
+  const int i = threadIdx.x & 31;
+  const int sub = (patch / 8) * 16 + (warp / 2) * 4 + i / 8;
+  const int lane = (patch % 8) * 16 + (warp % 2) * 8 + i % 8;
+  return Pixel{(tile % blocks_x) * kLanes + lane,
+               row0 + (tile / blocks_x) * kSublanes + sub};
+}
+
 template <bool kTris, bool kFlags, bool kNee>
 __global__ void __launch_bounds__(kBlock)
 cluster_kernel(const int* __restrict__ glob_g, int n_global,
@@ -269,11 +303,22 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
                const int* __restrict__ tattr, int tri_C,
                const float* __restrict__ cam_g, const float* __restrict__ bg_g,
                const float* __restrict__ lights_g, int n_lights_max,
-               uint32_t seed, int width, int height, int blocks_x,
+               uint32_t seed, int row0, int width, int row_end, int blocks_x,
                float inv_w, float inv_h, int spp, float inv_spp,
                int max_depth, int jitter, int refract, int dof,
-               int stratify, int gamma, float* __restrict__ out,
-               int* __restrict__ segs) {
+               int stratify, int gamma, const int* __restrict__ mask,
+               float* __restrict__ out, int* __restrict__ segs) {
+  if (mask != nullptr && mask[blockIdx.x / 16] == 0) {  // skipped: zeros
+    const Pixel px = pixel_of(blocks_x, row0);
+    if (px.x < width && px.y < row_end) {
+      float* o = out + ((size_t)(px.y - row0) * width + px.x) * 3;
+      o[0] = 0.f;
+      o[1] = 0.f;
+      o[2] = 0.f;
+    }
+    return;
+  }
+
   __shared__ int glob[kMaxGlobal * kCols];
   __shared__ int tglob[kTris ? kMaxGlobal * kCols : 1];
   __shared__ float lights[kNee ? kMaxLights * kLightCols + 1 : 1];
@@ -295,23 +340,20 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
   if (threadIdx.x < 3) bg[threadIdx.x] = bg_g[threadIdx.x];
   __syncthreads();
 
-  // thread -> (tile, sub, lane): block b of a tile covers rows
-  // (b / 8) * 16 + [0, 16) and lanes (b % 8) * 16 + [0, 16); warp w of the
-  // block rows (w / 2) * 4 + [0, 4) and lanes (w % 2) * 8 + [0, 8)
-  const int tile = blockIdx.x / 16;
-  const int patch = blockIdx.x % 16;
-  const int warp = threadIdx.x >> 5;
-  const int i = threadIdx.x & 31;
-  const int sub = (patch / 8) * 16 + (warp / 2) * 4 + i / 8;
-  const int lane = (patch % 8) * 16 + (warp % 2) * 8 + i % 8;
-  const int pxi = (tile % blocks_x) * kLanes + lane;
-  const int pyi = (tile / blocks_x) * kSublanes + sub;
+  // the pixel is derived again here, after the loads, rather than kept
+  // from the mask test: so the path loop's registers are those it had
+  // before the mask (ptxas, chip_smoke [2])
+  const int tile = blockIdx.x / 16;  // the band's own screen block
+  const Pixel pix = pixel_of(blocks_x, row0);
+  const int pxi = pix.x;
+  const int pyi = pix.y;
   const uint32_t flat = (uint32_t)pyi * (uint32_t)width + (uint32_t)pxi;
   const float px = (float)pxi;
   const float py = (float)pyi;
 
   const Camera c = load_camera(cam);
   // the R2 shift's stream: seed + tile * spp, without the sample term
+  // (seed holds the band's first tile)
   const Sampling sm = make_sampling<kFlags>(
       jitter, stratify, dof, flat, seed + (uint32_t)tile * (uint32_t)spp);
   const bool refr = kFlags && refract;
@@ -402,8 +444,8 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
     acc_b += p.cb;
   }
 
-  if (pxi < width && pyi < height) {
-    float* o = out + ((size_t)pyi * width + pxi) * 3;
+  if (pxi < width && pyi < row_end) {
+    float* o = out + ((size_t)(pyi - row0) * width + pxi) * 3;
     if (gamma) {
       o[0] = fminf(fmaxf(sqrtf(fmaxf(acc_r * inv_spp, 0.f)), 0.f), 1.f);
       o[1] = fminf(fmaxf(sqrtf(fmaxf(acc_g * inv_spp, 0.f)), 0.f), 1.f);
@@ -429,11 +471,14 @@ extern "C" {
 // have the same layout (n_tri_ss 0 and null pointers: no mesh); `cam` (16,)
 // and `bg` (3,) f32, all on the device; with `nee`, `lights` is the
 // (8 n_lights_max + 1,) f32 light table (ops/cluster.py:light_table).
-// `out` is (height, width, 3) f32; `segs` (n_tiles,) int32, zeroed by the
-// caller, with n_tiles = ceil(width/128) * ceil(height/32). `refract`,
-// `dof`, `stratify` and `nee` switch the optional flags on; `gamma` 0
-// stores the linear mean. Allocates nothing and does not synchronise.
-// Returns cudaGetLastError() of the launch.
+// A band of `rows` rows from frame row `row0` (both multiples of 32 unless
+// the band is the whole frame) of the frame of `height` rows: `out` is
+// (rows, width, 3) f32; `segs` (n_tiles,) int32, zeroed by the caller,
+// with n_tiles = ceil(width/128) * ceil(rows/32); `mask` null or
+// (n_tiles,) int32 on the device, a screen block with 0 writing zeros and
+// counting no segment. `refract`, `dof`, `stratify` and `nee` switch the
+// optional flags on; `gamma` 0 stores the linear mean. Allocates nothing
+// and does not synchronise. Returns cudaGetLastError() of the launch.
 int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
                          int n_ss, const float* super_boxes, const int* attr,
                          int cluster_size, const int* tglob, int n_tri_global,
@@ -441,10 +486,11 @@ int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
                          const float* tsuper_boxes, const int* tattr,
                          int tri_cluster_size, const float* cam,
                          const float* bg, const float* lights,
-                         int n_lights_max, int seed, int width, int height,
-                         int spp, int max_depth, int jitter, int refract,
-                         int dof, int stratify, int nee, int gamma,
-                         float* out, int* segs, void* stream) {
+                         int n_lights_max, int seed, int row0, int rows,
+                         int width, int height, int spp, int max_depth,
+                         int jitter, int refract, int dof, int stratify,
+                         int nee, int gamma, const int* mask, float* out,
+                         int* segs, void* stream) {
   if (n_global < 0 || n_global > kMaxGlobal || n_ss < 1 ||
       cluster_size < 8 || cluster_size % 8 != 0 || n_tri_ss < 0 ||
       (n_tri_ss > 0 &&
@@ -454,14 +500,20 @@ int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
         tattr == nullptr || (n_tri_global > 0 && tglob == nullptr))) ||
       (nee && (lights == nullptr || n_lights_max < 0 ||
                n_lights_max > kMaxLights)) ||
-      width < 1 || height < 1 || spp < 1 || max_depth < 1)
+      width < 1 || height < 1 || spp < 1 || max_depth < 1 || rows < 1 ||
+      row0 < 0 || row0 % kSublanes != 0 || row0 + rows > height ||
+      (rows != height && rows % kSublanes != 0))
     return (int)cudaErrorInvalidValue;
   const int blocks_x = (width + kLanes - 1) / kLanes;
-  const int blocks_y = (height + kSublanes - 1) / kSublanes;
+  const int blocks_y = (rows + kSublanes - 1) / kSublanes;
   const float inv_w = (float)(1.0 / (double)width);
   const float inv_h = (float)(1.0 / (double)height);
   const float inv_spp = (float)(1.0 / (double)spp);
   const int blocks = blocks_x * blocks_y * (kTile / kBlock);
+  // the streams' seed with the band's first tile folded in
+  const uint32_t seed_band =
+      (uint32_t)seed +
+      (uint32_t)((row0 / kSublanes) * blocks_x) * (uint32_t)spp;
   const bool flags = refract || dof || stratify;
   auto kernel =
       nee ? (n_tri_ss > 0 ? cluster_kernel<true, true, true>
@@ -473,9 +525,9 @@ int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
   kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
       glob, n_global, ss_boxes, n_ss, super_boxes, attr, cluster_size, tglob,
       n_tri_global, tss_boxes, n_tri_ss, tsuper_boxes, tattr,
-      tri_cluster_size, cam, bg, lights, n_lights_max, (uint32_t)seed, width,
-      height, blocks_x, inv_w, inv_h, spp, inv_spp, max_depth, jitter,
-      refract, dof, stratify, gamma, out, segs);
+      tri_cluster_size, cam, bg, lights, n_lights_max, seed_band, row0,
+      width, row0 + rows, blocks_x, inv_w, inv_h, spp, inv_spp, max_depth,
+      jitter, refract, dof, stratify, gamma, mask, out, segs);
   return (int)cudaGetLastError();
 }
 

@@ -52,7 +52,17 @@
 //   * no global state (no __constant__ symbol): a launch writes only its own
 //     output and counts, so renders on two streams cannot race;
 //   * segment counts: a block reduction, then one integer atomicAdd per block
-//     into its tile's slot, which is exact and independent of order.
+//     into its tile's slot, which is exact and independent of order;
+//   * a band of rows (pallas_megakernel.py:818, 858-860, 894-896) is the
+//     pixel offset row_offset * width: the hash's pixel id and the camera
+//     coordinates are the full frame's (inv_h from its height), the tile
+//     seed and the output index the band's own;
+//   * the adaptive tile mask (pallas_megakernel.py:768-787, 916-919): a
+//     4096-ray tile spans kTile / kBlock whole blocks, so the test is
+//     uniform per block. A block whose tile is masked writes zeros to its
+//     real pixels and returns at the top, before the shared-memory loads
+//     and the block reduction (the caller zeroed its segment slot). It is
+//     one branch, not a template instantiation.
 //
 // The grid covers n_tiles * 4096 threads, like the TPU grid of 4096-ray
 // tiles: lanes past the last pixel trace and count segments too (so the
@@ -128,7 +138,20 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
            uint32_t seed, uint32_t pixel_offset, int width, float inv_w,
            float inv_h, int spp, float inv_spp, int max_depth, int jitter,
            int refract, int dof, int stratify, int gamma,
-           float* __restrict__ out, int n_pix, int* __restrict__ segs) {
+           const int* __restrict__ mask, float* __restrict__ out, int n_pix,
+           int* __restrict__ segs) {
+  const int gid = blockIdx.x * kBlock + threadIdx.x;
+  const int tile = gid / kTile;
+  if (mask != nullptr && mask[tile] == 0) {  // a skipped tile: zeros
+    if (gid < n_pix) {
+      float* o = out + (size_t)gid * 3;
+      o[0] = 0.f;
+      o[1] = 0.f;
+      o[2] = 0.f;
+    }
+    return;
+  }
+
   __shared__ float attr[kMaxSpheres * kCols];
   __shared__ float tris[kTris ? kMaxTris * kTriCols : 1];
   __shared__ float cam[16];
@@ -144,8 +167,6 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
   if (threadIdx.x < (kNee ? 4 : 3)) bg[threadIdx.x] = bg_g[threadIdx.x];
   __syncthreads();
 
-  const int gid = blockIdx.x * kBlock + threadIdx.x;
-  const int tile = gid / kTile;
   const uint32_t flat = pixel_offset + (uint32_t)gid;
   const float px = (float)(flat % (uint32_t)width);
   const float py = (float)(flat / (uint32_t)width);
@@ -265,18 +286,24 @@ extern "C" {
 // (n_tris, 21) (or null with n_tris 0), `cam` (16,) and `bg` (3,) f32 on the
 // device; with `nee`, attr column 15 holds the light cdf and `bg` (4,) ends
 // with the light count. `refract`, `dof`, `stratify` and `nee` switch the
-// optional flags on; `gamma` 0 stores the linear mean. Allocates nothing
-// and does not synchronise. Returns cudaGetLastError() of the launch.
+// optional flags on; `gamma` 0 stores the linear mean. A band of rows
+// starts at pixel `pixel_offset` (row_offset * width) of the frame of
+// `height` rows and holds n_pix pixels. `mask` is null or (n_tiles,) int32
+// on the device: a tile with 0 writes zeros and counts no segment.
+// Allocates nothing and does not synchronise. Returns cudaGetLastError() of
+// the launch.
 int tpurt_megakernel_launch(const float* attr, int n_spheres,
                             const float* tris, int n_tris, const float* cam,
                             const float* bg, int seed, int pixel_offset,
                             int width, int height, int spp, int max_depth,
                             int jitter, int refract, int dof, int stratify,
-                            int nee, int gamma, int n_tiles, float* out,
-                            int n_pix, int* segs, void* stream) {
+                            int nee, int gamma, int n_tiles, const int* mask,
+                            float* out, int n_pix, int* segs, void* stream) {
   if (n_spheres < 1 || n_spheres > kMaxSpheres || n_tris < 0 ||
       n_tris > kMaxTris || (n_tris > 0 && tris == nullptr) || width < 1 ||
-      height < 1 || spp < 1 || max_depth < 1 || n_tiles < 1)
+      height < 1 || spp < 1 || max_depth < 1 || n_tiles < 1 ||
+      pixel_offset < 0 || n_pix < 1 || n_pix > n_tiles * kTile ||
+      (long long)pixel_offset + n_pix > (long long)width * height)
     return (int)cudaErrorInvalidValue;
   const float inv_w = (float)(1.0 / (double)width);
   const float inv_h = (float)(1.0 / (double)height);
@@ -293,7 +320,7 @@ int tpurt_megakernel_launch(const float* attr, int n_spheres,
   kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
       attr, n_spheres, tris, n_tris, cam, bg, (uint32_t)seed,
       (uint32_t)pixel_offset, width, inv_w, inv_h, spp, inv_spp, max_depth,
-      jitter, refract, dof, stratify, gamma, out, n_pix, segs);
+      jitter, refract, dof, stratify, gamma, mask, out, n_pix, segs);
   return (int)cudaGetLastError();
 }
 

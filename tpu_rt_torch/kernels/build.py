@@ -40,11 +40,11 @@ _I = ctypes.c_int
 # name -> argument types of each exported C function
 SIGNATURES = {
     "tpurt_megakernel_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
-                                _P],
+                                _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                                _P, _P],
     "tpurt_cluster_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P,
                              _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _P, _P, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 

@@ -12,11 +12,12 @@ after the sphere tables with the same running best hit.
 
 The estimator is the JAX kernel's (v2 with the optional dielectric and
 next-event estimation, pixel jitter, centres or the R2 lattice, a pinhole or
-thin-lens camera, sqrt gamma or the linear mean, per-tile segment counts),
-drawn from its interpret-mode counter hash
-in the same order, over the same screen blocks of 32 rows x 128 lanes: the
-stream of pixel (pxi, pyi) is ``flat = pyi * width + pxi`` over the padded
-grid and seed ``seed + tile * spp + s``; the R2 shift's, ``seed + tile *
+thin-lens camera, sqrt gamma or the linear mean, per-tile segment counts,
+bands of rows and a per-block skip mask), drawn from its interpret-mode
+counter hash in the same order, over the same screen blocks of 32 rows x
+128 lanes: the stream of pixel (pxi, pyi) is ``flat = pyi * width + pxi``
+over the padded grid and seed ``seed + tile * spp + s`` with ``tile`` the
+frame's screen block (in a band too); the R2 shift's, ``seed + tile *
 spp``. A winner's ior is the bf16 high half of its (rgh, ior) word. NEE
 picks its lights from :func:`light_table`: the first ``n_lights_max``
 emissive spheres by index, as the JAX package caps them.
@@ -402,12 +403,6 @@ def light_table(scene: SphereScene,
 # render
 # ---------------------------------------------------------------------------
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to tpu_rt_torch's cluster engine yet "
-        f"(ROADMAP.md: {item})")
-
-
 def _checked(cl: ClusteredScene, what: str) -> ClusteredScene:
     """Raise unless ``cl`` has the dtypes, shapes and single device the
     kernel reads; returns it with contiguous tensors."""
@@ -440,21 +435,20 @@ def _prepare(scene, cam, *, width, height, spp, max_depth, cluster_size,
              n_active, mesh, n_tri_active, prebuilt, tri_prebuilt,
              pre_ordered, nee, n_lights_max, lights, tile_mask, rows,
              row_offset, **_):
-    """Validate a call; build and order the sphere tables, and the
-    triangle tables of a mesh, unless given; with ``nee`` the light table,
-    unless given; pack the camera. Returns (sphere tables, triangle tables
-    or None, light table or None, camera (16,), blocks_x, blocks_y)."""
-    for what, val, item in (
-            ("tile_mask adaptive sampling", tile_mask is not None,
-             "K2-tile-mask"),
-            ("rows/row_offset bands", rows is not None or row_offset != 0,
-             "K2-rows")):
-        if val:
-            raise _not_ported(what, item)
+    """Validate a call (a band's rows and first row are multiples of 32);
+    build and order the sphere tables, and the triangle tables of a mesh,
+    unless given; with ``nee`` the light table, unless given; pack the
+    camera; put the tile mask on the tables' device. Returns (sphere
+    tables, triangle tables or None, light table or None, camera (16,),
+    blocks_x, blocks_y, band rows, first row, mask or None)."""
     for name, val in (("width", width), ("height", height), ("spp", spp),
                       ("max_depth", max_depth)):
         if int(val) < 1:
             raise ValueError(f"{name} must be >= 1, got {val}")
+    out_rows, row0 = mk.band(width, height, rows, row_offset)
+    if row0 % SUBLANES or (rows is not None and out_rows % SUBLANES):
+        raise ValueError(f"band rows={rows} and row_offset={row_offset} "
+                         f"must be multiples of {SUBLANES}")
     cl = prebuilt if prebuilt is not None else build_clusters(
         scene, cluster_size=cluster_size, n_active=n_active)
     if not (pre_ordered and prebuilt is not None):
@@ -489,9 +483,11 @@ def _prepare(scene, cam, *, width, height, spp, max_depth, cluster_size,
                 f"{MAX_LIGHTS} on {cl.attr.device}, got {lights.dtype} "
                 f"{tuple(lights.shape)} on {lights.device}")
         lights = lights.contiguous()
+    blocks_x, blocks_y = -(-width // LANES), -(-out_rows // SUBLANES)
     return (cl, tri, lights,
             mk._pack_camera(cam).to(cl.attr.device).contiguous(),
-            -(-width // LANES), -(-height // SUBLANES))
+            blocks_x, blocks_y, out_rows, row0,
+            mk.tile_mask_on(tile_mask, blocks_x * blocks_y, cl.attr.device))
 
 
 def _table_rows(cl: ClusteredScene) -> torch.Tensor:
@@ -582,11 +578,15 @@ def _winner_table(rows: torch.Tensor, cols) -> torch.Tensor:
 def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
                  width, height, spp, max_depth, jitter, blocks_x, blocks_y,
                  refract=False, dof=False, stratify=False, lights=None,
-                 gamma=True):
+                 gamma=True, out_rows=None, row0=0, mask=None):
     """The kernel's computation as whole-tensor PyTorch ops over every
     lane of every screen block; with a light table ``lights``, NEE, whose
-    shadow rays search every row as the nearest-hit search does. Returns
-    ((height, width, 3) f32 image, (n_tiles,) int32 segment counts)."""
+    shadow rays search every row as the nearest-hit search does. A band
+    (``out_rows`` rows from frame row ``row0``) starts its pixel rows at
+    ``row0`` and keys every stream by the frame's tile. Every block is
+    traced; those whose ``mask`` entry is 0 are zeroed afterwards, pixels
+    and segment count. Returns ((out_rows, width, 3) f32 image, (n_tiles,)
+    int32 segment counts)."""
     f32 = torch.float32
     rows = _sweep_rows(cl)
     dev = rows.device
@@ -608,17 +608,20 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
 
     n_tiles = blocks_x * blocks_y
     n = n_tiles * TILE
+    out_rows = height if out_rows is None else out_rows
     gid = torch.arange(n, dtype=torch.int64, device=dev)
     tile = gid // TILE
+    # streams are keyed by the frame's tile, not the band's
+    t_global = (row0 // SUBLANES) * blocks_x + tile
     pxi = (tile % blocks_x) * LANES + gid % LANES
-    pyi = (tile // blocks_x) * SUBLANES + (gid % TILE) // LANES
+    pyi = row0 + (tile // blocks_x) * SUBLANES + (gid % TILE) // LANES
     px, py = pxi.to(f32), pyi.to(f32)
     flat = (pyi * width + pxi) & _M32                 # the stream id
     inv_w, inv_h = mk._f32(1.0 / width), mk._f32(1.0 / height)
     bg = cl.background.to(dev).unbind(0)
     # the R2 shift (stratify shoots pixel centres without jitter): keyed by
-    # seed + tile * spp, shared by every sample
-    shift = (mk.stratify_shift(flat, (tile * spp + int(seed)) & _M32)
+    # seed + t_global * spp, shared by every sample
+    shift = (mk.stratify_shift(flat, (t_global * spp + int(seed)) & _M32)
              if stratify and jitter else None)
     # chunk the sweep to ~2^22 (CPU) or 2^26 (GPU) ray-row pairs
     budget = 1 << (26 if dev.type == "cuda" else 22)
@@ -639,8 +642,8 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
     acc = [torch.zeros(n, dtype=f32, device=dev) for _ in range(3)]
     segs = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
     for s in range(spp):
-        # per-tile, per-sample seed: int32 wrap of seed + tile * spp + s
-        seed_s = (tile * spp + (s + int(seed))) & _M32
+        # per-tile, per-sample seed: int32 wrap of seed + t_global * spp + s
+        seed_s = (t_global * spp + (s + int(seed))) & _M32
         mix = flat ^ mk._mul32(seed_s, mk._C_SEED)
         salt = 0
 
@@ -689,10 +692,14 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
         acc = [acc[0] + cr, acc[1] + cg, acc[2] + cb]
 
     img = mk._output(acc, mk._f32(1.0 / spp), gamma)
+    if mask is not None:
+        on = mask != 0
+        img = torch.where(on[tile, None], img, 0.0)
+        segs = torch.where(on, segs, 0)
     # screen blocks -> image rows and columns
     img = img.view(blocks_y, blocks_x, SUBLANES, LANES, 3).permute(
         0, 2, 1, 3, 4).reshape(blocks_y * SUBLANES, blocks_x * LANES, 3)
-    return img[:height, :width].contiguous(), segs
+    return img[:out_rows, :width].contiguous(), segs
 
 
 def render_cluster_reference(
@@ -729,13 +736,14 @@ def render_cluster_reference(
     Same contract as :func:`render_cluster`."""
     kw = {k: v for k, v in locals().items() if k not in ("scene", "cam",
                                                          "seed")}
-    cl, tri, lights, cam_packed, blocks_x, blocks_y = _prepare(scene, cam,
-                                                               **kw)
+    (cl, tri, lights, cam_packed, blocks_x, blocks_y, out_rows, row0,
+     mask) = _prepare(scene, cam, **kw)
     img, segs = _trace_plain(cl, tri, cam_packed, seed, width, height, spp,
                              max_depth, jitter, blocks_x, blocks_y,
                              bool(enable_refraction), bool(enable_dof),
-                             bool(stratify), lights, bool(gamma))
-    return mk._finish(img, segs, width * height, blocks_x * blocks_y,
+                             bool(stratify), lights, bool(gamma), out_rows,
+                             row0, mask)
+    return mk._finish(img, segs, width * out_rows, blocks_x * blocks_y,
                       with_stats)
 
 
@@ -789,8 +797,16 @@ def render_cluster(
     ``enable_dof``, ``stratify`` and ``nee`` are the megakernel's (see
     ``render_megakernel``); NEE samples the light table ``lights``
     (:func:`light_table` of the scene with ``n_lights_max`` rows, built
-    here when None). Flags the port does not carry yet raise
-    NotImplementedError naming their ROADMAP.md item.
+    here when None).
+
+    ``rows``/``row_offset`` (multiples of 32) render the band of ``rows``
+    image rows from frame row ``row_offset`` as a (rows, width, 3) image;
+    every stream is keyed by the frame's screen block, so bands stitched
+    together equal the full frame. ``tile_mask`` (adaptive sampling): one
+    int per 32x128 screen block of the render, row-major (a tensor on any
+    device, or a numpy array; copied to the tables' device); a block with
+    0 is skipped and returns zeros and no segments, every other block the
+    unmasked render's values.
     """
     kw = {k: v for k, v in locals().items() if k not in ("scene", "cam",
                                                          "seed")}
@@ -800,8 +816,8 @@ def render_cluster(
     if dev.type != "cuda":
         raise ValueError(f"render_cluster runs on cpu or cuda, not {dev}")
 
-    cl, tri, lights, cam_packed, blocks_x, blocks_y = _prepare(scene, cam,
-                                                               **kw)
+    (cl, tri, lights, cam_packed, blocks_x, blocks_y, out_rows, row0,
+     mask) = _prepare(scene, cam, **kw)
     lib = build.load()
     n_tiles = blocks_x * blocks_y
     if tri is None:  # no mesh: no triangle tables (n_tri_ss = 0)
@@ -812,7 +828,8 @@ def render_cluster(
                   tri.super_boxes.data_ptr(), tri.attr.data_ptr(),
                   tri.cluster_size)
     with torch.cuda.device(dev):
-        out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+        out = torch.empty((out_rows, width, 3), dtype=torch.float32,
+                          device=dev)
         segs = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
         err = lib.tpurt_cluster_launch(
             cl.glob_attr.data_ptr(), cl.n_global, cl.ss_boxes.data_ptr(),
@@ -821,16 +838,16 @@ def render_cluster(
             cl.background.data_ptr(),
             0 if lights is None else lights.data_ptr(),
             0 if lights is None else (lights.numel() - 1) // 8,
-            mk._signed32(seed), width, height, spp, max_depth,
-            int(bool(jitter)), int(bool(enable_refraction)),
+            mk._signed32(seed), row0, out_rows, width, height, spp,
+            max_depth, int(bool(jitter)), int(bool(enable_refraction)),
             int(bool(enable_dof)), int(bool(stratify)),
-            int(lights is not None), int(bool(gamma)), out.data_ptr(),
-            segs.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(lights is not None), int(bool(gamma)),
+            0 if mask is None else mask.data_ptr(), out.data_ptr(),
+            segs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cluster kernel launch failed: CUDA error {err}")
     render_cluster.launches += 1
-    return mk._finish(out, segs, width * height, n_tiles, with_stats)
+    return mk._finish(out, segs, width * out_rows, n_tiles, with_stats)
 
 
 render_cluster.launches = 0

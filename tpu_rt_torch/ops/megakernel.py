@@ -15,7 +15,8 @@ diffuse hit to a solid-angle-sampled emissive sphere picked from the light
 cdf of :func:`light_cdf`, and the post-diffuse suppression of sphere
 emission), pixel jitter, pixel centres or the R2 lattice (``stratify``), a
 pinhole or thin-lens camera (``enable_dof``), the spp mean with sqrt gamma
-and clamp or linear (``gamma=False``), and per-tile segment counts.
+and clamp or linear (``gamma=False``), per-tile segment counts, bands of
+rows (``rows``/``row_offset``) and a per-tile skip mask (``tile_mask``).
 
 The kernel (``csrc/megakernel.cu``) and the plain PyTorch version here both
 draw from the JAX kernel's interpret-mode counter hash in the same order,
@@ -142,24 +143,51 @@ def light_cdf(scene: SphereScene) -> torch.Tensor:
     return torch.cat([cdf, n_lights[None]])
 
 
+def band(width, height, rows, row_offset):
+    """Validate a band of ``rows`` image rows from global row
+    ``row_offset`` (None: the whole frame); returns (rows, row_offset)."""
+    out_rows = height if rows is None else int(rows)
+    row_offset = int(row_offset)
+    if out_rows < 1 or row_offset < 0 or row_offset + out_rows > height:
+        raise ValueError(f"band rows={rows}, row_offset={row_offset} does "
+                         f"not lie in the frame's {height} rows")
+    return out_rows, row_offset
+
+
+def tile_mask_on(tile_mask, n_tiles, device):
+    """The per-tile render mask as a contiguous (n_tiles,) int32 tensor on
+    ``device`` (one copy from the host or another device, as the JAX
+    package's), or None without one. Raises unless it has n_tiles
+    elements."""
+    if tile_mask is None:
+        return None
+    mask = torch.as_tensor(tile_mask, dtype=torch.int32, device=device)
+    if mask.numel() != n_tiles:
+        raise ValueError(f"tile_mask has {mask.numel()} elements; this "
+                         f"render has {n_tiles} tiles")
+    return mask.reshape(n_tiles).contiguous()
+
+
 def _prepare(scene: SphereScene, cam: CameraP, n_active, width, height,
-             spp, max_depth, rows, row_offset, nee=False, lights=None):
+             spp, max_depth, rows, row_offset, nee=False, lights=None,
+             tile_mask=None):
     """Validate a call and pack the kernel's inputs on the scene's device:
     with ``nee``, the light cdf (``lights``, else built here) in attribute
-    column 15 and the light count as a 4th background word."""
-    if rows is not None or row_offset != 0:
-        raise NotImplementedError(
-            "rows/row_offset bands are not ported to tpu_rt_torch yet "
-            "(ROADMAP.md: K1-rows)")
+    column 15 and the light count as a 4th background word. Returns
+    (attr, camera, background, band rows, row offset, n_tiles, mask or
+    None)."""
     for name, val in (("width", width), ("height", height), ("spp", spp),
                       ("max_depth", max_depth)):
         if int(val) < 1:
             raise ValueError(f"{name} must be >= 1, got {val}")
+    out_rows, row_offset = band(width, height, rows, row_offset)
     n_spheres = scene.capacity if n_active is None else max(1, int(n_active))
     if n_spheres > min(MAX_SPHERES, scene.capacity):
         raise ValueError(f"n_active={n_spheres} exceeds the scene bucket "
                          f"({scene.capacity}) or the kernel's {MAX_SPHERES}")
     dev = scene.device
+    n_tiles = -(-width * out_rows // TILE)
+    mask = tile_mask_on(tile_mask, n_tiles, dev)
     cdf = None
     bg = scene.background
     if nee:
@@ -176,8 +204,7 @@ def _prepare(scene: SphereScene, cam: CameraP, n_active, width, height,
         torch.float32).contiguous()
     cam_packed = _pack_camera(cam).to(dev).contiguous()
     bg = bg.to(torch.float32).contiguous()
-    n_tiles = -(-width * height // TILE)
-    return attr, cam_packed, bg, n_tiles
+    return attr, cam_packed, bg, out_rows, row_offset, n_tiles, mask
 
 
 def _finish(img, segs, n_pix, n_tiles, with_stats):
@@ -545,19 +572,26 @@ def _output(acc, inv_spp, gamma):
 
 def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
                  jitter, n_tiles, refract=False, dof=False, stratify=False,
-                 nee=False, gamma=True):
+                 nee=False, gamma=True, out_rows=None, row_offset=0,
+                 mask=None):
     """The kernel's computation as whole-tensor PyTorch ops over every lane
     of every tile, in the JAX kernel's order of operations: the spheres,
     then the triangles of ``tris`` (or None), one row at a time. With
     ``nee``, attribute column 15 holds the light cdf and ``bg`` (4,) ends
-    with the light count.
+    with the light count. A band (``out_rows`` rows from ``row_offset``)
+    offsets the hash's pixel id and the pixel coordinates by
+    ``row_offset * width``; the tile seed stays the band's own. Every tile
+    is traced; those whose ``mask`` entry is 0 are zeroed afterwards, pixels
+    and segment count (streams do not depend on the mask).
 
     Returns ((n_pix, 3) f32 image, (n_tiles,) int32 segment counts)."""
     dev = attr.device
     f32 = torch.float32
     n = n_tiles * TILE
-    flat = torch.arange(n, dtype=torch.int64, device=dev)
-    tile = flat // TILE
+    out_rows = height if out_rows is None else out_rows
+    local = torch.arange(n, dtype=torch.int64, device=dev)
+    tile = local // TILE
+    flat = local + row_offset * width
     px = (flat % width).to(f32)
     py = (flat // width).to(f32)
     inv_w = _f32(1.0 / width)
@@ -656,7 +690,11 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
         acc = [acc[0] + cr, acc[1] + cg, acc[2] + cb]
 
     img = _output(acc, _f32(1.0 / spp), gamma)
-    return img[:width * height], segs
+    if mask is not None:
+        on = mask != 0
+        img = torch.where(on[tile, None], img, 0.0)
+        segs = torch.where(on, segs, 0)
+    return img[:width * out_rows], segs
 
 
 def render_megakernel_reference(
@@ -681,21 +719,23 @@ def render_megakernel_reference(
     nee: bool = False,
     gamma: bool = True,
     lights: torch.Tensor | None = None,
+    tile_mask=None,
 ):
     """The plain PyTorch version of the megakernel, on any device.
 
-    Same contract as :func:`render_megakernel`: (height, width, 3) f32 in
+    Same contract as :func:`render_megakernel`: (rows, width, 3) f32 in
     [0, 1] (the linear mean with ``gamma=False``), plus the real-pixel
     segment count when ``with_stats``."""
-    attr, cam_packed, bg, n_tiles = _prepare(
+    attr, cam_packed, bg, out_rows, row_offset, n_tiles, mask = _prepare(
         scene, cam, n_active, width, height, spp, max_depth, rows, row_offset,
-        nee, lights)
+        nee, lights, tile_mask)
     tris = _pack_tris(mesh, n_tri_active)
     img, segs = _trace_plain(attr, tris, cam_packed, bg, seed, width, height,
                              spp, max_depth, jitter, n_tiles,
                              bool(enable_refraction), bool(enable_dof),
-                             bool(stratify), bool(nee), bool(gamma))
-    return _finish(img.reshape(height, width, 3), segs, width * height,
+                             bool(stratify), bool(nee), bool(gamma),
+                             out_rows, row_offset, mask)
+    return _finish(img.reshape(out_rows, width, 3), segs, width * out_rows,
                    n_tiles, with_stats)
 
 
@@ -726,6 +766,7 @@ def render_megakernel(
     nee: bool = False,
     gamma: bool = True,
     lights: torch.Tensor | None = None,
+    tile_mask=None,
 ):
     """Render one batch of ``spp`` samples through the megakernel.
 
@@ -746,6 +787,16 @@ def render_megakernel(
     None) a caller rendering many frames builds once; each shadow ray
     counts as one more segment.
 
+    ``rows``/``row_offset`` render the band of ``rows`` image rows from
+    global row ``row_offset`` as a (rows, width, 3) image, as
+    ``render_pallas`` does: the hash's pixel ids and the camera's
+    coordinates are the full frame's, the per-tile seed the band's own
+    tile index. ``tile_mask`` (adaptive sampling): one int per
+    4096-pixel tile of the render (a tensor on any device, or a numpy
+    array; copied to the scene's device); a tile with 0 is skipped and
+    returns zeros and no segments, every other tile the unmasked render's
+    values.
+
     A scene on the CPU runs the plain version; a scene on a CUDA device
     launches the CUDA kernel (built on first use) and raises if the launch
     fails. ``render_megakernel.launches`` counts kernel launches.
@@ -758,30 +809,33 @@ def render_megakernel(
             with_stats=with_stats, rows=rows, row_offset=row_offset,
             mesh=mesh, n_tri_active=n_tri_active,
             enable_refraction=enable_refraction, enable_dof=enable_dof,
-            stratify=stratify, nee=nee, gamma=gamma, lights=lights)
+            stratify=stratify, nee=nee, gamma=gamma, lights=lights,
+            tile_mask=tile_mask)
     if dev.type != "cuda":
         raise ValueError(f"render_megakernel runs on cpu or cuda, not {dev}")
 
-    attr, cam_packed, bg, n_tiles = _prepare(
+    attr, cam_packed, bg, out_rows, row_offset, n_tiles, mask = _prepare(
         scene, cam, n_active, width, height, spp, max_depth, rows, row_offset,
-        nee, lights)
+        nee, lights, tile_mask)
     tris = _pack_tris(mesh, n_tri_active)
     if tris is not None and tris.device != dev:
         raise ValueError(f"the mesh lies on {tris.device}, the scene on {dev}")
     lib = build.load()
-    n_pix = width * height
+    n_pix = width * out_rows
     with torch.cuda.device(dev):
-        out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+        out = torch.empty((out_rows, width, 3), dtype=torch.float32,
+                          device=dev)
         segs = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
         err = lib.tpurt_megakernel_launch(
             attr.data_ptr(), attr.shape[0],
             0 if tris is None else tris.data_ptr(),
             0 if tris is None else tris.shape[0], cam_packed.data_ptr(),
-            bg.data_ptr(), _signed32(seed), 0, width, height, spp, max_depth,
-            int(bool(jitter)), int(bool(enable_refraction)),
+            bg.data_ptr(), _signed32(seed), row_offset * width, width, height,
+            spp, max_depth, int(bool(jitter)), int(bool(enable_refraction)),
             int(bool(enable_dof)), int(bool(stratify)), int(bool(nee)),
-            int(bool(gamma)), n_tiles, out.data_ptr(), n_pix,
-            segs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            int(bool(gamma)), n_tiles, 0 if mask is None else mask.data_ptr(),
+            out.data_ptr(), n_pix, segs.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     render_megakernel.launches += 1

@@ -1,14 +1,18 @@
 """Frame rendering: engine choice, batch render, tone map, accumulation.
 
 Counterpart of ``tpu_rt/render/frame.py`` for the engines the port
-carries: the megakernel (at most 64 spheres, beside at most 256 triangles)
-and the cluster engine (larger sphere scenes or meshes). Every
-configuration the port does not carry raises ``NotImplementedError``
-naming its ROADMAP.md item; no other engine is ever used in its place.
+carries: the megakernel, engine "pallas" as in the JAX package (at most 64
+spheres, beside at most 256 triangles), and the cluster engine (larger
+sphere scenes or meshes). Every configuration the port does not carry
+raises ``NotImplementedError`` naming its ROADMAP.md item; no other engine
+is ever used in its place.
 
 Outputs match the reference contract: a batch is the sample mean,
 sqrt-gamma'd and clamped to [0, 1] (or, with ``gamma=False`` and an engine
-named, the linear mean).
+named, the linear mean). Adaptive sampling renders with a per-tile mask
+and merges with :func:`accumulate_tiled` (megakernel tiles) or
+:func:`accumulate_tiled_mapped` over :func:`cluster_tile_map` (cluster
+screen blocks).
 """
 
 from __future__ import annotations
@@ -18,9 +22,10 @@ import torch
 
 from ..core.types import CameraP, SphereScene
 from ..ops.cluster import ClusteredScene, render_cluster
-from ..ops.megakernel import MAX_SPHERES, MAX_TRIS, render_megakernel
+from ..ops.cluster import LANES, SUBLANES
+from ..ops.megakernel import MAX_SPHERES, MAX_TRIS, TILE, render_megakernel
 
-ENGINES = ("auto", "megakernel", "lax", "cluster")
+ENGINES = ("auto", "pallas", "lax", "cluster")
 
 
 def _not_ported(what: str, item: str):
@@ -32,12 +37,13 @@ def select_engine(scene: SphereScene, mode="v2", enable_refraction=False,
                   gamma=True, mesh=None, engine="auto") -> str:
     """Resolve the engine ``render`` uses, as the JAX package does on a
     TPU: "cluster" when asked for or past the megakernel's buckets (64
-    spheres, 256 triangles), else "megakernel" (its fused "pallas"
-    engine). Both engines carry refraction, so ``enable_refraction``
-    (kept for the JAX package's signature) does not change the choice.
-    With ``engine="auto"`` the JAX package renders ``gamma=False`` with its
-    lax integrator; that, and the other configurations neither engine
-    carries yet, raise NotImplementedError."""
+    spheres, 256 triangles), else "pallas" (the megakernel, under the JAX
+    package's name). Both engines carry refraction, so
+    ``enable_refraction`` (kept for the JAX package's signature) does not
+    change the choice. With ``engine="auto"`` the JAX package renders
+    ``gamma=False`` with its lax integrator; that, and the other
+    configurations neither engine carries yet, raise NotImplementedError.
+    An engine name the JAX package does not know raises ValueError."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "lax":
@@ -50,7 +56,7 @@ def select_engine(scene: SphereScene, mode="v2", enable_refraction=False,
     cluster = engine == "cluster" or (
         engine == "auto" and (scene.capacity > MAX_SPHERES or (
             mesh is not None and mesh.capacity > MAX_TRIS)))
-    return "cluster" if cluster else "megakernel"
+    return "cluster" if cluster else "pallas"
 
 
 def quantize_count(n: int, capacity: int) -> int:
@@ -105,6 +111,10 @@ def render(
     ``ops/cluster.py:light_table``, built per call when None).
     ``gamma=False`` returns the linear mean; with ``engine="auto"`` it
     raises, as the JAX package renders it with its lax engine.
+    ``tile_mask`` (adaptive sampling): one int32 per tile of the engine
+    that resolves (the megakernel's 4096-pixel runs, the cluster engine's
+    32x128 screen blocks, :func:`cluster_tile_map`); a tile with 0 is
+    skipped and returns zeros (and no segments).
 
     ``seed`` is the int stream seed (the JAX package derives it from a key
     or takes it from ``seed=``). ``jitter=False`` shoots pixel centres, the
@@ -118,15 +128,13 @@ def render(
     """
     resolved = select_engine(scene, mode, enable_refraction, gamma, mesh,
                              engine)
-    if tile_mask is not None:
-        k = "K2" if resolved == "cluster" else "K1"
-        raise _not_ported("tile_mask adaptive sampling", f"{k}-tile-mask")
     if enable_dof is None:
         # pulls one scalar from a camera on the device; RayTracer passes
         # the flag from its host-side aperture instead
         enable_dof = float(cam.aperture) > 0.0
     flags = dict(enable_refraction=enable_refraction, enable_dof=enable_dof,
-                 stratify=stratify, nee=nee, gamma=gamma, lights=lights)
+                 stratify=stratify, nee=nee, gamma=gamma, lights=lights,
+                 tile_mask=tile_mask)
     if n_active is None and prebuilt is None:
         n_active = quantize_count(int(scene.valid.sum()), scene.capacity)
     if tri_prebuilt is not None and resolved != "cluster":
@@ -192,3 +200,78 @@ def accumulate(accumulated: torch.Tensor | None, total_samples: int,
     total_new = total_samples + batch_samples
     return (accumulated * (total_samples / total_new)
             + batch * (batch_samples / total_new)), total_new
+
+
+# ---- adaptive tile sampling ------------------------------------------------
+# The progressive loop can stop sampling tiles whose accumulated image has
+# converged (render(tile_mask=...) skips them). These helpers keep the
+# per-tile bookkeeping on the device: a weighted merge with per-tile sample
+# counts, and the per-tile change the controller thresholds on
+# (tpu_rt/render/frame.py:452-526, in the same order of operations).
+
+def _pixel_weights(tile_vals: torch.Tensor, n_pix: int, shape2) -> torch.Tensor:
+    """(n_tiles,) per-tile values -> (h, w, 1) per-pixel plane (the
+    megakernel's tiles are runs of TILE pixels in scan order)."""
+    per_pix = tile_vals.repeat_interleave(TILE)[:n_pix]
+    return per_pix.reshape(shape2[0], shape2[1], 1)
+
+
+def _tiled_weights(counts, tile_mask, n_new):
+    """(on, counts', per-tile weight of the new batch)."""
+    on = tile_mask.to(torch.float32)
+    new_counts = counts + on * n_new
+    w_new = torch.where(new_counts > 0,
+                        n_new / torch.clamp_min(new_counts, 1.0), 0.0) * on
+    return on, new_counts, w_new
+
+
+def accumulate_tiled(acc: torch.Tensor, counts: torch.Tensor,
+                     batch: torch.Tensor, tile_mask: torch.Tensor,
+                     n_new: int, tile_px: int):
+    """Per-tile progressive merge: active tiles blend ``batch`` in by their
+    sample counts, masked tiles keep their accumulated value.
+
+    acc: (h, w, 3); counts: (n_tiles,) f32 samples accumulated per tile;
+    batch: (h, w, 3) from a render with ``tile_mask`` (zeros in masked
+    tiles); tile_mask: (n_tiles,) int32. Returns (acc', counts',
+    tile_change): the mean |batch - acc| per active tile, averaged over
+    ``tile_px`` pixels per tile, the last tile's padding included (as the
+    JAX package averages it)."""
+    h, w, _ = acc.shape
+    n_pix = h * w
+    on, new_counts, w_new = _tiled_weights(counts, tile_mask, n_new)
+    acc_new = acc + (batch - acc) * _pixel_weights(w_new, n_pix, (h, w))
+    diff = (batch - acc).abs().mean(dim=-1).reshape(-1)
+    pad = counts.shape[0] * tile_px - n_pix
+    diff = torch.cat([diff, diff.new_zeros((pad,))])
+    tile_change = diff.reshape(counts.shape[0], tile_px).mean(dim=-1)
+    return acc_new, new_counts, tile_change * on
+
+
+def cluster_tile_map(width: int, height: int, *, device="cuda"):
+    """Pixel -> tile map of the cluster engine's adaptive masks: its tiles
+    are 32x128-pixel screen blocks, row-major over ceil(h/32) x
+    ceil(w/128). Returns ((h, w) int32 map on ``device``, n_tiles); pair
+    with :func:`accumulate_tiled_mapped`."""
+    bx = -(-width // LANES)
+    by = -(-height // SUBLANES)
+    ys = torch.arange(height, dtype=torch.int32, device=device) // SUBLANES
+    xs = torch.arange(width, dtype=torch.int32, device=device) // LANES
+    return ys[:, None] * bx + xs[None, :], bx * by
+
+
+def accumulate_tiled_mapped(acc: torch.Tensor, counts: torch.Tensor,
+                            batch: torch.Tensor, tile_mask: torch.Tensor,
+                            n_new: int, tile_map: torch.Tensor, n_tiles: int):
+    """:func:`accumulate_tiled` for any pixel -> tile map (the cluster
+    engine's, :func:`cluster_tile_map`). Same contract; tile_change is the
+    mean |batch - acc| over each active tile's pixels."""
+    on, new_counts, w_new = _tiled_weights(counts, tile_mask, n_new)
+    acc_new = acc + (batch - acc) * w_new[tile_map.long()][..., None]
+    diff = (batch - acc).abs().mean(dim=-1).reshape(-1)
+    flat_map = tile_map.reshape(-1).long()
+    sums = diff.new_zeros((n_tiles,)).index_add_(0, flat_map, diff)
+    cnts = diff.new_zeros((n_tiles,)).index_add_(
+        0, flat_map, torch.ones_like(diff))
+    tile_change = sums / torch.clamp_min(cnts, 1.0)
+    return acc_new, new_counts, tile_change * on
