@@ -2,7 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from tpu_rt_torch/csrc, then for each engine
+Builds the port's CUDA kernels from tpu_rt_torch/csrc and checks the FMA
+microkernel (K3) against its plain version bit for bit; measures the card's
+f32 instruction rate with it (the two-depth slope, which must lie within
+0.5 and 1.05 of SMs x 128 lanes x the maximum SM clock). Every bound below
+divides f32 operations by that theoretical rate, the most the card can
+issue, and prints the bound at the measured rate beside it; the script
+fails if a kernel runs faster than its bound. Then for each engine it
 checks the kernel against golden images and against its plain PyTorch
 version, drives its main path through the user's entry points with launch
 counts, checks the 1/sqrt(N) convergence of its means, and times it:
@@ -37,6 +43,12 @@ counts, checks the 1/sqrt(N) convergence of its means, and times it:
   the demo scene, and render(tile_mask=) -> accumulate_tiled_mapped on 10k
   spheres) against their plain chains, and timings at 100%, about 50% and
   about 10% of the tiles active.
+* the display path: the demo scene through RayTracer.render_device ->
+  accumulate -> display_stack with the four denoisers (bilateral, nlmeans,
+  gaussian, median) at grid_scale 2 (-> unpack_grid) and 1, held against
+  the same stack on the CPU, and the first-hit AOVs (render_aovs) of the
+  demo scene and the Cornell box with the joint denoiser, held against the
+  CPU; device times of each.
 
 Each kernel must agree with its plain version bit for bit, segment counts
 included. Every phase raises on failure. The last line of standard output
@@ -76,23 +88,6 @@ HUGE = dict(n=100000, seed=1, spread=95.0)
 BIG_CAM = dict(position=(0, 6, 40), target=(0, 0, -18))
 PLAIN_SHAPE = dict(width=256, height=128, spp=4, max_depth=4)
 
-# Bounds: the least time the card could take for a kernel's work, the larger
-# of its bytes over the memory rate and its f32 operations over the f32 rate
-# (one NVIDIA H100 SXM: 3.35 TB/s, 67 TFLOP/s with an FMA counted as 2).
-# The operations are counted from the CUDA sources, one for each add, mul,
-# compare, min/max, sqrt, division or transcendental (the kernels contract
-# no FMA); the hash's integer operations are not counted.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-SPHERE_TEST_OPS = 24  # oc 3, half_b 5, |oc|^2 - r^2 7, disc 2, sqrt, 2 roots,
-                      # 4 compares
-SLAB_TEST_OPS = 26    # flag, 6 sub, 6 mul, 6 min/max, enter 3, exit 3, compare
-RAY_SETUP_OPS = 12    # the walk's 3 safe reciprocals
-SHADE_OPS = 62        # shade_hit without roulette: emission 6, hit point 6,
-                      # normal 6, unit ball 18, scatter 23, throughput 3
-TRI_TEST_OPS = 53     # Moller-Trumbore (mt_test): pvec 9, det 5, |det| test 2,
-                      # 1/det, tvec 3, u 6, qvec 9, v 6, t 6, 6 compares/adds
-
 # the mesh scenes and cameras (the JAX bench's terrain rows,
 # benchmarks/bench_scenes.py:123-167)
 CORNELL_CAM = dict(position=(0, 2, 2.5), target=(0, 2, -3))
@@ -100,22 +95,6 @@ CORNELL_ACTIVE = dict(n_active=4, n_tri_active=12)
 TERRAIN_CAM = dict(position=(0, 6, 6), target=(0, 0, -10))
 TERRAIN_10K = 72    # terrain_mesh(n=72): 10,082 triangles
 TERRAIN_100K = 226  # terrain_mesh(n=226): 101,250 triangles
-PRIMARY_OPS = 33      # jitter to a unit camera ray
-PIXEL_OPS = 15        # mean, sqrt gamma and clamp of 3 channels
-# the optional flags (path_common.cuh), counted the same way
-REFRACT_OPS = 36  # per shaded hit, any material: cos_in 5, front 1, n_e 3,
-                  # eta 1, dt 5, disc 5, max + sqrt 2, cosine 1, r0 4, omc 2,
-                  # Schlick 5, 2 compares (the glass direction is not counted)
-LENS_OPS = 46     # per primary ray: d.fwd 5, max 1, div 1, focal point 6,
-                  # sqrt + mul 2, angle 1, cos + sin 2, lx ly 2, origin 12,
-                  # direction 3 sub + normalize 11
-R2_OPS = 8        # per primary ray: 2 x (mul, add, floor, sub)
-NEE_OPS = 120     # per shadow segment (path_common.cuh, kNee): the cosine
-                  # sampler's 8 beyond the flipped one, suppression test 11,
-                  # pick 1, cone and basis 76, light entry 23, gate 6,
-                  # contribution 15 (the shadow sweep itself is not counted:
-                  # it stops at its first blocker)
-
 # the flags' cells: each flag alone and all three together
 ALL_FLAGS = dict(enable_refraction=True, enable_dof=True, stratify=True)
 FLAG_SETS = {"refraction": dict(enable_refraction=True),
@@ -155,33 +134,144 @@ def check_exact(stats: dict, where: str, segs=None):
         check(int(segs[0]) == int(segs[1]), f"{where}: segments {segs}")
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    """(least ms, what bounds it) for ``ops`` f32 operations and ``nbytes``
-    bytes moved."""
-    t_ops = ops / PEAK_F32_PER_S * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def sm_clocks_under_load(enqueue, device) -> str:
+    """``nvidia-smi``'s SM clock, its maximum and the power draw, read while
+    the card runs the work ``enqueue()`` queues (about a second of it)."""
+    with torch.cuda.device(device):
+        enqueue()
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip()
+        torch.cuda.synchronize(device)
+    return out
 
 
-def path_ops(segments: int, n_pix: int, spp: int, per_segment: int,
-             flags=None) -> int:
-    """f32 operations every traced segment needs whatever the data, plus the
-    full shading of the hits at bounces before the last: with roulette only
-    at the last bounce, those are at least segments - rays. ``flags``: the
-    render's refraction, DOF and stratify switches."""
-    flags = flags or {}
-    rays = n_pix * spp
-    shade = SHADE_OPS + (REFRACT_OPS if flags.get("enable_refraction") else 0)
-    primary = (PRIMARY_OPS + (LENS_OPS if flags.get("enable_dof") else 0)
-               + (R2_OPS if flags.get("stratify") else 0))
-    shadow = 0
-    if flags.get("nee"):
-        # the count holds one shadow segment per diffuse hit, so at least
-        # half of it is bounces; the bound takes the split that costs least
-        shadow = segments // 2
-        segments -= shadow
-    return (segments * per_segment + max(segments - rays, 0) * shade
-            + shadow * NEE_OPS + rays * primary + n_pix * PIXEL_OPS)
+def fma_sass(lib_path: Path, nvcc: str):
+    """Opcode counts of the FMA kernel's depth loop (of its backward
+    branches, the one whose span holds the most FFMAs) from ``cuobjdump
+    -sass``; None without cuobjdump."""
+    import re
+    from collections import Counter
+
+    tool = Path(nvcc).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, check=True).stdout
+    m = re.search(r"Function : (\S*fma_chains\S*)\n(.*?)"
+                  r"(?=\n\s*Function : |\Z)", out, re.S)
+    check(m is not None, "cuobjdump lists the FMA kernel")
+    code = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)"
+        r"([^;]*);", m.group(2))]
+    loops = []
+    for addr, op, rest in code:
+        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if target and int(target.group(1), 16) < addr:
+            lo = int(target.group(1), 16)
+            loops.append(Counter(o for a, o, _ in code if lo <= a <= addr))
+    check(bool(loops), "the FMA kernel has a loop")
+    return max(loops, key=lambda c: c["FFMA"])
+
+
+def fma_phase(lib_path: Path, nvcc: str, card: str, dev) -> tuple:
+    """K3: the FMA microkernel against its plain version, the card's
+    measured and theoretical f32 rates, and K3's own time and bound.
+    Returns (measured FFMA/s, theoretical ops/s, the kernels-line entry)."""
+    from tpu_rt_torch.utils import roofline as rl
+    from tpu_rt_torch.utils.profiling import cuda_frame_ms, device_ms_by_kernel
+
+    rng = np.random.default_rng(33)
+    attrs = rl.card_fp32(dev)
+    n = rl.fma_grid(dev)
+    print(f"[2b K3] {attrs.sms} SMs, maximum SM clock "
+          f"{attrs.clock_khz / 1e3:.0f} MHz, {attrs.fma_blocks_per_sm} blocks "
+          f"of {rl.FMA_BLOCK} threads per SM: one wave is {n} threads")
+    blk = torch.from_numpy(rng.uniform(0.25, 1.0, (8, 128)).astype(
+        np.float32)).to(dev)
+    grid = torch.from_numpy(rng.uniform(0.25, 1.0, n).astype(
+        np.float32)).to(dev)
+    outs = {}
+    for x, depth in ((blk, 8), (blk, 64), (blk, 1000), (grid, 64)):
+        a = rl.fma_chains(x, depth)
+        b = rl.fma_chains_reference(x, depth)
+        n_off = int((a != b).sum())
+        outs[tuple(x.shape), depth] = a
+        print(f"[2b K3 vs plain] {tuple(x.shape)} depth {depth}: {n_off} of "
+              f"{a.numel()} values differ; mean {float(a.mean()):.6g}")
+        check(n_off == 0, f"K3 {tuple(x.shape)} depth {depth}: bit for bit")
+        check(bool(torch.isfinite(a).all()), "K3: finite sums")
+    check(not torch.equal(outs[(8, 128), 8], outs[(8, 128), 64]),
+          "K3: depths 8 and 64 differ (the loop is not folded)")
+    sass = fma_sass(lib_path, nvcc)
+    if sass is None:
+        print("[2b K3 sass] cuobjdump not found beside nvcc: not checked")
+    else:
+        other = sum(v for k, v in sass.items() if k != "FFMA")
+        print(f"[2b K3 sass] the depth loop: {sass['FFMA']} FFMA and "
+              f"{other} other instructions {dict(sass)}")
+        check(sass["FFMA"] > 0 and sass["FFMA"] % (rl.CARRIES * 16) == 0,
+              "K3: 512 FFMAs per unrolled step of the loop")
+        check(other <= 0.01 * sass["FFMA"],
+              "K3: loop overhead under 1% of its instructions")
+
+    # the measurement, with its launches counted
+    rl.fma_chains.launches = 0
+    slope = rl.measure_fma_ops(device=dev)
+    launches = rl.fma_chains.launches
+    rate = slope.ops_per_s
+    peak = rl.theoretical_fp32_ops(dev)
+    d1, d2 = slope.depths
+    clocks = sm_clocks_under_load(
+        lambda: [rl.fma_chains(grid, d2) for _ in range(60)], dev)
+    share = rate / peak
+    print(f"[2b K3 rate] on {card}: measured {rate / 1e12:.4f} T FFMA/s "
+          f"(slope of depths {d1} and {d2}: {slope.ms[0]:.4f} and "
+          f"{slope.ms[1]:.4f} ms, median of 5 launches each after "
+          f"{rl.FMA_WARMUP} warm-up launches, {n} threads x {rl.CARRIES} "
+          f"chains); theoretical {peak / 1e12:.4f} T f32 instructions/s "
+          f"({attrs.sms} SMs x {rl.FP32_LANES_PER_SM} lanes x "
+          f"{attrs.clock_khz / 1e3:.0f} MHz); measured/theoretical "
+          f"{share:.4f}; SM clock, max SM clock, power under K3: {clocks}")
+    check(0.5 <= share <= 1.05,
+          f"K3: measured rate {share:.4f} of the theoretical, outside "
+          "[0.5, 1.05]")
+
+    by_kernel = device_ms_by_kernel(lambda i: rl.fma_chains(grid, d2), 5,
+                                    device=dev)
+    k_ms = kernel_ms(by_kernel, "fma_chains")
+    check(k_ms > 0, "K3: torch.profiler recorded the FMA kernel")
+    # per thread: 32 seeds, 32 x depth FFMAs, 31 adds of the sum
+    ops = n * (rl.CARRIES * d2 + 2 * rl.CARRIES - 1)
+    b_ms, b_by = rl.bound_ms(ops, 8 * n, peak)
+    b_meas = rl.bound_ms(ops, 8 * n, rate)[0]
+    plain_depth = 64
+    plain_ms = statistics.median(cuda_frame_ms(
+        lambda i: rl.fma_chains_reference(grid, plain_depth), 3, device=dev))
+    small_ms = statistics.median(cuda_frame_ms(
+        lambda i: rl.fma_chains(grid, plain_depth), 7, device=dev))
+    print(f"[2b K3 timing] depth {d2}, {n} threads: kernel {k_ms:.4f} ms "
+          f"(profiler; CUDA events {slope.ms[1]:.4f} ms); bound "
+          f"{b_ms:.4f} ms ({b_by}, {ops / 1e9:.3f} G f32 ops at the "
+          f"theoretical rate; {b_meas:.4f} ms at the measured), "
+          f"{b_ms / k_ms:.4f} of the bound's rate; at depth {plain_depth}: "
+          f"kernel frame {small_ms:.4f} ms, plain {plain_ms:.4f} ms "
+          "(chained frames)")
+    entry = {"name": "fma-microkernel", "route": "cuda",
+             "source": "tpu_rt_torch/csrc/fma.cu",
+             "replaces": "tpu_rt/utils/roofline.py:73",
+             "launches": launches, "max_abs_err": 0.0,
+             "ms": k_ms, "event_ms": slope.ms[1], "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "bound_ms_measured": b_meas,
+             "library_ms": None,
+             "shape": f"{n} threads x {rl.CARRIES} chains, depth {d2}",
+             "plain_shape": f"{n} threads x {rl.CARRIES} chains, depth "
+                            f"{plain_depth}",
+             "frame_ms_at_plain_shape": small_ms,
+             "fma_ops_per_s": rate, "theoretical_ops_per_s": peak,
+             "sm_clocks": clocks}
+    return rate, peak, entry
 
 
 def glass_field(scene):
@@ -279,6 +369,9 @@ def main() -> int:
     from tpu_rt_torch.render.frame import accumulate, render
     from tpu_rt_torch.utils.profiling import (
         cuda_frame_ms, device_ms_by_kernel, traced_mrays_per_s)
+    from tpu_rt_torch.utils.roofline import (
+        RAY_SETUP_OPS, SLAB_TEST_OPS, SPHERE_TEST_OPS, TRI_TEST_OPS,
+        bound_ms, megakernel_bytes, path_ops)
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -299,6 +392,24 @@ def main() -> int:
         if ("registers" in line or "spill" in line
                 or "Compiling entry" in line):
             print(f"[2 build] {line.strip()}")
+
+    # ---- 2b. K3, the FMA microkernel: the card's measured f32 rate,
+    # beside the theoretical rate that every bound below divides by ----
+    fma_rate, fp32_peak, fma_entry = fma_phase(lib_path, build.find_nvcc(),
+                                               card, dev)
+
+    def bounds(ops, nbytes):
+        """The kernels line's bound of ``ops`` f32 operations and ``nbytes``
+        bytes: at the card's theoretical f32 rate (``bound_ms``,
+        ``bound_by``) and at K3's measured rate (``bound_ms_measured``)."""
+        b_ms, b_by = bound_ms(ops, nbytes, fp32_peak)
+        return {"bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms_measured": bound_ms(ops, nbytes, fma_rate)[0]}
+
+    def bound_text(bnd):
+        return (f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, at the "
+                f"theoretical rate; {bnd['bound_ms_measured']:.4f} ms at K3's "
+                "measured rate)")
 
     scene = tpu_rt_torch.demo_scene(device=dev)
 
@@ -425,17 +536,16 @@ def main() -> int:
         n_pix = shape["width"] * shape["height"]
         ops = path_ops(segs, n_pix, shape["spp"],
                        N_ACTIVE * SPHERE_TEST_OPS)
-        nbytes = (N_ACTIVE * 16 + 16 + 3) * 4 + n_pix * 12 + (
-            -(-n_pix // 4096)) * 4
-        b_ms, b_by = bound(ops, nbytes)
+        nbytes = megakernel_bytes(N_ACTIVE, n_pix)
+        bnd = bounds(ops, nbytes)
         k_ms = dev_ms["kernel"]
         check(k_ms > 0, f"{name}: torch.profiler recorded the megakernel")
         ev_ms = event_kernel_ms(lib, "tpurt_megakernel_launch",
                                 fns["kernel"], 20, dev)
         print(f"[7 bound] {name}: {ops / 1e9:.3f} G f32 ops, {nbytes} bytes "
-              f"-> bound {b_ms:.4f} ms ({b_by}); kernel {k_ms:.4f} ms "
+              f"-> {bound_text(bnd)}; kernel {k_ms:.4f} ms "
               f"(profiler; CUDA events over 20 launches {ev_ms:.4f} ms), "
-              f"{b_ms / k_ms:.3f} of the bound's rate")
+              f"{bnd['bound_ms'] / k_ms:.3f} of the bound's rate")
         if mega is None:  # the interactive shape is the main path's
             mega = {"name": "megakernel", "route": "cuda",
                     "source": "tpu_rt_torch/csrc/megakernel.cu",
@@ -443,7 +553,7 @@ def main() -> int:
                     "launches": mega_launches,
                     "max_abs_err": stats["max_abs"],
                     "ms": k_ms, "event_ms": ev_ms, "plain_ms": ms["plain"],
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    **bnd, "library_ms": None,
                     "shape": f"demo scene {name}", "plain_shape": name,
                     "frame_ms": ms["kernel"]}
 
@@ -567,18 +677,18 @@ def main() -> int:
         ops = path_ops(segs, n_pix, spp, per_segment)
         nbytes = (sum(t.numel() * t.element_size() for t in tables_)
                   + 16 * 4 + n_pix * 12)
-        b_ms, b_by = bound(ops, nbytes)
+        bnd = bounds(ops, nbytes)
         print(f"[12 timing] {label} on {card}: frame {frame:.4f} ms (median "
               f"of 2x7 chained frames), cluster kernel {k_ms:.4f} ms "
               f"(profiler; CUDA events over 20 launches {ev_ms:.4f} ms); "
               f"{segs} segments/frame; traced Mrays/s frame "
               f"{traced_mrays_per_s(segs, frame):.1f}, kernel "
-              f"{traced_mrays_per_s(segs, k_ms):.1f}; bound {b_ms:.4f} ms "
-              f"({b_by}; G {tables_.n_global}, S2 {tables_.n_ss}: loose, the "
-              f"walk below the super-supers depends on the data)")
+              f"{traced_mrays_per_s(segs, k_ms):.1f}; {bound_text(bnd)} "
+              f"(G {tables_.n_global}, S2 {tables_.n_ss}: loose, the walk "
+              f"below the super-supers depends on the data)")
         print("[12 device] " + device_line(label, by_kernel, frame,
                                            "cluster_kernel"))
-        return k_ms, ev_ms, frame, b_ms, b_by
+        return k_ms, ev_ms, frame, bnd
 
     # (a) the JAX bench's large-scene row, tables built and ordered once
     cam_a = cam_for(BENCH["width"], BENCH["height"], **BIG_CAM)
@@ -592,7 +702,7 @@ def main() -> int:
         BENCH["width"] * BENCH["height"], BENCH["spp"], tab_a)
     # (b) the main path at the GUI's settings
     tab_b = tables
-    k_b, ev_b, frame_b, bound_b, bound_by_b = cluster_timing(
+    k_b, ev_b, frame_b, bnd_b = cluster_timing(
         "(b) RayTracer 10k spheres 640x480/8spp/d4",
         lambda i: rt.render_device(INTERACTIVE["width"],
                                    INTERACTIVE["height"], INTERACTIVE["spp"],
@@ -638,8 +748,7 @@ def main() -> int:
                "replaces": "tpu_rt/ops/pallas_cluster.py:567",
                "launches": cluster_launches, "max_abs_err": cluster_err,
                "ms": k_b, "event_ms": ev_b, "plain_ms": ms_p["plain"],
-               "bound_ms": bound_b, "bound_by": bound_by_b,
-               "library_ms": None,
+               **bnd_b, "library_ms": None,
                "shape": "RayTracer 10k spheres 640x480/8spp/d4",
                "frame_ms": frame_b, "plain_shape": "10k spheres "
                "256x128/4spp/d4", "frame_ms_at_plain_shape": ms_p["kernel"]}
@@ -876,7 +985,7 @@ def main() -> int:
                     nbytes, flags=None, phase=17):
         """Frame ms, kernel device ms, idle share, segments/frame, traced
         Mrays/s and the bound of ``fn``; returns (kernel ms (profiler),
-        kernel ms (CUDA events), frame ms, bound ms, bound_by)."""
+        kernel ms (CUDA events), frame ms, :func:`bounds`)."""
         frame = statistics.median(cuda_frame_ms(fn, 7, device=dev)
                                   + cuda_frame_ms(fn, 7, device=dev))
         by_kernel = device_ms_by_kernel(fn, 5, device=dev)
@@ -887,18 +996,18 @@ def main() -> int:
         ev_ms = event_kernel_ms(lib, entry, fn, 20, dev)
         segs = int(seg_fn())
         ops = path_ops(segs, n_pix, spp, per_segment, flags)
-        b_ms, b_by = bound(ops, nbytes + n_pix * 12)
+        bnd = bounds(ops, nbytes + n_pix * 12)
         print(f"[{phase} timing] {label} on {card}: frame {frame:.4f} ms "
               f"(median "
               f"of 2x7 chained frames), {kname} {k_ms:.4f} ms (profiler; "
               f"CUDA events over 20 launches {ev_ms:.4f} ms); {segs} "
               f"segments/frame; traced Mrays/s frame "
               f"{traced_mrays_per_s(segs, frame):.1f}, kernel "
-              f"{traced_mrays_per_s(segs, k_ms):.1f}; bound {b_ms:.4f} ms "
-              f"({b_by}, {ops / 1e9:.3f} G f32 ops)")
+              f"{traced_mrays_per_s(segs, k_ms):.1f}; {bound_text(bnd)} "
+              f"({ops / 1e9:.3f} G f32 ops)")
         print(f"[{phase} device] " + device_line(label, by_kernel, frame,
                                                  kname))
-        return k_ms, ev_ms, frame, b_ms, b_by
+        return k_ms, ev_ms, frame, bnd
 
     def table_bytes(*tables):
         return sum(t.numel() * t.element_size() for tab in tables
@@ -913,7 +1022,7 @@ def main() -> int:
                         ("1080p/4spp/d4", BENCH)):
         cam_t = cornell_cam(shape["width"], shape["height"])
         kw = dict(mesh=cm, **CORNELL_ACTIVE, **shape)
-        k_ms, ev_ms, frame, b_ms, b_by = mesh_timing(
+        k_ms, ev_ms, frame, bnd = mesh_timing(
             f"K1-tri Cornell {name}",
             lambda i: render_megakernel(cs, cam_t, 500 + i, **kw),
             lambda: render_megakernel(cs, cam_t, 0, with_stats=True, **kw)[1],
@@ -938,8 +1047,8 @@ def main() -> int:
                         "launches": mega_tri_launches,
                         "max_abs_err": mesh_err, "ms": k_ms,
                         "event_ms": ev_ms,
-                        "plain_ms": mp["plain"], "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": None,
+                        "plain_ms": mp["plain"], **bnd,
+                        "library_ms": None,
                         "shape": f"Cornell box (4 sphere rows, 12 "
                                  f"triangles) {name}",
                         "plain_shape": name, "frame_ms": frame}
@@ -969,7 +1078,7 @@ def main() -> int:
             BENCH["width"] * BENCH["height"], BENCH["spp"], "cluster_kernel",
             k2_tri_ops(tab, tri_tab), table_bytes(tab, tri_tab) + 16 * 4)
     # the terrain main path (RayTracer + set_mesh) at the GUI's settings
-    k_tri, ev_tri, frame_tri, bound_tri, bound_by_tri = mesh_timing(
+    k_tri, ev_tri, frame_tri, bnd_tri = mesh_timing(
         "K2-tri RayTracer + terrain 10k 640x480/8spp/d4",
         lambda i: rt_t.render_device(INTERACTIVE["width"],
                                      INTERACTIVE["height"],
@@ -1004,8 +1113,7 @@ def main() -> int:
                    "launches": tri_launches, "max_abs_err": cluster_tri_err,
                    "ms": k_tri, "event_ms": ev_tri,
                    "plain_ms": ms_tp["plain"],
-                   "bound_ms": bound_tri, "bound_by": bound_by_tri,
-                   "library_ms": None,
+                   **bnd_tri, "library_ms": None,
                    "shape": "RayTracer 3 spheres + terrain 10k triangles "
                             "640x480/8spp/d4",
                    "frame_ms": frame_tri,
@@ -1233,7 +1341,7 @@ def main() -> int:
         else:
             label = f"K1 all flags demo scene {name}"
             fn = (lambda i: render_megakernel(scene, cam_t, 900 + i, **kw))
-        k_ms, ev_ms, frame, b_ms, b_by = mesh_timing(
+        k_ms, ev_ms, frame, bnd = mesh_timing(
             label, fn,
             lambda: render_megakernel(scene, cam_t, 0, with_stats=True,
                                       **kw)[1],
@@ -1255,8 +1363,8 @@ def main() -> int:
                           "launches": flags_launches,
                           "max_abs_err": mega_flags_err, "ms": k_ms,
                           "event_ms": ev_ms,
-                          "plain_ms": mp["plain"], "bound_ms": b_ms,
-                          "bound_by": b_by, "library_ms": None,
+                          "plain_ms": mp["plain"], **bnd,
+                          "library_ms": None,
                           "shape": f"RayTracer demo scene, refraction + DOF "
                                    f"+ stratify, {name}",
                           "plain_shape": name, "frame_ms": frame}
@@ -1281,7 +1389,7 @@ def main() -> int:
                     "cluster_kernel", k2_ops(tab22),
                     table_bytes(tab22) + 16 * 4, flags, 22)
     # the glass field's main path (phase 20 (b)): refraction, DOF, stratify
-    k_g, ev_g, frame_g, bound_g, bound_by_g = mesh_timing(
+    k_g, ev_g, frame_g, bnd_g = mesh_timing(
         "K2 all flags RayTracer glass field 640x480/8spp/d4",
         lambda i: rt_g.render_device(INTERACTIVE["width"],
                                      INTERACTIVE["height"],
@@ -1309,8 +1417,7 @@ def main() -> int:
                      "launches": glass_launches,
                      "max_abs_err": cluster_flags_err, "ms": k_g,
                      "event_ms": ev_g,
-                     "plain_ms": mp["plain"], "bound_ms": bound_g,
-                     "bound_by": bound_by_g, "library_ms": None,
+                     "plain_ms": mp["plain"], **bnd_g, "library_ms": None,
                      "shape": "RayTracer glass field (10k spheres), "
                               "refraction + DOF + stratify, 640x480/8spp/d4",
                      "frame_ms": frame_g,
@@ -1450,7 +1557,7 @@ def main() -> int:
     # (benchmarks/bench_scenes.py:206) at 1080p/4spp/d4
     n_int = INTERACTIVE["width"] * INTERACTIVE["height"]
     kw = dict(n_active=N_ACTIVE, nee=True, **INTERACTIVE)
-    k_ms, ev_ms, frame, b_ms, b_by = mesh_timing(
+    k_ms, ev_ms, frame, bnd = mesh_timing(
         "K1-nee RayTracer demo scene 640x480/8spp/d4",
         lambda i: rt_n.render_device(
             INTERACTIVE["width"], INTERACTIVE["height"], INTERACTIVE["spp"],
@@ -1470,7 +1577,7 @@ def main() -> int:
                 "replaces": "tpu_rt/ops/pallas_megakernel.py:525",
                 "launches": nee_launches, "max_abs_err": mega_nee_err,
                 "ms": k_ms, "event_ms": ev_ms, "plain_ms": mp["plain"],
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                **bnd, "library_ms": None,
                 "shape": "RayTracer(nee=True) demo scene 640x480/8spp/d4",
                 "plain_shape": "640x480/8spp/d4", "frame_ms": frame}
     kw_c = dict(nee=True, **bulb_active, **INTERACTIVE)
@@ -1585,7 +1692,7 @@ def main() -> int:
     lt_bytes = lt_k.numel() * 4
     kw = dict(prebuilt=tab_k, pre_ordered=True, nee=True, lights=lt_k,
               **INTERACTIVE)
-    k_n, ev_n, frame_n, bound_n, bound_by_n = mesh_timing(
+    k_n, ev_n, frame_n, bnd_n = mesh_timing(
         "K2-nee RayTracer 10k spheres 640x480/8spp/d4",
         lambda i: rt_k.render_device(
             INTERACTIVE["width"], INTERACTIVE["height"], INTERACTIVE["spp"],
@@ -1635,8 +1742,7 @@ def main() -> int:
                    "launches": cluster_nee_launches,
                    "max_abs_err": cluster_nee_err, "ms": k_n,
                    "event_ms": ev_n, "plain_ms": mp["plain"],
-                   "bound_ms": bound_n, "bound_by": bound_by_n,
-                   "library_ms": None,
+                   **bnd_n, "library_ms": None,
                    "shape": "RayTracer(nee=True) 10k spheres 640x480/8spp/d4",
                    "frame_ms": frame_n,
                    "plain_shape": "10k spheres 256x128/4spp/d4",
@@ -2089,14 +2195,13 @@ def main() -> int:
     print(f"[31 timing] K1 tile mask ~50% 640x480/8spp/d4: kernel frame "
           f"{mp['kernel']:.4f} ms, plain {mp['plain']:.4f} ms (median of 2x3 "
           f"chained frames each, in turns)")
-    k_ms, ev_ms, frame, b_ms, b_by = k1_share[0.5]
+    k_ms, ev_ms, frame, bnd = k1_share[0.5]
     mega_mask = {"name": "megakernel-tile-mask", "route": "cuda",
                  "source": "tpu_rt_torch/csrc/megakernel.cu",
                  "replaces": "tpu_rt/ops/pallas_megakernel.py:768",
                  "launches": adaptive_launches,
                  "max_abs_err": mega_mask_err, "ms": k_ms, "event_ms": ev_ms,
-                 "plain_ms": mp["plain"], "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": None,
+                 "plain_ms": mp["plain"], **bnd, "library_ms": None,
                  "shape": f"demo scene 640x480/8spp/d4, "
                           f"{int(timed_masks['K1', 0.5].sum())} of "
                           f"{n_int_tiles} tiles on",
@@ -2131,14 +2236,14 @@ def main() -> int:
           f"spheres 256x128/4spp/d4 (the plain version's shape): kernel "
           f"{mp['kernel']:.4f} ms, plain {mp['plain']:.4f} ms (median of 2x3 "
           f"chained frames each, in turns)")
-    k_ms, ev_ms, frame, b_ms, b_by = k2_share[0.5]
+    k_ms, ev_ms, frame, bnd = k2_share[0.5]
     cluster_mask = {"name": "cluster-tile-mask", "route": "cuda",
                     "source": "tpu_rt_torch/csrc/cluster.cu",
                     "replaces": "tpu_rt/ops/pallas_cluster.py:1565",
                     "launches": cluster_mask_launches,
                     "max_abs_err": cluster_mask_err, "ms": k_ms,
                     "event_ms": ev_ms, "plain_ms": mp["plain"],
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    **bnd, "library_ms": None,
                     "shape": f"10k spheres 1080p/4spp/d4, "
                              f"{int(timed_masks['K2', 0.5].sum())} of "
                              f"{n_bench_tiles} blocks on",
@@ -2148,12 +2253,169 @@ def main() -> int:
                     "frame_ms_at_plain_shape": mp["kernel"],
                     "share_ms": {f"{s:.0%}": k2_share[s][0] for s in shares}}
 
+    # ================= the display path: denoisers and first-hit AOVs =====
+    from tpu_rt_torch.app.denoiser import Denoiser
+    from tpu_rt_torch.render.aov import render_aovs
+    from tpu_rt_torch.render.display import _apply_method, unpack_grid
+    from tpu_rt_torch.render.frame import tone_map
+    from tpu_rt_torch.utils.profiling import device_work
+
+    def cpu_copy(t):
+        return None if t is None else type(t)(*(f.cpu() for f in t))
+
+    def on_card(label, fn, phase):
+        """Device ms, device activities and frame ms per call of ``fn``."""
+        ms, n = device_work(fn, 3, device=dev)
+        frame = statistics.median(cuda_frame_ms(fn, 3, device=dev))
+        print(f"[{phase} timing] {label} on {card}: device {ms:.4f} ms per "
+              f"call ({n:.0f} kernels and copies), frame {frame:.4f} ms "
+              "(median of 3 chained calls)")
+        return {"device_ms": ms, "launches": n, "frame_ms": frame}
+
+    # ---- 32. the GUI's denoiser grid on the main path ----
+    methods = ("bilateral", "nlmeans", "gaussian", "median")
+    rt = RayTracer(seed=0, device=dev)
+    rt.set_scene(demo_api_scene())
+    render_megakernel.launches = render_cluster.launches = 0
+    acc, total = None, 0
+    for _ in range(4):
+        batch = rt.render_device(INTERACTIVE["width"], INTERACTIVE["height"],
+                                 INTERACTIVE["spp"], INTERACTIVE["max_depth"])
+        acc, total = accumulate(acc, total, batch, INTERACTIVE["spp"])
+    stacks = {g: display_stack(acc, EXPOSURE, methods=methods, as_uint8=True,
+                               grid_scale=g) for g in (2, 1)}
+    torch.cuda.synchronize(dev)
+    display_launches = render_megakernel.launches
+    print(f"[32 display path] RayTracer.render_device x4 at 640x480/8spp/d4 "
+          f"-> accumulate -> display_stack(methods={methods}, as_uint8=True, "
+          f"grid_scale=2 and 1): stacks {tuple(stacks[2].shape)} and "
+          f"{tuple(stacks[1].shape)}; megakernel launches {display_launches},"
+          f" cluster launches {render_cluster.launches}")
+    check(display_launches == 4, "the display path launched the megakernel "
+          "4 times")
+    check(tuple(stacks[2].shape) == (3, 480, 640, 3)
+          and tuple(stacks[1].shape) == (6, 480, 640, 3), "stack shapes")
+    acc_cpu = acc.cpu()
+    for g, stack in stacks.items():
+        t0 = time.perf_counter()
+        plain = display_stack(acc_cpu, EXPOSURE, methods=methods,
+                              as_uint8=True, grid_scale=g)
+        check(torch.equal(stack[:2].cpu(), plain[:2]),
+              f"grid_scale {g}: display and enhanced rows equal the CPU's")
+        if g > 1:
+            card_rows = unpack_grid(stack[2].cpu(), methods, g)
+            cpu_rows = unpack_grid(plain[2].numpy(), methods, g)
+        else:
+            card_rows = dict(zip(methods, stack[2:].cpu()))
+            cpu_rows = dict(zip(methods, plain[2:].numpy()))
+        for m in methods:
+            a = card_rows[m].int()
+            b = torch.from_numpy(np.asarray(cpu_rows[m])).int()
+            check(a.shape == b.shape == (480 // g, 640 // g, 3),
+                  f"{m} tile shape")
+            d = (a - b).abs()
+            equal = float((d == 0).float().mean())
+            print(f"[32 denoisers vs CPU] grid_scale {g} {m} "
+                  f"{tuple(a.shape)}: uint8 max difference {int(d.max())}, "
+                  f"equal {equal:.6f}; spread {int(a.max()) - int(a.min())}")
+            check(int(a.max()) - int(a.min()) > 64, f"{m}: nonblank")
+            if m in ("gaussian", "median"):
+                check(int(d.max()) == 0, f"{m} grid_scale {g}: uint8 equal")
+            else:
+                check(int(d.max()) <= 1 and equal >= 0.999,
+                      f"{m} grid_scale {g}: uint8 within 1, 99.9% equal")
+        print(f"[32 denoisers vs CPU] grid_scale {g}: the CPU's stack took "
+              f"{time.perf_counter() - t0:.1f} s")
+    disp = tone_map(acc, EXPOSURE)
+    small = disp.reshape(240, 2, 320, 2, 3).mean(dim=(1, 3))
+    denoise_ms = {}
+    for m in methods:
+        for label, img in (("640x480", disp), ("320x240", small)):
+            denoise_ms[m, label] = on_card(
+                f"{m} {label}", lambda i, m=m, img=img: _apply_method(m, img),
+                32)
+    for g in (2, 1):
+        denoise_ms["display_stack", g] = on_card(
+            f"display_stack, 4 methods, grid_scale {g}, uint8",
+            lambda i, g=g: display_stack(acc, EXPOSURE, methods=methods,
+                                         as_uint8=True, grid_scale=g), 32)
+
+    # ---- 33. first-hit AOVs and the joint denoiser ----
+    # render_aovs makes its rays on the scene's device; the card's must be
+    # the CPU's, bit for bit (pixel_uv divides by device tensors)
+    from tpu_rt_torch.core import camera as cammod
+
+    def rays_on(device, cam_):
+        u_, v_ = cammod.pixel_uv(640, 480, None, device=device)
+        return u_, v_, cammod.generate_rays(cam_, u_.reshape(-1),
+                                            v_.reshape(-1))[1]
+
+    cam_g = cam_for(640, 480)
+    card_rays = [t.cpu() for t in rays_on(dev, cam_g)]
+    host_rays = rays_on("cpu", cpu_copy(cam_g))
+    n_off = [int((a != b).sum()) for a, b in zip(card_rays, host_rays)]
+    print(f"[33 rays] made on the card and on the CPU: {n_off[0]} of "
+          f"{host_rays[0].numel()} pixel u and {n_off[1]} v coordinates and "
+          f"{n_off[2]} of {host_rays[2].numel()} ray direction components "
+          "differ")
+    check(sum(n_off) == 0, "the card's primary rays equal the CPU's")
+    c_acc = render_megakernel(cs, cornell_cam(640, 480), 7, mesh=cm,
+                              **CORNELL_ACTIVE, **INTERACTIVE)
+    aov_ms = {}
+    for label, spheres, mesh, cam_a, img in (
+            ("demo scene", scene, None, cam_for(640, 480), disp),
+            ("Cornell box", cs, cm, cornell_cam(640, 480),
+             tone_map(c_acc, EXPOSURE))):
+        a = render_aovs(spheres, cam_a, 640, 480, mesh=mesh)
+        b = render_aovs(cpu_copy(spheres), cpu_copy(cam_a), 640, 480,
+                        mesh=cpu_copy(mesh))
+        same = (a["hit"].cpu() == b["hit"]) & (a["object_id"].cpu()
+                                                == b["object_id"])
+        share = float(same.float().mean())
+        gaps = {k: float((a[k].cpu()[same] - b[k][same]).abs().max())
+                for k in ("normal", "albedo")}
+        gaps["depth (relative)"] = float(
+            ((a["depth"].cpu()[same] - b["depth"][same]).abs()
+             / b["depth"][same].abs().clamp_min(1.0)).max())
+        print(f"[33 AOVs vs CPU] {label} 640x480: hit and object id equal in "
+              f"{share:.6f} of the pixels "
+              f"({float(b['hit'].float().mean()):.3f} hit); largest gaps "
+              f"where they agree {gaps}")
+        check(share >= 0.9999, f"{label} AOVs: hit and object id 99.99%")
+        check(max(gaps.values()) <= 1e-5, f"{label} AOVs within 1e-5")
+        joint = Denoiser().denoise(img, "joint", aovs=a)
+        joint_cpu = Denoiser(device="cpu").denoise(img.cpu(), "joint",
+                                                   aovs=b)
+        d = np.abs(joint - joint_cpu)
+        within = float((d <= 1e-5).mean())
+        print(f"[33 joint vs CPU] {label}: max {d.max():.3g}, within 1e-5 "
+              f"{within:.6f}")
+        check(joint.shape == (480, 640, 3) and bool(np.isfinite(joint).all()),
+              f"{label}: joint denoiser output")
+        check(d.max() <= 1 / 255 and within >= 0.999,
+              f"{label}: joint denoiser on the card vs the CPU")
+        aov_ms[label] = on_card(
+            f"render_aovs {label} 640x480",
+            lambda i, s_=spheres, c_=cam_a, m_=mesh: render_aovs(
+                s_, c_, 640, 480, mesh=m_), 33)
+        aov_ms["joint " + label] = on_card(
+            f"joint bilateral {label} 640x480",
+            lambda i, img=img, a=a: Denoiser().denoise(img, "joint", aovs=a),
+            33)
+    aov_ms["demo scene 320x240"] = on_card(
+        "render_aovs demo scene 320x240",
+        lambda i: render_aovs(scene, cam_for(320, 240), 320, 240), 33)
+
     mega["name"] = "megakernel-spheres"
-    print(f"[32 done] all phases passed in {time.perf_counter() - t_start:.1f}"
+    print(f"[34 done] all phases passed in {time.perf_counter() - t_start:.1f}"
           " s")
-    print(json.dumps({"kernels": [mega, mega_tri, cluster, cluster_tri,
-                                  mega_flags, cluster_flags, mega_nee,
-                                  cluster_nee, mega_mask, cluster_mask]}))
+    kernels = [mega, mega_tri, cluster, cluster_tri, mega_flags,
+               cluster_flags, mega_nee, cluster_nee, mega_mask, cluster_mask,
+               fma_entry]
+    for e in kernels:
+        check(e["ms"] >= e["bound_ms"], f"{e['name']}: {e['ms']:.4f} ms is "
+              f"no less than its bound {e['bound_ms']:.4f} ms")
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

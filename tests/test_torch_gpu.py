@@ -1,8 +1,11 @@
 """tpu_rt_torch on an NVIDIA GPU: the CUDA megakernel and cluster kernel
 against their plain PyTorch versions, with and without triangle meshes and
 with refraction, thin-lens DOF, R2 stratification, next-event estimation,
-linear output, adaptive tile masks and bands of rows, their RMSE of means against the JAX package's N=4096
-goldens, and the display at 4K UHD.
+linear output, adaptive tile masks and bands of rows, their RMSE of means
+against the JAX package's N=4096 goldens, and the display at 4K UHD; the
+FMA microkernel (K3) against its plain version and the measured f32 rate
+against the theoretical; the denoiser bank and the first-hit AOVs on the
+card against the CPU.
 
 Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is
 False. Imports no jax, so it runs on a machine with torch alone:
@@ -24,8 +27,11 @@ from tpu_rt_torch.ops.cluster import (
 from tpu_rt_torch.ops.megakernel import (
     render_megakernel, render_megakernel_reference)
 from tpu_rt_torch.ops.triangle import box, merge_meshes
-from tpu_rt_torch.render.display import display_stack
+from tpu_rt_torch.app.denoiser import Denoiser
+from tpu_rt_torch.render.aov import render_aovs
+from tpu_rt_torch.render.display import display_stack, unpack_grid
 from tpu_rt_torch.render.frame import cluster_tile_map
+from tpu_rt_torch.utils import roofline as rl
 
 pytestmark = pytest.mark.cuda
 
@@ -486,3 +492,115 @@ def test_display_stack_at_4k_uhd(dev):
     np.testing.assert_allclose(stack[1].cpu().numpy(),
                                np.clip((disp - lo) / (hi - lo), 0.0, 1.0),
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (40_000,)],
+                         ids=["one_tpu_block", "40k"])
+@pytest.mark.parametrize("depth", [0, 8, 64, 1000])
+def test_fma_kernel_matches_plain(dev, shape, depth):
+    """K3 rounds each step once (__fmaf_rn), the plain version in float64
+    once: bit for bit."""
+    x = torch.from_numpy(np.random.default_rng(depth).uniform(
+        0.25, 1.0, shape).astype(np.float32)).to(dev)
+    before = rl.fma_chains.launches
+    a = rl.fma_chains(x, depth)
+    b = rl.fma_chains_reference(x, depth)
+    torch.cuda.synchronize(dev)
+    assert rl.fma_chains.launches == before + 1
+    assert a.shape == x.shape and a.device == dev
+    assert torch.equal(a, b), int((a != b).sum())
+
+
+def test_measured_fma_rate_near_theoretical(dev):
+    attrs = rl.card_fp32(dev)
+    assert attrs.sms > 0 and attrs.clock_khz > 0
+    assert attrs.fma_blocks_per_sm >= 1
+    slope = rl.measure_fma_ops(device=dev)
+    assert slope.launches == rl.FMA_WARMUP + 10
+    rate = slope.ops_per_s
+    peak = rl.theoretical_fp32_ops(dev)
+    assert peak == attrs.sms * 128 * attrs.clock_khz * 1e3
+    assert 0.5 <= rate / peak <= 1.05, (rate, peak)
+
+
+def denoised_rows_agree(kernel_rows, plain_rows, methods):
+    """Each method's uint8 rows on the card against the CPU's: gaussian and
+    median equal; bilateral and nlmeans (exp rounds apart on the two
+    devices) within 1 and equal in 99.9% of the values."""
+    for m, a, b in zip(methods, kernel_rows, plain_rows):
+        d = (a.cpu().int() - b.int()).abs()
+        if m in ("gaussian", "median"):
+            assert int(d.max()) == 0, m
+        else:
+            assert int(d.max()) <= 1, m
+            assert float((d == 0).float().mean()) >= 0.999, m
+
+
+@pytest.mark.parametrize("grid_scale", [1, 2])
+def test_display_stack_denoisers_cuda_vs_cpu(dev, scene, grid_scale):
+    methods = ("bilateral", "nlmeans", "gaussian", "median")
+    cam = tpu_rt_torch.make_camera(aspect=320 / 240, device=dev)
+    acc = render_megakernel(scene, cam, 5, width=320, height=240, spp=8,
+                            max_depth=4, n_active=N_ACTIVE)
+    ours = display_stack(acc, 1.5, methods=methods, as_uint8=True,
+                         grid_scale=grid_scale)
+    plain = display_stack(acc.cpu(), 1.5, methods=methods, as_uint8=True,
+                          grid_scale=grid_scale)
+    assert ours.device == dev and ours.dtype == torch.uint8
+    assert torch.equal(ours[:2].cpu(), plain[:2])
+    if grid_scale == 1:
+        rows = (ours[2:], plain[2:])
+    else:
+        q, p = (unpack_grid(s[2], methods, grid_scale) for s in (ours, plain))
+        rows = ([q[m] for m in methods],
+                                     [p[m] for m in methods])
+    denoised_rows_agree(*rows, methods)
+
+
+@pytest.mark.parametrize("which", ["demo", "cornell"])
+def test_render_aovs_cuda_vs_cpu(dev, which):
+    if which == "demo":
+        spheres, mesh = tpu_rt_torch.demo_scene(device=dev), None
+        pose = {}
+    else:
+        spheres, mesh = cornell_box(device=dev)
+        pose = CORNELL_POSE
+    cam = tpu_rt_torch.make_camera(aspect=320 / 240, device=dev, **pose)
+    to_cpu = (lambda t: None if t is None
+              else type(t)(*(f.cpu() for f in t)))
+    a = render_aovs(spheres, cam, 320, 240, mesh=mesh)
+    b = render_aovs(to_cpu(spheres), to_cpu(cam), 320, 240,
+                    mesh=to_cpu(mesh))
+    assert a["depth"].device == dev
+    same = (a["hit"].cpu() == b["hit"]) & (a["object_id"].cpu()
+                                            == b["object_id"])
+    assert float(same.float().mean()) >= 0.9999
+    torch.testing.assert_close(a["depth"].cpu()[same], b["depth"][same],
+                               rtol=1e-5, atol=0)
+    for k in ("normal", "albedo"):
+        torch.testing.assert_close(a[k].cpu()[same], b[k][same], rtol=0,
+                                   atol=1e-5)
+    img = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (240, 320, 3)).astype(np.float32))
+    joint = Denoiser(device=dev).denoise(img, "joint", aovs=a)
+    joint_cpu = Denoiser(device="cpu").denoise(img, "joint", aovs=b)
+    d = np.abs(joint - joint_cpu)
+    assert d.max() <= 1 / 255 and (d <= 1e-5).mean() >= 0.999
+
+
+@pytest.mark.parametrize("size", [(640, 480), (320, 240), (1920, 1080)],
+                         ids=["640x480", "320x240", "1080p"])
+def test_pixel_uv_and_rays_cuda_equal_cpu(dev, size):
+    """The AOVs' pixel-centre rays made on the card equal the CPU's bit for
+    bit (pixel_uv divides by device tensors, a true division on both)."""
+    from tpu_rt_torch.core import camera as cammod
+
+    w, h = size
+    cam = tpu_rt_torch.make_camera(aspect=w / h, device=dev)
+    u, v = cammod.pixel_uv(w, h, None, device=dev)
+    uc, vc = cammod.pixel_uv(w, h, None, device="cpu")
+    assert torch.equal(u.cpu(), uc) and torch.equal(v.cpu(), vc)
+    d = cammod.generate_rays(cam, u.reshape(-1), v.reshape(-1))[1]
+    dc = cammod.generate_rays(type(cam)(*(f.cpu() for f in cam)),
+                              uc.reshape(-1), vc.reshape(-1))[1]
+    assert torch.equal(d.cpu(), dc), int((d.cpu() != dc).sum())

@@ -42,7 +42,9 @@ def test_every_module_imports_without_jax():
             "tpu_rt_torch.app.run", "tpu_rt_torch.kernels.build",
             "tpu_rt_torch.utils.profiling", "tpu_rt_torch.ops.triangle",
             "tpu_rt_torch.core.scenes", "tpu_rt_torch.utils.objio",
-            "tpu_rt_torch.utils.convert"} <= set(SLICE_MODULES)
+            "tpu_rt_torch.utils.convert", "tpu_rt_torch.utils.roofline",
+            "tpu_rt_torch.ops.post", "tpu_rt_torch.app.denoiser",
+            "tpu_rt_torch.render.aov"} <= set(SLICE_MODULES)
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_IMPORT, *SLICE_MODULES],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -71,6 +73,8 @@ def test_cuda_timer_refuses_cpu():
         profiling.cuda_frame_ms(lambda i: None, 3, device="cpu")
     with pytest.raises(RuntimeError):
         profiling.device_ms_by_kernel(lambda i: None, 3, device="cpu")
+    with pytest.raises(RuntimeError):
+        profiling.device_work(lambda i: None, 3, device="cpu")
     assert profiling.traced_mrays_per_s(2_000_000, 2.0) == 1000.0
 
 
@@ -86,7 +90,7 @@ def test_library_name_follows_sources_and_flags(monkeypatch, tmp_path):
     first = build.library_path()
     assert first == build.library_path()
     assert first.parent == build.BUILD_DIR
-    assert [s.name for s in build.sources()] == ["cluster.cu",
+    assert [s.name for s in build.sources()] == ["cluster.cu", "fma.cu",
                                                  "megakernel.cu"]
     assert [h.name for h in build.headers()] == ["path_common.cuh"]
     # a copy of the sources names the same library; a changed header or

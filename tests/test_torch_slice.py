@@ -101,9 +101,15 @@ def test_display_stack_matches_jax(enhance):
 
 
 def test_display_stack_denoisers_not_ported():
-    with pytest.raises(NotImplementedError):
-        display.display_stack(torch.zeros(4, 4, 3), 1.5,
-                              methods=("bilateral",))
+    """The denoisers are ported: a bilateral row on a 4x4 image (its
+    9-wide window reflects past the edge) equals the JAX package's."""
+    a = np.random.default_rng(2).uniform(0, 1.5, (4, 4, 3)).astype(np.float32)
+    ours = display.display_stack(torch.from_numpy(a), 1.5,
+                                 methods=("bilateral",)).numpy()
+    ref = np.asarray(j_display.display_stack(jnp.asarray(a), 1.5,
+                                             methods=("bilateral",)))
+    assert ours.shape == ref.shape == (3, 4, 4, 3)
+    np.testing.assert_allclose(ours[2], ref[2], rtol=0, atol=1e-5)
 
 
 MASK = torch.ones(1, dtype=torch.int32)

@@ -79,7 +79,10 @@ def pixel_uv(width: int, height: int, jitter: torch.Tensor | None = None, *,
     """Screen-space (u, v) for every pixel, shape (height, width).
 
     ``jitter`` is an optional (height, width, 2) tensor in [0, 1); None
-    shoots pixel centers (0.5)."""
+    shoots pixel centers (0.5). The sizes divide as tensors on ``device``:
+    PyTorch's CUDA kernels divide by a Python scalar as a multiply by its
+    reciprocal, which rounds a fifth of the coordinates apart from the
+    CPU's (and JAX's) true division."""
     jj, ii = torch.meshgrid(
         torch.arange(height, dtype=torch.float32, device=device),
         torch.arange(width, dtype=torch.float32, device=device),
@@ -90,4 +93,5 @@ def pixel_uv(width: int, height: int, jitter: torch.Tensor | None = None, *,
     else:
         xu = jitter[..., 0]
         xv = jitter[..., 1]
-    return (ii + xu) / width, (jj + xv) / height
+    w, h = (torch.tensor(float(n), device=device) for n in (width, height))
+    return (ii + xu) / w, (jj + xv) / h

@@ -36,12 +36,19 @@ def length(a: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(length_squared(a))
 
 
+def rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """1 / sqrt(x), rounded as the CUDA kernels' ``1.0f / sqrtf``.
+    torch.rsqrt rounds as that on the CPU, but on CUDA it is rsqrtf, up to
+    2 ulp off, which turns paths at silhouettes; there this divides."""
+    return torch.rsqrt(x) if x.device.type == "cpu" else 1.0 / torch.sqrt(x)
+
+
 def normalize(a: torch.Tensor) -> torch.Tensor:
     """Safe normalize: a zero-length vector maps to +Z (the v2 core's
     convention), so nothing downstream sees a NaN."""
     sq = length_squared(a)[..., None]
     ok = sq > _EPS
-    out = a * torch.rsqrt(torch.where(ok, sq, torch.ones_like(sq)))
+    out = a * rsqrt(torch.where(ok, sq, torch.ones_like(sq)))
     fallback = torch.zeros_like(out)
     fallback[..., 2] = 1.0
     return torch.where(ok, out, fallback)

@@ -13,7 +13,9 @@ Fast-math is never used: the kernels rely on IEEE NaN compares. Nor is
 multiply-add contraction (``--fmad=false``): every product and sum rounds
 as in the plain PyTorch versions, so a kernel and its plain version agree
 bit for bit on the card. (Contracted FMAs round hit points differently by
-an ulp, which turns a fraction of a percent of paths at silhouettes.)
+an ulp, which turns a fraction of a percent of paths at silhouettes.) The
+FMA microkernel (``csrc/fma.cu``) writes its FMAs as ``__fmaf_rn``
+intrinsics, which the flag leaves whole.
 """
 
 from __future__ import annotations
@@ -45,6 +47,8 @@ SIGNATURES = {
     "tpurt_cluster_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P,
                              _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tpurt_fma_launch": [_P, _P, _I, _I, _P],
+    "tpurt_fma_device": [_I, _P, _P, _P],
 }
 
 

@@ -218,15 +218,8 @@ def _finish(img, segs, n_pix, n_tiles, with_stats):
     return img, (total * scale).to(torch.int32)
 
 
-def _rsqrt(x):
-    # The kernels take 1.0f / sqrtf. torch.rsqrt rounds as that on the CPU
-    # (and as XLA:CPU's rsqrt), but on CUDA it is rsqrtf, up to 2 ulp off,
-    # which turns paths at silhouettes; there the plain version divides.
-    return torch.rsqrt(x) if x.device.type == "cpu" else 1.0 / torch.sqrt(x)
-
-
 def _normalize3(x, y, z):
-    inv = _rsqrt(torch.clamp_min(x * x + y * y + z * z, 1e-20))
+    inv = vm.rsqrt(torch.clamp_min(x * x + y * y + z * z, 1e-20))
     return x * inv, y * inv, z * inv
 
 
@@ -341,7 +334,7 @@ def shade_plain(state, best_t, w, bg, depth_idx, U, face=None,
         cdx, cdy, cdz = nx + sx, ny + sy, nz + sz
         l2 = cdx * cdx + cdy * cdy + cdz * cdz
         deg = l2 < 1e-12
-        inv = _rsqrt(torch.clamp_min(l2, 1e-20))
+        inv = vm.rsqrt(torch.clamp_min(l2, 1e-20))
         fx = torch.where(deg, nx, cdx * inv)
         fy = torch.where(deg, ny, cdy * inv)
         fz = torch.where(deg, nz, cdz * inv)
@@ -419,7 +412,7 @@ def _direct_light(nee, diffuse, h, n, thr, albedo, col, U):
     cos_t = 1.0 - xi1 * (1.0 - cos_max)
     sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
     phi_l = _TWO_PI * xi2
-    inv_dl = _rsqrt(d2)
+    inv_dl = vm.rsqrt(d2)
     wx, wy, wz = tlx * inv_dl, tly * inv_dl, tlz * inv_dl
     # orthonormal basis around w (branchless axis pick)
     big = torch.abs(wx) > 0.9

@@ -2,10 +2,11 @@
 
 Counterpart of ``tpu_rt/ops/triangle.py`` for what the Pallas engines read:
 ``TriangleMesh``, the bucket sizes, ``make_mesh``, ``merge_meshes``,
-``tri_attribute_matrix``, ``quad`` and ``box``. The geometry is built in
-numpy exactly as the JAX package builds it (``np.cross``,
-``np.linalg.norm``, the same padding fills), then moved to the requested
-device, so both packages hold bit-equal fields. The dense and LBVH
+``tri_attribute_matrix``, ``quad`` and ``box``, and the dense closest-hit
+sweep the first-hit AOVs use (``triangle_ts``, ``intersect_mesh_brute``).
+The geometry is built in numpy exactly as the JAX package builds it
+(``np.cross``, ``np.linalg.norm``, the same padding fills), then moved to
+the requested device, so both packages hold bit-equal fields. The LBVH
 intersectors of that module serve the lax integrator and are not ported
 yet (ROADMAP.md Queue 1, lax integrator).
 """
@@ -17,10 +18,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.types import host_tensor
+from ..core import vecmath as vm
+from ..core.types import T_MAX, T_MIN, host_tensor
+from .intersect import Hit, _fetch, _first_hit_onehot, outer_dot
 
 # Minimum padded triangle bucket.
 MIN_TRI_BUCKET = 128
+# |det| below which a ray counts as parallel to a triangle
+DET_EPS = 1e-9
 
 
 class TriangleMesh(NamedTuple):
@@ -157,6 +162,73 @@ def tri_attribute_matrix(mesh: TriangleMesh) -> torch.Tensor:
             zeros, zeros, zeros,                            # 13:16 pad
         ],
         dim=-1,
+    )
+
+
+def triangle_ts(
+    mesh: TriangleMesh,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    t_min: float = T_MIN,
+    t_max: float = T_MAX,
+) -> torch.Tensor:
+    """Hit parameter per (ray, triangle), T_MAX where none, by the JAX
+    package's decomposition of Moller-Trumbore into (R, 3) x (3, T)
+    products (written out as in ``ops/intersect.py:outer_dot``).
+    origins/directions: (R, 3) -> (R, T)."""
+    n = vm.cross(mesh.e1, mesh.e2)             # (T, 3) unnormalized
+    e2xv0 = vm.cross(mesh.e2, mesh.v0)
+    e1xv0 = vm.cross(mesh.e1, mesh.v0)
+    v0n = vm.dot(mesh.v0, n)                   # (T,)
+    oxd = vm.cross(origins, directions)        # (R, 3)
+
+    det = -outer_dot(directions, n)            # (R, T)
+    t_num = outer_dot(origins, n) - v0n[None, :]
+    u_num = outer_dot(oxd, mesh.e2) - outer_dot(directions, e2xv0)
+    v_num = -outer_dot(oxd, mesh.e1) + outer_dot(directions, e1xv0)
+
+    ok_det = torch.abs(det) > DET_EPS
+    inv = torch.where(ok_det, 1.0 / torch.where(ok_det, det,
+                                                torch.ones_like(det)),
+                      torch.zeros_like(det))
+    t = t_num * inv
+    u = u_num * inv
+    v = v_num * inv
+    ok = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+          & (t >= t_min) & (t <= t_max) & mesh.valid[None, :])
+    return torch.where(ok, t, torch.full_like(t, T_MAX))
+
+
+def intersect_mesh_brute(
+    mesh: TriangleMesh,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    t_min: float = T_MIN,
+    t_max: float = T_MAX,
+    attr: torch.Tensor | None = None,
+):
+    """Closest triangle hit as ``ops/intersect.py:Hit``; the normal is the
+    face normal flipped to oppose the ray."""
+    if attr is None:
+        attr = tri_attribute_matrix(mesh)
+    ts = triangle_ts(mesh, origins, directions, t_min, t_max)
+    t = ts.amin(dim=-1)
+    hit = t < T_MAX
+    fetched = _fetch(_first_hit_onehot(ts, t), attr)
+
+    n = fetched[:, 0:3]
+    facing = (vm.dot(n, directions) < 0.0)[:, None]
+    n = torch.where(facing, n, -n)
+    return Hit(
+        hit=hit,
+        t=torch.where(hit, t, torch.full_like(t, T_MAX)),
+        normal=n,
+        albedo=fetched[:, 3:6],
+        metallic=fetched[:, 6],
+        roughness=fetched[:, 7],
+        emission=fetched[:, 8:11],
+        ior=fetched[:, 11],
+        object_id=torch.where(hit, fetched[:, 12], torch.full_like(t, -1.0)),
     )
 
 

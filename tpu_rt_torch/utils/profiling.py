@@ -36,17 +36,15 @@ def cuda_frame_ms(fn: Callable[[int], object], frames: int = 7, *,
     return [events[i].elapsed_time(events[i + 1]) for i in range(frames)]
 
 
-def device_ms_by_kernel(fn: Callable[[int], object], frames: int = 5, *,
-                        device) -> dict:
-    """Device time per frame of each CUDA kernel ``fn`` launches, in ms,
-    from a ``torch.profiler`` trace of ``frames`` chained calls (after one
-    warm-up call). Empty when the profiler recorded no device activity."""
+def _device_events(fn: Callable[[int], object], frames: int, device):
+    """The CUDA kernel events of a ``torch.profiler`` trace of ``frames``
+    chained calls ``fn(i)``, after one warm-up call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     device = torch.device(device)
     if device.type != "cuda":
-        raise RuntimeError(f"device_ms_by_kernel profiles CUDA, not {device}")
+        raise RuntimeError(f"the profiler traces CUDA here, not {device}")
     fn(-1)
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
@@ -54,11 +52,28 @@ def device_ms_by_kernel(fn: Callable[[int], object], frames: int = 5, *,
         for i in range(frames):
             fn(i)
         torch.cuda.synchronize(device)
+    return [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+
+
+def device_ms_by_kernel(fn: Callable[[int], object], frames: int = 5, *,
+                        device) -> dict:
+    """Device time per frame of each CUDA kernel ``fn`` launches, in ms,
+    from a ``torch.profiler`` trace of ``frames`` chained calls (after one
+    warm-up call). Empty when the profiler recorded no device activity."""
     out: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            out[ev.name] = out.get(ev.name, 0.0) + ev.device_time_total / 1e3
+    for ev in _device_events(fn, frames, device):
+        out[ev.name] = out.get(ev.name, 0.0) + ev.device_time_total / 1e3
     return {k: v / frames for k, v in out.items()}
+
+
+def device_work(fn: Callable[[int], object], frames: int = 5, *,
+                device) -> tuple[float, float]:
+    """(device ms, device activities) per frame of ``fn``, summed over
+    every kernel and copy it queues, from the same trace as
+    :func:`device_ms_by_kernel`."""
+    evs = _device_events(fn, frames, device)
+    return (sum(ev.device_time_total for ev in evs) / 1e3 / frames,
+            len(evs) / frames)
 
 
 def traced_mrays_per_s(segments: int, ms: float) -> float:
