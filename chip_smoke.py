@@ -49,9 +49,21 @@ counts, checks the 1/sqrt(N) convergence of its means, and times it:
   the same stack on the CPU, and the first-hit AOVs (render_aovs) of the
   demo scene and the Cornell box with the joint denoiser, held against the
   CPU; device times of each.
+* the cluster kernel's walk: vecmath.sqrt on the card against numpy's IEEE
+  square root, the tie scene (core/scenes.py:tie_scene, equal hits in two
+  clusters) kernel against plain, the counting instantiation's visit
+  counts against walk_visits_reference in every instantiation and at 100k
+  spheres, a frame's samples in chunks against one chunk and the plain
+  version, and the counting kernel against the timed one at the 100k-sphere
+  NEE shapes where a counting build with counters in registers faulted.
 
 Each kernel must agree with its plain version bit for bit, segment counts
-included. Every phase raises on failure. The last line of standard output
+included. Every cluster-kernel bound counts the walk its frame did (the
+counting instantiation's slab and primitive tests, utils/roofline.py:
+cluster_op_model); each K2 timing prints what the walk visited per segment,
+its ns per visit and, beside the bound, a floor that does not depend on the
+walk (``floor_ms``: ray setup, globals and super-super slab tests per
+segment). Every phase raises on failure. The last line of standard output
 is one JSON object naming the card; the line before it holds the card's
 name and power limit, and the one before that the per-kernel JSON summary:
 there ``ms`` is the kernel's device time per frame as torch.profiler
@@ -365,13 +377,14 @@ def main() -> int:
         render_cluster_reference)
     from tpu_rt_torch.ops.megakernel import (
         render_megakernel, render_megakernel_reference)
+    import tpu_rt_torch.ops.cluster as cluster_mod
     from tpu_rt_torch.render.display import display_stack
     from tpu_rt_torch.render.frame import accumulate, render
     from tpu_rt_torch.utils.profiling import (
         cuda_frame_ms, device_ms_by_kernel, traced_mrays_per_s)
     from tpu_rt_torch.utils.roofline import (
-        RAY_SETUP_OPS, SLAB_TEST_OPS, SPHERE_TEST_OPS, TRI_TEST_OPS,
-        bound_ms, megakernel_bytes, path_ops)
+        SPHERE_TEST_OPS, TRI_TEST_OPS, bound_ms, cluster_floor_per_segment,
+        cluster_op_model, megakernel_bytes, path_ops)
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -406,10 +419,50 @@ def main() -> int:
         return {"bound_ms": b_ms, "bound_by": b_by,
                 "bound_ms_measured": bound_ms(ops, nbytes, fma_rate)[0]}
 
+    def k2_floor(tab, tri_tab=None):
+        """Per-segment f32 operations of K2's walk-independent floor."""
+        return cluster_floor_per_segment(
+            tab.n_global, tab.n_ss,
+            *(() if tri_tab is None else (tri_tab.n_global, tri_tab.n_ss)))
+
+    def floor_text(bnd):
+        return (f"walk-independent floor {bnd['floor_ms']:.4f} ms (ray setup, "
+                "globals and super-super slab tests per segment; the gate "
+                "holds the kernel to the counted bound)")
+
     def bound_text(bnd):
         return (f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, at the "
                 f"theoretical rate; {bnd['bound_ms_measured']:.4f} ms at K3's "
                 "measured rate)")
+
+    def walk_stats(visits, segs, k_ms):
+        """What a K2 frame's walk visited (the counting instantiation's
+        (n_tiles, 2, 7) counts): per segment, for path and shadow rays, the
+        slab tests by level and the primitive tests; ns per visit (slab or
+        primitive test) at the kernel's time; and the lanes a warp-issued
+        primitive test carries on average (32: no divergence)."""
+        tot = visits.sum(dim=0).tolist()
+        n = max(segs, 1)
+        per = {kind: {c: v / n for c, v in zip(cluster_mod.VISIT_COLS, row)}
+               for kind, row in zip(cluster_mod.VISIT_KINDS, tot)}
+        tests = sum(sum(row[:6]) for row in tot)
+        prims = sum(row[4] + row[5] for row in tot)
+        warps = sum(row[6] for row in tot)
+        return {"visits_per_segment": per,
+                "ns_per_visit": k_ms * 1e6 / max(tests, 1),
+                "lanes_per_warp_test": prims / max(warps, 1)}
+
+    def walk_text(w):
+        def kind(k):
+            v = w["visits_per_segment"][k]
+            return (f"{k} slab {v['ss']:.2f}/{v['super']:.2f}/"
+                    f"{v['cluster']:.2f}/{v['group']:.2f} (ss/super/cluster/"
+                    f"group), spheres {v['sphere']:.2f}, triangles "
+                    f"{v['tri']:.2f}")
+        return (f"per segment {kind('path')}; {kind('shadow')}; "
+                f"{w['ns_per_visit']:.4f} ns per visit; "
+                f"{w['lanes_per_warp_test']:.1f} lanes per warp-issued "
+                "primitive test")
 
     scene = tpu_rt_torch.demo_scene(device=dev)
 
@@ -663,29 +716,36 @@ def main() -> int:
     # ---- 12. timing ----
     def cluster_timing(label, fn, seg_fn, n_pix, spp, tables_):
         """Frame ms over chained frames, cluster device ms, idle share,
-        segments/frame and traced Mrays/s of ``fn``; returns the kernel's
-        device ms, segments and bound."""
+        segments/frame and traced Mrays/s of ``fn``; ``seg_fn()`` gives
+        (segments, visit counts) from the counting instantiation, which the
+        bound counts (utils/roofline.py:cluster_op_model). Returns the
+        kernel's device ms, CUDA-event ms, frame ms and bound (with the
+        walk's visits)."""
         frame = statistics.median(cuda_frame_ms(fn, 7, device=dev)
                                   + cuda_frame_ms(fn, 7, device=dev))
         by_kernel = device_ms_by_kernel(fn, 5, device=dev)
         k_ms = kernel_ms(by_kernel, "cluster_kernel")
         check(k_ms > 0, f"{label}: torch.profiler recorded the cluster kernel")
         ev_ms = event_kernel_ms(lib, "tpurt_cluster_launch", fn, 20, dev)
-        segs = int(seg_fn())
-        per_segment = (tables_.n_global * SPHERE_TEST_OPS + RAY_SETUP_OPS
-                       + tables_.n_ss * SLAB_TEST_OPS)
-        ops = path_ops(segs, n_pix, spp, per_segment)
+        segs, visits = seg_fn()
+        segs = int(segs)
+        ops = cluster_op_model(segs, visits, n_pix, spp)
         nbytes = (sum(t.numel() * t.element_size() for t in tables_)
                   + 16 * 4 + n_pix * 12)
-        bnd = bounds(ops, nbytes)
+        bnd = dict(bounds(ops, nbytes), **walk_stats(visits, segs, k_ms))
+        bnd["floor_ms"] = bound_ms(path_ops(segs, n_pix, spp,
+                                            k2_floor(tables_)),
+                                   nbytes, fp32_peak)[0]
         print(f"[12 timing] {label} on {card}: frame {frame:.4f} ms (median "
               f"of 2x7 chained frames), cluster kernel {k_ms:.4f} ms "
               f"(profiler; CUDA events over 20 launches {ev_ms:.4f} ms); "
               f"{segs} segments/frame; traced Mrays/s frame "
               f"{traced_mrays_per_s(segs, frame):.1f}, kernel "
               f"{traced_mrays_per_s(segs, k_ms):.1f}; {bound_text(bnd)} "
-              f"(G {tables_.n_global}, S2 {tables_.n_ss}: loose, the walk "
-              f"below the super-supers depends on the data)")
+              f"({ops / 1e9:.3f} G f32 ops, the walk counted), "
+              f"{bnd['bound_ms'] / k_ms:.4f} of the bound's rate; "
+              f"{floor_text(bnd)}")
+        print(f"[12 walk] {label}: {walk_text(bnd)}")
         print("[12 device] " + device_line(label, by_kernel, frame,
                                            "cluster_kernel"))
         return k_ms, ev_ms, frame, bnd
@@ -698,7 +758,8 @@ def main() -> int:
     cluster_timing(
         "(a) 10k spheres 1080p/4spp/d4",
         lambda i: render_cluster(None, cam_a, 200 + i, **kw_a),
-        lambda: render_cluster(None, cam_a, 0, with_stats=True, **kw_a)[1],
+        lambda: render_cluster(None, cam_a, 0, with_stats=True,
+                               with_visits=True, **kw_a)[1:],
         BENCH["width"] * BENCH["height"], BENCH["spp"], tab_a)
     # (b) the main path at the GUI's settings
     tab_b = tables
@@ -709,7 +770,8 @@ def main() -> int:
                                    INTERACTIVE["max_depth"]),
         lambda: render_cluster(None, rt.camera.to_params(dev), 0,
                                prebuilt=tab_b, pre_ordered=True,
-                               with_stats=True, **INTERACTIVE)[1],
+                               with_stats=True, with_visits=True,
+                               **INTERACTIVE)[1:],
         INTERACTIVE["width"] * INTERACTIVE["height"], INTERACTIVE["spp"],
         tab_b)
     # (c) 100k spheres, kernel only
@@ -724,7 +786,8 @@ def main() -> int:
     cluster_timing(
         "(c) 100k spheres 1080p/4spp/d4",
         lambda i: render_cluster(None, cam_a, 300 + i, **kw_c),
-        lambda: render_cluster(None, cam_a, 0, with_stats=True, **kw_c)[1],
+        lambda: render_cluster(None, cam_a, 0, with_stats=True,
+                               with_visits=True, **kw_c)[1:],
         BENCH["width"] * BENCH["height"], BENCH["spp"], tab_c)
     # the plain version, at 256x128 only: its sweep is O(N) per ray
     tab_p = order_clusters(build_clusters(big, n_active=BIG["n"]),
@@ -754,7 +817,6 @@ def main() -> int:
                "256x128/4spp/d4", "frame_ms_at_plain_shape": ms_p["kernel"]}
 
     # ================= triangle meshes =====================================
-    import tpu_rt_torch.ops.cluster as cluster_mod
     from tpu_rt_torch.app import run as app_run
     from tpu_rt_torch.core.scenes import cornell_box, terrain_mesh
     from tpu_rt_torch.ops.cluster import build_tri_clusters
@@ -985,7 +1047,11 @@ def main() -> int:
                     nbytes, flags=None, phase=17):
         """Frame ms, kernel device ms, idle share, segments/frame, traced
         Mrays/s and the bound of ``fn``; returns (kernel ms (profiler),
-        kernel ms (CUDA events), frame ms, :func:`bounds`)."""
+        kernel ms (CUDA events), frame ms, :func:`bounds`). For the cluster
+        kernel ``seg_fn()`` gives (segments, visit counts) and the bound
+        counts the walk (cluster_op_model) and ``per_segment`` gives the
+        walk-independent floor beside it (``floor_ms``); for the
+        megakernel, segments and ``per_segment`` sweep ops."""
         frame = statistics.median(cuda_frame_ms(fn, 7, device=dev)
                                   + cuda_frame_ms(fn, 7, device=dev))
         by_kernel = device_ms_by_kernel(fn, 5, device=dev)
@@ -994,9 +1060,19 @@ def main() -> int:
         entry = ("tpurt_cluster_launch" if kname == "cluster_kernel"
                  else "tpurt_megakernel_launch")
         ev_ms = event_kernel_ms(lib, entry, fn, 20, dev)
-        segs = int(seg_fn())
-        ops = path_ops(segs, n_pix, spp, per_segment, flags)
-        bnd = bounds(ops, nbytes + n_pix * 12)
+        got = seg_fn()
+        if kname == "cluster_kernel":
+            segs, visits = int(got[0]), got[1]
+            ops = cluster_op_model(segs, visits, n_pix, spp, flags)
+            bnd = dict(bounds(ops, nbytes + n_pix * 12),
+                       **walk_stats(visits, segs, k_ms))
+            bnd["floor_ms"] = bound_ms(
+                path_ops(segs, n_pix, spp, per_segment, flags),
+                nbytes + n_pix * 12, fp32_peak)[0]
+        else:
+            segs = int(got)
+            ops = path_ops(segs, n_pix, spp, per_segment, flags)
+            bnd = bounds(ops, nbytes + n_pix * 12)
         print(f"[{phase} timing] {label} on {card}: frame {frame:.4f} ms "
               f"(median "
               f"of 2x7 chained frames), {kname} {k_ms:.4f} ms (profiler; "
@@ -1004,7 +1080,11 @@ def main() -> int:
               f"segments/frame; traced Mrays/s frame "
               f"{traced_mrays_per_s(segs, frame):.1f}, kernel "
               f"{traced_mrays_per_s(segs, k_ms):.1f}; {bound_text(bnd)} "
-              f"({ops / 1e9:.3f} G f32 ops)")
+              f"({ops / 1e9:.3f} G f32 ops), {bnd['bound_ms'] / k_ms:.4f} of "
+              "the bound's rate")
+        if "visits_per_segment" in bnd:
+            print(f"[{phase} walk] {label}: {walk_text(bnd)}; "
+                  f"{floor_text(bnd)}")
         print(f"[{phase} device] " + device_line(label, by_kernel, frame,
                                                  kname))
         return k_ms, ev_ms, frame, bnd
@@ -1053,13 +1133,6 @@ def main() -> int:
                                  f"triangles) {name}",
                         "plain_shape": name, "frame_ms": frame}
 
-    def k2_tri_ops(tab, tri_tab):
-        # what every segment needs whatever the culling: both tables'
-        # globals and super-super slab tests, the walk's 3 reciprocals
-        return (tab.n_global * SPHERE_TEST_OPS + tri_tab.n_global
-                * TRI_TEST_OPS + RAY_SETUP_OPS
-                + (tab.n_ss + tri_tab.n_ss) * SLAB_TEST_OPS)
-
     cam_b = cam_for(BENCH["width"], BENCH["height"], **TERRAIN_CAM)
     for label, n in (("10k", TERRAIN_10K), ("100k", TERRAIN_100K)):
         sp_n, m_n = (ts, tm) if n == TERRAIN_10K else terrain_mesh(
@@ -1074,9 +1147,10 @@ def main() -> int:
         mesh_timing(
             f"K2-tri terrain {label} 1080p/4spp/d4",
             lambda i: render_cluster(None, cam_b, 700 + i, **kw),
-            lambda: render_cluster(None, cam_b, 0, with_stats=True, **kw)[1],
+            lambda: render_cluster(None, cam_b, 0, with_stats=True,
+                                   with_visits=True, **kw)[1:],
             BENCH["width"] * BENCH["height"], BENCH["spp"], "cluster_kernel",
-            k2_tri_ops(tab, tri_tab), table_bytes(tab, tri_tab) + 16 * 4)
+            k2_floor(tab, tri_tab), table_bytes(tab, tri_tab) + 16 * 4)
     # the terrain main path (RayTracer + set_mesh) at the GUI's settings
     k_tri, ev_tri, frame_tri, bnd_tri = mesh_timing(
         "K2-tri RayTracer + terrain 10k 640x480/8spp/d4",
@@ -1087,9 +1161,9 @@ def main() -> int:
         lambda: render_cluster(None, rt_t.camera.to_params(dev), 0,
                                prebuilt=t_tables, tri_prebuilt=t_tri,
                                pre_ordered=True, with_stats=True,
-                               **INTERACTIVE)[1],
+                               with_visits=True, **INTERACTIVE)[1:],
         INTERACTIVE["width"] * INTERACTIVE["height"], INTERACTIVE["spp"],
-        "cluster_kernel", k2_tri_ops(t_tables, t_tri),
+        "cluster_kernel", k2_floor(t_tables, t_tri),
         table_bytes(t_tables, t_tri) + 16 * 4)
     # the plain version at 256x128 only: its sweep is O(N) per ray
     tab_p = order_clusters(build_clusters(ts, n_active=3), cam14.position)
@@ -1369,10 +1443,6 @@ def main() -> int:
                                    f"+ stratify, {name}",
                           "plain_shape": name, "frame_ms": frame}
 
-    def k2_ops(tab):
-        return (tab.n_global * SPHERE_TEST_OPS + RAY_SETUP_OPS
-                + tab.n_ss * SLAB_TEST_OPS)
-
     refract_dof = dict(enable_refraction=True, enable_dof=True)
     cam22 = cam_for(BENCH["width"], BENCH["height"], aperture=0.2,
                     **FIELD_CAM)
@@ -1384,9 +1454,9 @@ def main() -> int:
         mesh_timing(f"K2 glass field {label} 1080p/4spp/d4",
                     lambda i: render_cluster(None, cam22, 1000 + i, **kw),
                     lambda: render_cluster(None, cam22, 0, with_stats=True,
-                                           **kw)[1],
+                                           with_visits=True, **kw)[1:],
                     BENCH["width"] * BENCH["height"], BENCH["spp"],
-                    "cluster_kernel", k2_ops(tab22),
+                    "cluster_kernel", k2_floor(tab22),
                     table_bytes(tab22) + 16 * 4, flags, 22)
     # the glass field's main path (phase 20 (b)): refraction, DOF, stratify
     k_g, ev_g, frame_g, bnd_g = mesh_timing(
@@ -1397,9 +1467,10 @@ def main() -> int:
                                      INTERACTIVE["max_depth"]),
         lambda: render_cluster(None, cam_g, 0, prebuilt=tab_g,
                                pre_ordered=True, with_stats=True,
-                               **INTERACTIVE, **ALL_FLAGS)[1],
+                               with_visits=True, **INTERACTIVE,
+                               **ALL_FLAGS)[1:],
         INTERACTIVE["width"] * INTERACTIVE["height"], INTERACTIVE["spp"],
-        "cluster_kernel", k2_ops(tab_g), table_bytes(tab_g) + 16 * 4,
+        "cluster_kernel", k2_floor(tab_g), table_bytes(tab_g) + 16 * 4,
         ALL_FLAGS, 22)
     # the plain version at 256x128 only: its sweep is O(N) per ray
     kw = dict(prebuilt=tab19, pre_ordered=True, **PLAIN_SHAPE, **ALL_FLAGS)
@@ -1697,8 +1768,9 @@ def main() -> int:
         lambda i: rt_k.render_device(
             INTERACTIVE["width"], INTERACTIVE["height"], INTERACTIVE["spp"],
             INTERACTIVE["max_depth"]),
-        lambda: render_cluster(None, cam_k, 0, with_stats=True, **kw)[1],
-        n_int, INTERACTIVE["spp"], "cluster_kernel", k2_ops(tab_k),
+        lambda: render_cluster(None, cam_k, 0, with_stats=True,
+                               with_visits=True, **kw)[1:],
+        n_int, INTERACTIVE["spp"], "cluster_kernel", k2_floor(tab_k),
         table_bytes(tab_k) + lt_bytes + 16 * 4, NEE, 26)
     # the JAX bench's NEE rows (benchmarks/bench_scenes.py:213-258)
     for label, tab_, cam_, lt, tri_ in (
@@ -1709,8 +1781,9 @@ def main() -> int:
         mesh_timing(f"K2-nee {label} 1080p/4spp/d4",
                     lambda i: render_cluster(None, cam_, 1400 + i, **kw),
                     lambda: render_cluster(None, cam_, 0, with_stats=True,
-                                           **kw)[1],
-                    n_bench, BENCH["spp"], "cluster_kernel", k2_ops(tab_),
+                                           with_visits=True, **kw)[1:],
+                    n_bench, BENCH["spp"], "cluster_kernel",
+                    k2_floor(tab_),
                     table_bytes(tab_) + lt_bytes + 16 * 4, NEE, 26)
     tab_t = order_clusters(build_clusters(ts, n_active=3), cam_b.position)
     tri_t = order_clusters(build_tri_clusters(tm), cam_b.position)
@@ -1719,9 +1792,9 @@ def main() -> int:
     mesh_timing("K2-nee terrain 10k 1080p/4spp/d4",
                 lambda i: render_cluster(None, cam_b, 1500 + i, **kw),
                 lambda: render_cluster(None, cam_b, 0, with_stats=True,
-                                       **kw)[1],
+                                       with_visits=True, **kw)[1:],
                 n_bench, BENCH["spp"], "cluster_kernel",
-                k2_tri_ops(tab_t, tri_t),
+                k2_floor(tab_t, tri_t),
                 table_bytes(tab_t, tri_t) + lt_bytes + 16 * 4, NEE, 26)
     # the plain version at 256x128 only: its sweep is O(N) per ray
     tab_9 = order_clusters(build_clusters(big, n_active=BIG["n"]),
@@ -2221,8 +2294,9 @@ def main() -> int:
             f"K2 tile mask {int(m.sum())} of {n_bench_tiles} blocks on "
             f"(~{share:.0%}) 10k spheres 1080p/4spp/d4",
             lambda i: render_cluster(None, cam_a, 1900 + i, **kw),
-            lambda: render_cluster(None, cam_a, 0, with_stats=True, **kw)[1],
-            n_on, BENCH["spp"], "cluster_kernel", k2_ops(tab_a),
+            lambda: render_cluster(None, cam_a, 0, with_stats=True,
+                                   with_visits=True, **kw)[1:],
+            n_on, BENCH["spp"], "cluster_kernel", k2_floor(tab_a),
             table_bytes(tab_a) + 16 * 4 + n_bench_tiles * 4
             + (n_bench - n_on) * 12, phase=31)
     # the plain version at 256x128 only: its sweep is O(N) per ray
@@ -2406,8 +2480,128 @@ def main() -> int:
         "render_aovs demo scene 320x240",
         lambda i: render_aovs(scene, cam_for(320, 240), 320, 240), 33)
 
+    # ---- 34. the cluster walk: vecmath.sqrt on the card, the tie scene,
+    # the visit counts against the plain emulation ----
+    from tpu_rt_torch.core import vecmath
+    from tpu_rt_torch.core.scenes import TIE_CAM, tie_scene
+
+    rng = np.random.default_rng(34)
+    xs = np.concatenate([rng.uniform(0.0, 4.0, 1_000_000),
+                         np.exp(rng.uniform(-87.0, 88.0, 1_000_000)),
+                         [0.0, np.inf, 1e-45, 1e-40]]).astype(np.float32)
+    on_card = vecmath.sqrt(torch.from_numpy(xs).to(dev)).cpu()
+    n_off = [int((on_card != vecmath.sqrt(torch.from_numpy(xs))).sum()),
+             int((on_card.numpy() != np.sqrt(xs)).sum())]
+    print(f"[34 sqrt] vecmath.sqrt of {xs.size} f32 values on the card: "
+          f"{n_off[0]} differ from the CPU's, {n_off[1]} from numpy's IEEE "
+          "sqrt (the kernels' sqrtf)")
+    check(n_off == [0, 0], "vecmath.sqrt on the card is IEEE")
+
+    tie_s, tie_m = tie_scene(device=dev)
+    cam_tie = tpu_rt_torch.make_camera(**TIE_CAM, device=dev)
+    tie_kw = dict(prebuilt=order_clusters(build_clusters(
+        tie_s, cluster_size=8), cam_tie.position), tri_prebuilt=order_clusters(
+        build_tri_clusters(tie_m, cluster_size=8), cam_tie.position),
+        pre_ordered=True, with_stats=True)
+    for label, kw in (
+            ("one row, depth 1, pixel centres", dict(
+                width=256, height=1, spp=1, max_depth=1, jitter=False)),
+            ("256x128/4spp/d4", PLAIN_SHAPE),
+            ("256x128/4spp/d4, NEE + refraction + stratify", dict(
+                PLAIN_SHAPE, nee=True, enable_refraction=True, stratify=True,
+                lights=light_table(tie_s)))):
+        a, seg_a = render_cluster(None, cam_tie, 7, **tie_kw, **kw)
+        b, seg_b = render_cluster_reference(None, cam_tie, 7, **tie_kw, **kw)
+        stats = compare(a, b)
+        print(f"[34 tie scene] {label}: kernel vs plain {stats}, segments "
+              f"{int(seg_a)} vs {int(seg_b)}")
+        check_exact(stats, f"tie scene {label}", (seg_a, seg_b))
+
+    def count_case(label, sc, cam_, kw_s, flags):
+        kw = dict(with_stats=True, **kw_s, **PLAIN_SHAPE, **flags)
+        a, seg_a = render_cluster(sc, cam_, 11, **kw)
+        b, seg_b, vis = render_cluster(sc, cam_, 11, with_visits=True, **kw)
+        c, seg_c, ref = render_cluster_reference(sc, cam_, 11,
+                                                 with_visits=True, **kw)
+        n = cluster_mod.N_WALK_COLS
+        same = bool(torch.equal(vis[..., :n], ref[..., :n]))
+        tot = vis.sum(dim=0).tolist()
+        print(f"[34 visit counts] {label} {flag_label(flags)} 256x128/4spp/d4:"
+              f" kernel {dict(zip(cluster_mod.VISIT_KINDS, tot))}, equal to "
+              f"walk_visits_reference's {same}; counting kernel image equal "
+              f"to the timed kernel's and the plain version's "
+              f"{bool(torch.equal(a, b) and torch.equal(a, c))}")
+        check(same, f"{label} {flag_label(flags)}: visit counts")
+        check(torch.equal(a, b) and torch.equal(a, c) and int(seg_a)
+              == int(seg_b) == int(seg_c), f"{label}: counting kernel image")
+
+    for label, sc, cam_, kw_s, flags in K2_CASES:
+        count_case(label, sc, cam_, kw_s, flags)
+    count_case("10k spheres", big, cam9, dict(n_active=BIG["n"]), NEE)
+    count_case("100k spheres", huge, cam_for(PLAIN_SHAPE["width"],
+                                             PLAIN_SHAPE["height"],
+                                             **BIG_CAM),
+               dict(n_active=HUGE["n"]), NEE)
+
+    # a frame's samples in chunks (the scratch holds SCRATCH_LANES (lane,
+    # sample) threads whatever spp): bit for bit the one-chunk frame's, the
+    # gamma mean and the linear one
+    chunk_kw = dict(prebuilt=order_clusters(build_clusters(
+        big, n_active=BIG["n"]), cam9.position), pre_ordered=True,
+        with_stats=True, width=256, height=128, spp=8, max_depth=4, nee=True,
+        enable_refraction=True, stratify=True, lights=light_table(big))
+    lanes = cluster_mod.SCRATCH_LANES
+    for gamma in (True, False):
+        kw = dict(chunk_kw, gamma=gamma)
+        one, seg_one = render_cluster(None, cam9, 13, **kw)
+        plain, seg_plain = render_cluster_reference(None, cam9, 13, **kw)
+        try:
+            cluster_mod.SCRATCH_LANES = 3 * 8 * cluster_mod.TILE  # 3, 3, 2
+            before = render_cluster.launches
+            chunked, seg_chunked = render_cluster(None, cam9, 13, **kw)
+            n_chunks = render_cluster.launches - before
+        finally:
+            cluster_mod.SCRATCH_LANES = lanes
+        print(f"[34 chunks] 10k spheres NEE + refraction + stratify "
+              f"256x128/8spp/d4, gamma {gamma}, in {n_chunks} chunks of at "
+              f"most 3 samples: vs one chunk {compare(chunked, one)}, one "
+              f"chunk vs plain {compare(one, plain)}; segments "
+              f"{int(seg_chunked)} / {int(seg_one)} / {int(seg_plain)}")
+        check(n_chunks == 3, "8 samples ran as 3 launches")
+        check_exact(compare(chunked, one), f"chunked samples, gamma {gamma}",
+                    (seg_chunked, seg_one))
+        check_exact(compare(one, plain), f"one chunk vs plain, gamma {gamma}",
+                    (seg_one, seg_plain))
+
+    # where a counting build with per-thread counters in registers faulted
+    # (100k spheres with NEE), and where a block reduction of the segment
+    # counts lost or garbled a warp's count in the timed kernel: the timed
+    # kernel twice and the counting kernel agree bit for bit, segments
+    # included
+    lt_huge = light_table(huge)
+    for (w, h, spp_) in ((1920, 1080, 4), (1920, 1024, 4), (1920, 512, 4),
+                         (1024, 1080, 4), (640, 480, 8)):
+        cam_f = cam_for(w, h, **BIG_CAM)
+        kw_f = dict(prebuilt=order_clusters(build_clusters(
+            huge, n_active=HUGE["n"]), cam_f.position), pre_ordered=True,
+            width=w, height=h, spp=spp_, max_depth=4, with_stats=True,
+            nee=True, lights=lt_huge)
+        for seed in range(8):
+            a, seg_a = render_cluster(None, cam_f, seed, **kw_f)
+            a2, seg_a2 = render_cluster(None, cam_f, seed, **kw_f)
+            b, seg_b, _ = render_cluster(None, cam_f, seed,
+                                         with_visits=True, **kw_f)
+            where = f"100k NEE {w}x{h}/{spp_}spp seed {seed}"
+            check_exact(compare(a, a2), f"{where}: timed kernel twice",
+                        (seg_a, seg_a2))
+            check_exact(compare(a, b), f"{where}: counting vs timed kernel",
+                        (seg_a, seg_b))
+        print(f"[34 fault shapes] 100k spheres NEE {w}x{h}/{spp_}spp/d4, "
+              "seeds 0-7: the timed kernel twice and the counting kernel "
+              "equal bit for bit, segments included")
+
     mega["name"] = "megakernel-spheres"
-    print(f"[34 done] all phases passed in {time.perf_counter() - t_start:.1f}"
+    print(f"[35 done] all phases passed in {time.perf_counter() - t_start:.1f}"
           " s")
     kernels = [mega, mega_tri, cluster, cluster_tri, mega_flags,
                cluster_flags, mega_nee, cluster_nee, mega_mask, cluster_mask,

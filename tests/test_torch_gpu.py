@@ -604,3 +604,132 @@ def test_pixel_uv_and_rays_cuda_equal_cpu(dev, size):
     dc = cammod.generate_rays(type(cam)(*(f.cpu() for f in cam)),
                               uc.reshape(-1), vc.reshape(-1))[1]
     assert torch.equal(d.cpu(), dc), int((d.cpu() != dc).sum())
+
+
+# ---- the walk: IEEE sqrt, ties, visit counts (csrc/cluster.cu) ----
+
+def test_vecmath_sqrt_cuda_equals_cpu_and_ieee(dev):
+    """vecmath.sqrt on the card equals the CPU's and numpy's correctly
+    rounded square root (the kernels' sqrtf), subnormals and inf
+    included."""
+    from tpu_rt_torch.core import vecmath
+
+    rng = np.random.default_rng(9)
+    x = np.concatenate([rng.uniform(0.0, 4.0, 1_000_000),
+                        np.exp(rng.uniform(-87.0, 88.0, 1_000_000)),
+                        [0.0, np.inf, 1e-45, 1e-40]]).astype(np.float32)
+    t = torch.from_numpy(x)
+    ours = vecmath.sqrt(t.to(dev)).cpu()
+    assert torch.equal(ours, vecmath.sqrt(t))
+    np.testing.assert_array_equal(ours.numpy().view(np.int32),
+                                  np.sqrt(x).view(np.int32))
+
+
+TIE_SETS = {"depth1_row": (dict(width=256, height=1, spp=1, max_depth=1,
+                                jitter=False), {}),
+            "jitter_d4": (dict(width=256, height=128, spp=4, max_depth=4),
+                          {}),
+            "nee_flags": (dict(width=256, height=128, spp=4, max_depth=4),
+                          dict(nee=True, enable_refraction=True,
+                               stratify=True))}
+
+
+@pytest.mark.parametrize("case", list(TIE_SETS))
+def test_cluster_tie_scene_matches_plain(dev, case):
+    """The tie scene (core/scenes.py:tie_scene): one sphere in two
+    clusters, two triangles whose shared edge the one-row frame's rays
+    run along. The kernel's near-to-far walk takes the first of equal hits
+    in storage order, as the plain version's sweep does: bit for bit,
+    segments included, also with NEE's any-hit shadow rays."""
+    from tpu_rt_torch.core.scenes import TIE_CAM, tie_scene
+
+    spheres, mesh = tie_scene(device=dev)
+    cam = tpu_rt_torch.make_camera(**TIE_CAM, device=dev)
+    shape, flags = TIE_SETS[case]
+    kw = dict(prebuilt=order_clusters(build_clusters(spheres, cluster_size=8),
+                                      cam.position),
+              tri_prebuilt=order_clusters(
+                  build_tri_clusters(mesh, cluster_size=8), cam.position),
+              pre_ordered=True, with_stats=True, **shape, **flags)
+    if flags.get("nee"):
+        from tpu_rt_torch.ops.cluster import light_table
+        kw["lights"] = light_table(spheres)
+    a, seg_a = render_cluster(None, cam, 7, **kw)
+    b, seg_b = render_cluster_reference(None, cam, 7, **kw)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(a, b), int((a != b).sum())
+    assert int(seg_a) == int(seg_b)
+    assert float(a.max()) > 0
+
+
+VISIT_SETS = {
+    "spheres_10k": (dict(n=10000), {}),
+    "spheres_10k_nee_flags": (dict(n=10000), dict(
+        nee=True, enable_refraction=True, enable_dof=True, stratify=True)),
+    "terrain_72": (dict(terrain=72), {}),
+    "terrain_72_nee": (dict(terrain=72), dict(nee=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(VISIT_SETS))
+def test_cluster_visit_counts_match_walk_reference(dev, case):
+    """The counting instantiation's per-tile visit counts (slab tests per
+    level, group boxes included, sphere and triangle tests, path and shadow
+    rays) equal
+    walk_visits_reference's over the plain version's rays, at 256x128/4spp;
+    the counting kernel's image and segments are the timed kernel's."""
+    what, flags = VISIT_SETS[case]
+    if "n" in what:
+        spheres = random_spheres(what["n"], seed=1, spread=30.0, device=dev)
+        mesh, pose = None, dict(position=(0, 6, 40), target=(0, 0, -18))
+    else:
+        spheres, mesh = terrain_mesh(n=what["terrain"], seed=1, device=dev)
+        pose = TERRAIN_POSE
+    cam = tpu_rt_torch.make_camera(aspect=2.0, aperture=0.1, device=dev,
+                                   **pose)
+    kw = dict(width=256, height=128, spp=4, max_depth=4, mesh=mesh,
+              with_stats=True, **flags)
+    a, seg_a = render_cluster(spheres, cam, 5, **kw)
+    b, seg_b, vis = render_cluster(spheres, cam, 5, with_visits=True, **kw)
+    c, seg_c, ref = render_cluster_reference(spheres, cam, 5,
+                                             with_visits=True, **kw)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert int(seg_a) == int(seg_b) == int(seg_c)
+    assert vis.shape == ref.shape == (8, 2, 7)
+    assert torch.equal(vis[..., :6], ref[..., :6]), (
+        vis.sum(0).tolist(), ref.sum(0).tolist())
+    # the warps issue at least 1/32 of their lanes' primitive tests
+    lanes = vis[..., 4:6].sum(-1).sum(0)
+    warps = vis[..., 6].sum(0)
+    assert bool((warps * 32 >= lanes).all()) and bool((warps <= lanes).all())
+    if flags.get("nee"):
+        assert int(vis[:, 1, 4:6].sum()) > 0
+
+
+@pytest.mark.parametrize("gamma", [True, False])
+def test_cluster_samples_in_chunks_bit_for_bit(dev, gamma, monkeypatch):
+    """A frame whose samples do not fit the scratch runs in chunks (here 3,
+    3 and 2 of 8 samples, one launch each); the mean pass carries each
+    pixel's running sum across them in sample order, so the image equals
+    the one-chunk frame's and the plain version's bit for bit, the gamma
+    mean and the linear one, segments and visit counts included."""
+    from tpu_rt_torch.ops import cluster as cm
+
+    spheres = random_spheres(10000, seed=1, spread=30.0, device=dev)
+    cam = tpu_rt_torch.make_camera(aspect=2.0, position=(0, 6, 40),
+                                   target=(0, 0, -18), device=dev)
+    kw = dict(width=256, height=128, spp=8, max_depth=4, nee=True,
+              stratify=True, gamma=gamma, with_stats=True)
+    a, seg_a, vis_a = render_cluster(spheres, cam, 13, with_visits=True,
+                                     **kw)
+    ref, seg_ref = render_cluster_reference(spheres, cam, 13, **kw)
+    monkeypatch.setattr(cm, "SCRATCH_LANES", 3 * 8 * cm.TILE)
+    before = render_cluster.launches
+    b, seg_b, vis_b = render_cluster(spheres, cam, 13, with_visits=True,
+                                     **kw)
+    assert render_cluster.launches - before == 3
+    torch.cuda.synchronize(dev)
+    assert torch.equal(a, b) and torch.equal(a, ref)
+    assert int(seg_a) == int(seg_b) == int(seg_ref)
+    assert torch.equal(vis_a[..., :6], vis_b[..., :6])

@@ -33,6 +33,7 @@ from tpu_rt.render import display as j_display
 import tpu_rt_torch
 from tpu_rt_torch.api import RayTracer
 from tpu_rt_torch.app import run as app_run
+from tpu_rt_torch.core import vecmath
 from tpu_rt_torch.core.scenes import cornell_box
 from tpu_rt_torch.ops import cluster
 from tpu_rt_torch.ops import megakernel as mk
@@ -160,7 +161,7 @@ def test_plain_matches_jax_kernels_with_nee(nee_streams, name, seed):
     ref, ref_segs, ours, segs = nee_streams(name, seed)
     assert ours.shape == (H, W, 3) and float(ours.max()) > 0.0
     d = np.abs(ours - ref)
-    assert float((d <= 1e-4).mean()) >= 0.995
+    assert float((d <= 1e-4).mean()) >= 0.999
     assert abs(segs - ref_segs) <= 1e-3 * ref_segs
 
 
@@ -262,14 +263,15 @@ def test_render_routes_nee_and_linear_output():
 
 def test_linear_output_is_the_mean_before_gamma():
     """Both engines' gamma'd output is the clamped sqrt of their linear
-    output, value for value."""
+    output, value for value (the correctly rounded sqrt the port takes,
+    vecmath.sqrt: torch.sqrt of f32 is 1 ulp off on some CPUs)."""
     _, ts = both_scenes(blocker_rows())
     _, tcam = both_cams(NEE_POSE)
     kw = dict(width=32, height=16, spp=2, max_depth=3, n_active=8, nee=True)
     for render in (mk.render_megakernel_reference,
                    cluster.render_cluster_reference):
         lin = render(ts, tcam, 9, gamma=False, **kw)
-        assert torch.equal(torch.clamp(torch.sqrt(torch.clamp_min(lin, 0.0)),
+        assert torch.equal(torch.clamp(vecmath.sqrt(torch.clamp_min(lin, 0.0)),
                                        0.0, 1.0), render(ts, tcam, 9, **kw))
 
 

@@ -66,7 +66,7 @@ def generate_rays(cam: CameraP, u: torch.Tensor, v: torch.Tensor,
     cos_f = torch.sum(direction * forward, dim=-1, keepdim=True)
     focal_pt = origin + direction * (focus / torch.clamp_min(cos_f, 1e-6))
     # uniform point of the lens disk
-    r = cam.aperture * torch.sqrt(lens_xi[..., 0])
+    r = cam.aperture * vm.sqrt(lens_xi[..., 0])
     phi = TWO_PI * lens_xi[..., 1]
     lx = (r * torch.cos(phi))[..., None]
     ly = (r * torch.sin(phi))[..., None]

@@ -154,3 +154,72 @@ def cornell_box(*, device):
         device=device,
     )
     return spheres, mesh
+
+
+# the tie scene's camera: at the origin looking down -z, so the rays of a
+# one-row frame have dy == 0 exactly and run along the triangles' shared edge
+TIE_CAM = dict(position=(0.0, 0.0, 0.0), target=(0.0, 0.0, -1.0), aspect=2.0)
+
+
+def tie_scene(*, device):
+    """A scene whose nearest hits tie, for the cluster engine's tie rule
+    (the first of equal t in the dense sweep's order wins): (spheres,
+    mesh).
+
+    One sphere twice (same centre and radius, red then green emission)
+    and two triangles that share the edge y = 0, z = -5 (blue above,
+    yellow below). Seven small spheres and triangles near the low corner of
+    the scene's box come first in Morton order and eight near the high
+    corner last, so at cluster size 8 each pair straddles two clusters;
+    four large spheres and two large triangles behind the camera take the
+    global slots. Through :data:`TIE_CAM`, every ray that meets the sphere
+    meets both copies at the same t, and every ray of a one-row frame (v =
+    0.5, so dy = 0) that meets the triangles meets the shared edge: there
+    Moller-Trumbore gives both the same t (v = 0 exactly for both)."""
+    from ..ops.triangle import make_mesh
+
+    rng = np.random.default_rng(5)
+    low = np.array([-40.0, -40.0, -40.0], np.float32)
+    high = np.array([40.0, 40.0, 40.0], np.float32)
+    centers = [(0.0, -1000.0, 0.0), (-20.0, 0.0, 50.0), (0.0, 0.0, 50.0),
+               (20.0, 0.0, 50.0)]
+    radii = [990.0, 6.0, 7.0, 8.0]
+    emissions = [(0.0, 0.0, 0.0)] * 4
+    for corner, k in ((low, 7), (high, 8)):
+        for _ in range(k):
+            centers.append(tuple(corner + rng.uniform(0.0, 1.0, 3)))
+            radii.append(0.05)
+            emissions.append((0.0, 0.0, 0.0))
+    centers += [(5.0, 0.0, -9.0), (5.0, 0.0, -9.0)]
+    radii += [1.5, 1.5]
+    emissions += [(1.0, 0.0, 0.0), (0.0, 1.0, 0.0)]
+    n = len(centers)
+    spheres = make_scene(
+        centers=np.asarray(centers, np.float32),
+        radii=np.asarray(radii, np.float32),
+        albedos=np.full((n, 3), 0.6, np.float32),
+        metallics=np.zeros(n, np.float32),
+        roughnesses=np.full(n, 0.5, np.float32),
+        emissions=np.asarray(emissions, np.float32),
+        background=(0.05, 0.05, 0.1), device=device)
+
+    verts, faces, emit = [], [], []
+
+    def tri(a, b, c, e=(0.0, 0.0, 0.0)):
+        faces.append([len(verts), len(verts) + 1, len(verts) + 2])
+        verts.extend([a, b, c])
+        emit.append(e)
+
+    tri((-30.0, -30.0, 30.0), (30.0, -30.0, 30.0), (0.0, 30.0, 30.0))
+    tri((-30.0, -30.0, 31.0), (30.0, -30.0, 31.0), (0.0, 30.0, 31.0))
+    for corner, k in ((low, 7), (high, 8)):
+        for _ in range(k):
+            p = corner + rng.uniform(0.0, 1.0, 3)
+            tri(tuple(p), tuple(p + (0.1, 0.0, 0.0)),
+                tuple(p + (0.0, 0.1, 0.0)))
+    tri((-3.0, 0.0, -5.0), (3.0, 0.0, -5.0), (0.0, 2.0, -5.0), (0, 0, 1.0))
+    tri((-3.0, 0.0, -5.0), (3.0, 0.0, -5.0), (0.0, -2.0, -5.0),
+        (1.0, 1.0, 0.0))
+    mesh = make_mesh(np.asarray(verts, np.float32), np.asarray(faces),
+                     emission=np.asarray(emit, np.float32), device=device)
+    return spheres, mesh

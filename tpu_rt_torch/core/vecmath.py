@@ -32,15 +32,28 @@ def length_squared(a: torch.Tensor) -> torch.Tensor:
     return dot(a, a)
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root on every device: the CUDA
+    kernels' ``sqrtf`` (no fast-math) and JAX's ``jnp.sqrt``.
+
+    ``torch.sqrt`` of f32 is not that on every CPU: on an AVX-512 host it
+    is 1 ulp off for about one input in six. The square root is taken in
+    float64 and rounded once to f32, which is exact: a double's 53 bits
+    cover the 2 x 24 + 2 that correct rounding of an f32 square root
+    needs. NaN, 0, subnormals and inf pass through as IEEE says."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def length(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(length_squared(a))
+    return sqrt(length_squared(a))
 
 
 def rsqrt(x: torch.Tensor) -> torch.Tensor:
-    """1 / sqrt(x), rounded as the CUDA kernels' ``1.0f / sqrtf``.
-    torch.rsqrt rounds as that on the CPU, but on CUDA it is rsqrtf, up to
-    2 ulp off, which turns paths at silhouettes; there this divides."""
-    return torch.rsqrt(x) if x.device.type == "cpu" else 1.0 / torch.sqrt(x)
+    """1 / sqrt(x), rounded as the CUDA kernels' ``1.0f / sqrtf``: a
+    division by :func:`sqrt` on every device (``torch.rsqrt`` is
+    ``rsqrtf`` on CUDA, up to 2 ulp off, which turns paths at
+    silhouettes)."""
+    return 1.0 / sqrt(x)
 
 
 def normalize(a: torch.Tensor) -> torch.Tensor:

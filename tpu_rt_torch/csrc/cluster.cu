@@ -17,40 +17,62 @@
 // kernel can be held stream for stream against the plain PyTorch version.
 //
 // What bounds it: instruction issue of a divergent per-ray walk. Per bounce
-// every ray tests the G globals and the S2 super-super boxes of each table;
-// what it tests beyond that depends on the scene and the ray (crossed supers
-// x 8 child boxes, crossed clusters x C primitives). The tables are small
-// (10k spheres: 0.9 MB; 100k: 7.4 MB; 100k triangles: 9.4 MB) and stay in
-// L2; device-memory traffic is the 12 B/pixel colour store. At frames of a
-// few waves of blocks, the slowest blocks (rays that cross the most
-// clusters) set the time, since each thread loops over all of its pixel's
-// samples.
+// every ray tests the G globals of each table and then walks the boxes its
+// ray crosses; what it visits depends on the scene and the ray, and the
+// counting instantiations (kCount) count it: slab tests per level and
+// primitive tests per kind, for path and shadow rays apart, plus the
+// primitive tests the warps issue. utils/roofline.py:cluster_op_model turns
+// the counts into the bound. The tables are small (10k spheres: 0.9 MB;
+// 100k: 7.4 MB; 100k triangles: 9.4 MB) and stay in L2; device-memory
+// traffic is the 12 B/pixel colour store and the per-sample scratch.
 //
-// What the design does about it, simply:
-//   * one thread per lane of the padded screen-block grid; samples and
-//     bounces loop inside the thread, and a dead path leaves the loop;
-//   * a stackless walk: for each super-super whose box the ray crosses
-//     (slab test bounded by the ray's running best t, AND the box's
-//     validity flag), each crossed super, each crossed cluster (box from the
-//     last row of the cluster's block), sweep its C spheres. Visiting in
-//     storage order (near to far, from order_clusters) lets early hits prune
-//     later boxes, and resolves ties as the TPU kernel does;
+// What the design does about it:
+//   * one thread per (lane of the padded screen-block grid, sample): the
+//     grid's y is the sample within a chunk of samples, so a frame has
+//     spp times the blocks of a thread-per-pixel loop and no thread runs a
+//     pixel's samples in turn (the slowest threads set a frame's time).
+//     Each thread writes its sample's radiance to a scratch plane that the
+//     wrapper allocates, of a fixed size whatever spp: a frame with more
+//     samples than the scratch holds runs as several chunks in turn. After
+//     each chunk a second kernel (cluster_kernel_mean) adds the chunk's
+//     samples, in sample order, to each pixel's running sum (0.0f before
+//     the first, kept in the output between chunks), as one thread looping
+//     over all the samples would, and the last chunk's writes the mean;
+//   * near to far for each ray, at every level: a level keeps a bit mask of
+//     its children still to visit; each round slab-tests the masked
+//     children against the ray's running best t (dropping those it no
+//     longer crosses) and descends into the one of least entry t, the
+//     lower index on equal entries, so a bounce or shadow ray that starts
+//     on a surface visits what lies near its origin first. The super-super
+//     level does this for each chunk of 32 super-supers in storage order.
+//     Under each cluster a fourth level, of the port's own, holds a box per
+//     8 rows (ops/cluster.py:group_boxes, padded to stay conservative), so
+//     a ray tests the rows of the groups it crosses, not all C: at terrain
+//     10k that cut the triangle tests per segment from 339 to 45;
+//   * the winner is the least (t, key) over everything the search tests:
+//     key = class << 28 | storage index, class 0 sphere globals, 1 sphere
+//     rows, 2 triangle globals, 3 triangle rows. It is the dense sweep's
+//     first minimum in that order (spheres ahead of triangles, then storage
+//     order) whatever the visit order, so every image equals the plain
+//     version bit for bit; the winner's row is found from its key after the
+//     search and unpacked once (bf16 pairs: << 16 and & 0xFFFF0000);
+//   * shadow rays (NEE) are any-hit: they return at the first primitive
+//     with t in [1e-3, t_edge), globals included;
+//   * the super-super and super boxes of both tables are staged into
+//     shared memory when they fit (32 KB: 113 super-supers, 460k
+//     primitives at C = 64; past it they are read from device memory
+//     through the same pointers), beside the globals, camera, background
+//     and the NEE light table; the cluster blocks stay in device memory
+//     (read-only cache);
 //   * a block is a 16 x 16 pixel patch and a warp an 8 x 4 patch of one
 //     screen block, so the rays of a warp cross mostly the same boxes and
 //     read the same table words (broadcast loads);
-//   * globals, camera and background in shared memory; the tables read-only
-//     from device memory through the read-only cache; the winner is kept as
-//     a pointer to its packed row plus a triangle flag, and unpacked (bf16
-//     pairs: << 16 and & 0xFFFF0000) once, after the search;
-//   * with a mesh, the search per bounce is the TPU kernel's, in its order
-//     (ties depend on it): sphere globals, triangle globals (Moller-Trumbore
-//     from shared memory), the sphere walk, then the same walk over the
-//     triangle hierarchy, pruned by the running best t. A triangle winner's
-//     bf16 face normal n is encoded as the TPU kernel encodes it
-//     (pallas_cluster.py:915-924): centre (o + d t) - n and 1/r the sign
-//     that opposes n to the ray, so the sphere shading's (h - c) * (1/r)
-//     forms the normal with the same roundings. The triangle path is a
-//     template branch: without a mesh the kernel is the sphere kernel;
+//   * with a mesh, a triangle winner's bf16 face normal n is encoded as the
+//     TPU kernel encodes it (pallas_cluster.py:915-924): centre (o + d t) -
+//     n and 1/r the sign that opposes n to the ray, so the sphere shading's
+//     (h - c) * (1/r) forms the normal with the same roundings. The
+//     triangle path is a template branch: without a mesh the kernel is the
+//     sphere kernel;
 //   * refraction, the thin lens and the R2 lattice (pallas_cluster.py:
 //     1199-1247, 1375-1406) live in the kFlags instantiations as uniform
 //     branches (path_common.cuh); the winner's ior is the bf16 high half of
@@ -64,12 +86,15 @@
 //     light table of ops/cluster.py:light_table (n_lights_max rows of
 //     cx cy cz r*lw er eg eb cdf, then the light count) is staged into
 //     shared memory; a diffuse lane's shadow ray tests the globals and
-//     walks both hierarchies again with its best t seeded at the light's
-//     entry t less 1e-3, so the slab tests prune every box beyond the
-//     light, and stops at its first hit (ClusterNee below). Only lanes
-//     whose light is in front of the surface walk;
+//     walks both hierarchies with best t fixed at the light's entry t less
+//     1e-3, so the slab tests prune every box beyond the light
+//     (ClusterNee below). Only lanes whose light is in front of the surface
+//     walk;
 //   * ``gamma`` = 0 stores the linear mean instead of sqrt gamma and clamp;
-//   * segment counts: one integer atomic per block into its tile's slot;
+//   * segment counts: one integer atomic per warp into its tile's slot
+//     (add_tile_count);
+//     the visit counts (kCount): shared-memory atomics per block, then one
+//     64-bit atomic per count and block into the tile's slots;
 //   * a band of rows (pallas_cluster.py:627-659, 1726-1729, 1850-1860):
 //     rows and its first row row0 are multiples of 32; the grid covers the
 //     band's screen blocks, pixel rows start at row0, and every stream is
@@ -77,18 +102,17 @@
 //     bands equal the full frame stream for stream. The launch folds the
 //     band's first tile into the seed (seed + tile0 * spp, uint32 wrap as
 //     the int32 sum), so the kernel keeps the band's own tile, which is
-//     also the segment slot and the mask index, and no more values live
-//     across the path loop than without bands;
+//     also the segment slot and the mask index;
 //   * the adaptive tile mask (pallas_cluster.py:1565-1580, 1808-1812): a
-//     screen block spans 16 CUDA blocks, so the test is uniform per block.
-//     A block whose screen block is masked writes zeros to its in-frame
-//     pixels and returns at the top, before the shared-memory loads and
-//     their barrier (the caller zeroed its segment slot). It is one
-//     branch, not a template instantiation.
+//     screen block spans 16 CUDA blocks per sample, so the test is uniform
+//     per block. A block whose screen block is masked returns at the top,
+//     before the shared-memory loads and their barrier; the mean pass
+//     writes zeros to its pixels (the caller zeroed its segment slot). It
+//     is one branch, not a template instantiation.
 //
 // Not done here, and left to later work: warp-cooperative traversal (one
-// box or sphere per lane), and staging cluster blocks into shared memory
-// with cp.async or TMA.
+// box or primitive per lane), and staging cluster blocks into shared
+// memory with cp.async or TMA.
 
 #include "path_common.cuh"
 
@@ -102,6 +126,17 @@ constexpr int kMaxGlobal = 64;
 constexpr int kCols = 16;      // words of a packed sphere or triangle row
 constexpr int kMaxLights = 64; // rows of the NEE light table
 constexpr int kLightCols = 8;  // cx cy cz r*lw er eg eb cdf
+constexpr int kBoxWords = 8;   // lo xyz, hi xyz, flag, 0
+// staged boxes of both tables, at most: with the static arrays (10.4 KB at
+// most) under the 48 KB a block takes without opting in
+constexpr int kStageBytes = 32 * 1024;
+constexpr int kKeyShift = 28;  // key = class << 28 | storage index
+// visit counters per ray kind (path, shadow): slab tests at the
+// super-super, super, cluster and group levels, sphere and triangle tests
+// (globals included), and the primitive tests the warps issue
+constexpr int kVisitCols = 7;
+constexpr int kGroup = 8;  // primitives under one group box
+constexpr int kVisitCounts = 2 * kVisitCols;
 
 struct Ray {
   float ox, oy, oz;
@@ -112,23 +147,31 @@ __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / (fabsf(d) > 1e-20f ? d : (d >= 0.f ? 1e-20f : -1e-20f));
 }
 
+template <bool kLdg>
+__device__ __forceinline__ float fword(const float* p) {
+  if constexpr (kLdg) return __ldg(p);
+  return *p;
+}
+
 // Slab test of the box at b = [lo xyz, hi xyz, flag] against one ray,
-// bounded by [1e-3, best_t] (pallas_cluster.py slab6); an empty box (flag 0,
+// bounded by [1e-3, best_t] (pallas_cluster.py slab6): the entry t if the
+// ray crosses it, else -1 (no entry is below 1e-3). An empty box (flag 0,
 // inverted bounds) is never crossed.
-__device__ __forceinline__ bool crosses(const float* __restrict__ b,
-                                        const Ray& r, float best_t) {
-  if (!(__ldg(b + 6) > 0.f)) return false;
-  const float tx0 = (__ldg(b + 0) - r.ox) * r.ix;
-  const float tx1 = (__ldg(b + 3) - r.ox) * r.ix;
-  const float ty0 = (__ldg(b + 1) - r.oy) * r.iy;
-  const float ty1 = (__ldg(b + 4) - r.oy) * r.iy;
-  const float tz0 = (__ldg(b + 2) - r.oz) * r.iz;
-  const float tz1 = (__ldg(b + 5) - r.oz) * r.iz;
+template <bool kLdg>
+__device__ __forceinline__ float slab(const float* b, const Ray& r,
+                                      float best_t) {
+  if (!(fword<kLdg>(b + 6) > 0.f)) return -1.f;
+  const float tx0 = (fword<kLdg>(b + 0) - r.ox) * r.ix;
+  const float tx1 = (fword<kLdg>(b + 3) - r.ox) * r.ix;
+  const float ty0 = (fword<kLdg>(b + 1) - r.oy) * r.iy;
+  const float ty1 = (fword<kLdg>(b + 4) - r.oy) * r.iy;
+  const float tz0 = (fword<kLdg>(b + 2) - r.oz) * r.iz;
+  const float tz1 = (fword<kLdg>(b + 5) - r.oz) * r.iz;
   const float enter = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
                             fmaxf(fminf(tz0, tz1), 1e-3f));
   const float exit = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
                            fminf(fmaxf(tz0, tz1), best_t));
-  return exit >= enter;
+  return exit >= enter ? enter : -1.f;
 }
 
 template <bool kReadOnly>
@@ -137,21 +180,28 @@ __device__ __forceinline__ float word(const int* p) {
   return __int_as_float(*p);
 }
 
-// The nearest hit so far: its t, its packed row (word f at row[f * stride])
-// and whether that row is a triangle's.
+// The nearest hit so far: its t and its key (class << 28 | storage
+// index; -1 before any hit, so nothing equal to the starting t replaces
+// it).
 struct Best {
   float t;
-  const int* row;
-  int stride;
-  bool tri;
+  int key;
 };
 
+// Whether (t, key) is a better hit than ``best``: nearer, or as near and
+// earlier in the dense sweep's order. NaN fails.
+__device__ __forceinline__ bool better(float t, int key, const Best& best) {
+  return t < best.t || (t == best.t && key < best.key);
+}
+
 // Sphere test of the packed row at ``row``: the NaN-propagating root select
-// and the inv_r > 0 validity test. A strictly nearer root replaces the
-// winner, so the first of equal roots in visit order wins.
-template <bool kReadOnly>
-__device__ __forceinline__ void test_sphere(const int* row, int stride,
-                                            const Path& p, Best& best) {
+// and the inv_r > 0 validity test. Nearest-hit (kAny false): a better
+// (t, key) replaces the winner. Any-hit (kAny): true for a root in
+// [1e-3, best.t).
+template <bool kReadOnly, bool kAny>
+__device__ __forceinline__ bool test_sphere(const int* row, int stride,
+                                            const Path& p, Best& best,
+                                            int key) {
   const float ocx = p.ox - word<kReadOnly>(row);
   const float ocy = p.oy - word<kReadOnly>(row + stride);
   const float ocz = p.oz - word<kReadOnly>(row + 2 * stride);
@@ -162,51 +212,199 @@ __device__ __forceinline__ void test_sphere(const int* row, int stride,
   const float sqrtd = sqrtf(half_b * half_b - cq);
   const float root0 = -half_b - sqrtd;
   const float root = root0 >= 1e-3f ? root0 : sqrtd - half_b;
-  if (root >= 1e-3f && root < best.t &&
-      word<kReadOnly>(row + 4 * stride) > 0.f)
-    best = Best{root, row, stride, false};
+  if constexpr (kAny) {
+    return root >= 1e-3f && root < best.t &&
+           word<kReadOnly>(row + 4 * stride) > 0.f;
+  } else {
+    if (root >= 1e-3f && better(root, key, best) &&
+        word<kReadOnly>(row + 4 * stride) > 0.f)
+      best = Best{root, key};
+    return false;
+  }
 }
 
 // Moller-Trumbore of the packed triangle row at ``row`` (words 0-8: v0, e1,
-// e2); rows with zero edges never hit. A strictly nearer t wins.
-template <bool kReadOnly>
-__device__ __forceinline__ void test_triangle(const int* row, int stride,
-                                              const Path& p, Best& best) {
+// e2); rows with zero edges never hit (NaN). As test_sphere.
+template <bool kReadOnly, bool kAny>
+__device__ __forceinline__ bool test_triangle(const int* row, int stride,
+                                              const Path& p, Best& best,
+                                              int key) {
   const auto w = [&](int f) { return word<kReadOnly>(row + f * stride); };
   const float t = mt_test(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, w(0), w(1),
                           w(2), w(3), w(4), w(5), w(6), w(7), w(8));
-  if (t < best.t) best = Best{t, row, stride, true};
+  if constexpr (kAny) {
+    return t < best.t;
+  } else {
+    if (better(t, key, best)) best = Best{t, key};
+    return false;
+  }
 }
 
-// One table's hierarchy, in storage order, with no stack: each crossed
-// super-super, each of its crossed supers, each of their crossed clusters
-// (box from the last row of the cluster's block), whose C rows are tested.
-// With kAny it returns true as soon as a cluster gave a hit.
-template <bool kTri, bool kAny = false>
-__device__ __forceinline__ bool walk(const float* __restrict__ ss_boxes,
-                                     int n_ss,
-                                     const float* __restrict__ super_boxes,
-                                     const int* __restrict__ attr, int C,
-                                     const Ray& r, const Path& p, Best& best) {
+// The visit counters (kCount): the block's kVisitCounts counters in shared
+// memory, added to by shared-memory atomics, so the walk keeps no counter
+// in its registers and the timed instantiations' registers stay as they
+// are; or nothing.
+template <bool kCount>
+struct Visits {
+  unsigned long long* n;
+  __device__ __forceinline__ void add(int i, int k) const {
+    atomicAdd(n + i, (unsigned long long)k);
+  }
+  // one primitive test of ray kind ``kind``; the warp's first active lane
+  // also counts it as a test the warps issued
+  __device__ __forceinline__ void prim(int i, int kind) const {
+    atomicAdd(n + i, 1ull);
+    if ((int)(threadIdx.x & 31) == __ffs(__activemask()) - 1)
+      atomicAdd(n + kind * kVisitCols + 6, 1ull);
+  }
+};
+template <>
+struct Visits<false> {
+  unsigned long long* n;
+  __device__ __forceinline__ void add(int, int) const {}
+  __device__ __forceinline__ void prim(int, int) const {}
+};
+
+// One hierarchy's tables: the globals (shared memory), the super-super and
+// super boxes (shared memory when staged, else device memory), the cluster
+// blocks and the group boxes (device memory).
+struct Table {
+  const int* glob;
+  int n_global;
+  const float* ss;
+  const float* super;
+  int n_ss;
+  const int* attr;
+  int C;
+  const float* group;  // (K, C / 8, 8): a box per 8 rows of a cluster
+};
+
+// The next child to visit in a round of a level: slab-tests the children
+// whose bit is set in ``m`` (boxes at ``boxes + i * kBoxWords``) against
+// best_t, clears those the ray no longer crosses, and returns the one of
+// least entry t (the lowest index on equal entries), or -1.
+template <bool kLdg>
+__device__ __forceinline__ int next_child(const float* boxes, uint32_t& m,
+                                          const Ray& r, float best_t) {
+  int c = -1;
+  float ec = 0.f;
+  for (uint32_t b = m; b != 0u; b &= b - 1u) {
+    const int i = __ffs(b) - 1;
+    const float e = slab<kLdg>(boxes + i * kBoxWords, r, best_t);
+    if (e < 0.f) {
+      m &= ~(1u << i);
+    } else if (c < 0 || e < ec) {
+      c = i;
+      ec = e;
+    }
+  }
+  return c;
+}
+
+// The globals of one table, in storage order (class cls). Any-hit returns
+// true at the first hit.
+template <bool kTri, bool kAny, bool kCount>
+__device__ __forceinline__ bool sweep_globals(const Table& T, int cls,
+                                              const Path& p, Best& best,
+                                              const Visits<kCount>& vis) {
+  constexpr int kind = kAny ? 1 : 0;
+  constexpr int col = kind * kVisitCols + (kTri ? 5 : 4);
+  for (int g = 0; g < T.n_global; ++g) {
+    vis.prim(col, kind);
+    const int key = (cls << kKeyShift) | g;
+    if constexpr (kTri) {
+      if (test_triangle<false, kAny>(T.glob + g * kCols, 1, p, best, key))
+        return true;
+    } else {
+      if (test_sphere<false, kAny>(T.glob + g * kCols, 1, p, best, key))
+        return true;
+    }
+  }
+  return false;
+}
+
+// One table's hierarchy (class cls), near to far: super-supers in chunks
+// of 32 (storage order between chunks), then their supers, then their
+// clusters (box from the last row of the cluster's block), then the
+// cluster's groups of 8 rows (chunks of 32 groups), each level by rounds
+// of next_child; a group's 8 rows are tested in storage order. Any-hit
+// returns true at the first hit.
+template <bool kTri, bool kAny, bool kCount>
+__device__ __forceinline__ bool walk(const Table& T, int cls, const Ray& r,
+                                     const Path& p, Best& best,
+                                     const Visits<kCount>& vis) {
+  constexpr int kind = kAny ? 1 : 0;
+  constexpr int c0 = kind * kVisitCols;
+  const int C = T.C;
   const int block_words = (C * kCols / kLanes + 1) * kLanes;
   const int box_word = C * kCols;  // the cluster box: first word of the last row
-  for (int a = 0; a < n_ss; ++a) {
-    if (!crosses(ss_boxes + a * 8, r, best.t)) continue;
-    for (int sp = a * kFanout; sp < (a + 1) * kFanout; ++sp) {
-      if (!crosses(super_boxes + sp * 8, r, best.t)) continue;
-      for (int c = sp * kFanout; c < (sp + 1) * kFanout; ++c) {
-        const int* blk = attr + (size_t)c * block_words;
-        if (!crosses(reinterpret_cast<const float*>(blk + box_word), r,
-                     best.t))
-          continue;
-        for (int j = 0; j < C; ++j) {
-          if constexpr (kTri)
-            test_triangle<true>(blk + j, C, p, best);
-          else
-            test_sphere<true>(blk + j, C, p, best);
-        }
-        if constexpr (kAny) {
-          if (best.row != nullptr) return true;
+  for (int base = 0; base < T.n_ss; base += 32) {
+    const int n = min(32, T.n_ss - base);
+    uint32_t ms = n == 32 ? 0xffffffffu : (1u << n) - 1u;
+    while (ms != 0u) {
+      vis.add(c0 + 0, __popc(ms));
+      const int a = next_child<false>(T.ss + base * kBoxWords, ms, r, best.t);
+      if (a < 0) break;
+      ms &= ~(1u << a);
+      const int s0 = (base + a) * kFanout;  // its first super
+      uint32_t mp = 0xffu;
+      while (mp != 0u) {
+        vis.add(c0 + 1, __popc(mp));
+        const int s = next_child<false>(T.super + s0 * kBoxWords, mp, r,
+                                        best.t);
+        if (s < 0) break;
+        mp &= ~(1u << s);
+        const int k0 = (s0 + s) * kFanout;  // its first cluster
+        uint32_t mc = 0xffu;
+        while (mc != 0u) {
+          vis.add(c0 + 2, __popc(mc));
+          // the cluster boxes lie block_words apart, in the blocks' last rows
+          int c = -1;
+          float ec = 0.f;
+          for (uint32_t b = mc; b != 0u; b &= b - 1u) {
+            const int i = __ffs(b) - 1;
+            const float e = slab<true>(
+                reinterpret_cast<const float*>(
+                    T.attr + (size_t)(k0 + i) * block_words + box_word),
+                r, best.t);
+            if (e < 0.f) {
+              mc &= ~(1u << i);
+            } else if (c < 0 || e < ec) {
+              c = i;
+              ec = e;
+            }
+          }
+          if (c < 0) break;
+          mc &= ~(1u << c);
+          const int k = k0 + c;
+          const int* blk = T.attr + (size_t)k * block_words;
+          const int key0 = (cls << kKeyShift) | (k * C);
+          const int n_groups = C / kGroup;
+          const float* gbox = T.group + (size_t)k * n_groups * kBoxWords;
+          for (int gb = 0; gb < n_groups; gb += 32) {
+            const int ng = min(32, n_groups - gb);
+            uint32_t mg = ng == 32 ? 0xffffffffu : (1u << ng) - 1u;
+            while (mg != 0u) {
+              vis.add(c0 + 3, __popc(mg));
+              const int g = next_child<true>(gbox + gb * kBoxWords, mg, r,
+                                             best.t);
+              if (g < 0) break;
+              mg &= ~(1u << g);
+              const int j0 = (gb + g) * kGroup;
+              for (int j = j0; j < j0 + kGroup; ++j) {
+                vis.prim(c0 + (kTri ? 5 : 4), kind);
+                if constexpr (kTri) {
+                  if (test_triangle<true, kAny>(blk + j, C, p, best,
+                                                key0 + j))
+                    return true;
+                } else {
+                  if (test_sphere<true, kAny>(blk + j, C, p, best,
+                                              key0 + j))
+                    return true;
+                }
+              }
+            }
+          }
         }
       }
     }
@@ -216,27 +414,16 @@ __device__ __forceinline__ bool walk(const float* __restrict__ ss_boxes,
 
 // The cluster engine's NEE light table and shadow test: the pick reads the
 // shared-memory light rows; a shadow ray is blocked when the globals or a
-// walk of either hierarchy, seeded with best t = t_edge, finds a hit
-// (pallas_cluster.py:1498-1506).
-template <bool kTris>
+// walk of either hierarchy, with best t fixed at t_edge, finds a hit
+// (pallas_cluster.py:1498-1506); it stops at the first.
+template <bool kTris, bool kCount>
 struct ClusterNee {
   const float* lights;  // n_lights_max rows of kLightCols
   int n_lights_max;
   float n_lights;
-  const int* glob;
-  int n_global;
-  const int* tglob;
-  int n_tri_global;
-  const float* ss_boxes;
-  int n_ss;
-  const float* super_boxes;
-  const int* attr;
-  int C;
-  const float* tss_boxes;
-  int n_tri_ss;
-  const float* tsuper_boxes;
-  const int* tattr;
-  int tri_C;
+  Table sph;
+  Table tri;
+  Visits<kCount> vis;  // the block's counters (kCount)
   int segs;
 
   // the first row whose cdf reaches u (pallas_cluster.py:1433-1442)
@@ -254,20 +441,14 @@ struct ClusterNee {
     Path s{};
     s.ox = hx; s.oy = hy; s.oz = hz;
     s.dx = dx; s.dy = dy; s.dz = dz;
-    Best best{t_edge, nullptr, 1, false};
-    for (int g = 0; g < n_global; ++g)
-      test_sphere<false>(glob + g * kCols, 1, s, best);
+    Best best{t_edge, -1};
+    if (sweep_globals<false, true>(sph, 0, s, best, vis)) return true;
     if constexpr (kTris) {
-      for (int g = 0; g < n_tri_global; ++g)
-        test_triangle<false>(tglob + g * kCols, 1, s, best);
+      if (sweep_globals<true, true>(tri, 2, s, best, vis)) return true;
     }
-    if (best.row != nullptr) return true;
     const Ray r{hx, hy, hz, safe_inv(dx), safe_inv(dy), safe_inv(dz)};
-    if (walk<false, true>(ss_boxes, n_ss, super_boxes, attr, C, r, s, best))
-      return true;
-    if constexpr (kTris)
-      return walk<true, true>(tss_boxes, n_tri_ss, tsuper_boxes, tattr,
-                              tri_C, r, s, best);
+    if (walk<false, true>(sph, 1, r, s, best, vis)) return true;
+    if constexpr (kTris) return walk<true, true>(tri, 3, r, s, best, vis);
     return false;
   }
 };
@@ -291,39 +472,40 @@ __device__ __forceinline__ Pixel pixel_of(int blocks_x, int row0) {
                row0 + (tile / blocks_x) * kSublanes + sub};
 }
 
-template <bool kTris, bool kFlags, bool kNee>
+// One (pixel, sample) per thread: sample s0 + blockIdx.y of the frame.
+// Writes the sample's radiance to scratch plane (blockIdx.y, channel),
+// indexed by the thread's place in the grid.
+template <bool kTris, bool kFlags, bool kNee, bool kCount>
 __global__ void __launch_bounds__(kBlock)
 cluster_kernel(const int* __restrict__ glob_g, int n_global,
                const float* __restrict__ ss_boxes, int n_ss,
                const float* __restrict__ super_boxes,
                const int* __restrict__ attr, int C,
+               const float* __restrict__ group_boxes,
                const int* __restrict__ tglob_g, int n_tri_global,
                const float* __restrict__ tss_boxes, int n_tri_ss,
                const float* __restrict__ tsuper_boxes,
                const int* __restrict__ tattr, int tri_C,
+               const float* __restrict__ tgroup_boxes,
                const float* __restrict__ cam_g, const float* __restrict__ bg_g,
                const float* __restrict__ lights_g, int n_lights_max,
-               uint32_t seed, int row0, int width, int row_end, int blocks_x,
-               float inv_w, float inv_h, int spp, float inv_spp,
-               int max_depth, int jitter, int refract, int dof,
-               int stratify, int gamma, const int* __restrict__ mask,
-               float* __restrict__ out, int* __restrict__ segs) {
-  if (mask != nullptr && mask[blockIdx.x / 16] == 0) {  // skipped: zeros
-    const Pixel px = pixel_of(blocks_x, row0);
-    if (px.x < width && px.y < row_end) {
-      float* o = out + ((size_t)(px.y - row0) * width + px.x) * 3;
-      o[0] = 0.f;
-      o[1] = 0.f;
-      o[2] = 0.f;
-    }
-    return;
-  }
+               uint32_t seed, int row0, int width, int blocks_x,
+               float inv_w, float inv_h, int spp, int s0, int max_depth,
+               int jitter,
+               int refract, int dof, int stratify, int stage,
+               const int* __restrict__ mask, float* __restrict__ scratch,
+               int* __restrict__ segs,
+               unsigned long long* __restrict__ visits) {
+  const int tile = blockIdx.x / 16;  // the band's own screen block
+  if (mask != nullptr && mask[tile] == 0) return;  // skipped: the mean zeroes
 
   __shared__ int glob[kMaxGlobal * kCols];
   __shared__ int tglob[kTris ? kMaxGlobal * kCols : 1];
   __shared__ float lights[kNee ? kMaxLights * kLightCols + 1 : 1];
   __shared__ float cam[16];
   __shared__ float bg[3];
+  __shared__ unsigned long long counts[kCount ? kVisitCounts : 1];
+  extern __shared__ float boxes[];  // staged: ss, super, tri ss, tri super
 
   for (int i = threadIdx.x; i < n_global * kCols; i += kBlock)
     glob[i] = glob_g[i];
@@ -336,20 +518,38 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
     for (int i = threadIdx.x; i <= n_lights_max * kLightCols; i += kBlock)
       lights[i] = lights_g[i];
   }
+  const int sph_words = n_ss * (1 + kFanout) * kBoxWords;
+  if (stage) {
+    for (int i = threadIdx.x; i < n_ss * kBoxWords; i += kBlock)
+      boxes[i] = ss_boxes[i];
+    for (int i = threadIdx.x; i < n_ss * kFanout * kBoxWords; i += kBlock)
+      boxes[n_ss * kBoxWords + i] = super_boxes[i];
+    if constexpr (kTris) {
+      for (int i = threadIdx.x; i < n_tri_ss * kBoxWords; i += kBlock)
+        boxes[sph_words + i] = tss_boxes[i];
+      for (int i = threadIdx.x; i < n_tri_ss * kFanout * kBoxWords;
+           i += kBlock)
+        boxes[sph_words + n_tri_ss * kBoxWords + i] = tsuper_boxes[i];
+    }
+  }
   if (threadIdx.x < 16) cam[threadIdx.x] = cam_g[threadIdx.x];
   if (threadIdx.x < 3) bg[threadIdx.x] = bg_g[threadIdx.x];
+  if (kCount && threadIdx.x < kVisitCounts) counts[threadIdx.x] = 0;
   __syncthreads();
 
-  // the pixel is derived again here, after the loads, rather than kept
-  // from the mask test: so the path loop's registers are those it had
-  // before the mask (ptxas, chip_smoke [2])
-  const int tile = blockIdx.x / 16;  // the band's own screen block
+  const Table sph{glob, n_global,
+                  stage ? boxes : ss_boxes,
+                  stage ? boxes + n_ss * kBoxWords : super_boxes,
+                  n_ss, attr, C, group_boxes};
+  const Table tri{tglob, n_tri_global,
+                  stage ? boxes + sph_words : tss_boxes,
+                  stage ? boxes + sph_words + n_tri_ss * kBoxWords
+                        : tsuper_boxes,
+                  n_tri_ss, tattr, tri_C, tgroup_boxes};
+
+  const int s = s0 + (int)blockIdx.y;
   const Pixel pix = pixel_of(blocks_x, row0);
-  const int pxi = pix.x;
-  const int pyi = pix.y;
-  const uint32_t flat = (uint32_t)pyi * (uint32_t)width + (uint32_t)pxi;
-  const float px = (float)pxi;
-  const float py = (float)pyi;
+  const uint32_t flat = (uint32_t)pix.y * (uint32_t)width + (uint32_t)pix.x;
 
   const Camera c = load_camera(cam);
   // the R2 shift's stream: seed + tile * spp, without the sample term
@@ -357,152 +557,237 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
   const Sampling sm = make_sampling<kFlags>(
       jitter, stratify, dof, flat, seed + (uint32_t)tile * (uint32_t)spp);
   const bool refr = kFlags && refract;
-  ClusterNee<kTris> nee{lights, n_lights_max,
-                        kNee ? lights[n_lights_max * kLightCols] : 0.f, glob,
-                        n_global, tglob, n_tri_global, ss_boxes, n_ss,
-                        super_boxes, attr, C, tss_boxes, n_tri_ss,
-                        tsuper_boxes, tattr, tri_C, 0};
+  Visits<kCount> vis{counts};
+  ClusterNee<kTris, kCount> nee{
+      lights, n_lights_max,
+      kNee ? lights[n_lights_max * kLightCols] : 0.f, sph, tri, vis, 0};
 
-  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  // per-tile, per-sample stream seed (int32 wrap in the JAX kernel)
+  const uint32_t seed_s = seed + (uint32_t)tile * (uint32_t)spp + (uint32_t)s;
+  const uint32_t pix_mix = flat ^ (seed_s * 2654435769u);
+
+  Path p = primary_ray<kFlags>(c, (float)pix.x, (float)pix.y, inv_w, inv_h,
+                               pix_mix, s, sm);
   int seg_count = 0;
 
-  for (int s = 0; s < spp; ++s) {
-    // per-tile, per-sample stream seed (int32 wrap in the JAX kernel)
-    const uint32_t seed_s = seed + (uint32_t)tile * (uint32_t)spp + (uint32_t)s;
-    const uint32_t pix_mix = flat ^ (seed_s * 2654435769u);
+  for (int k = 1; k <= max_depth; ++k) {
+    ++seg_count;  // only live paths reach this point
 
-    Path p = primary_ray<kFlags>(c, px, py, inv_w, inv_h, pix_mix, s, sm);
+    Best best{kTMax, -1};
+    // ---- globals: dense sweeps from shared memory ----
+    sweep_globals<false, false>(sph, 0, p, best, vis);
+    if constexpr (kTris) sweep_globals<true, false>(tri, 2, p, best, vis);
 
-    for (int k = 1; k <= max_depth; ++k) {
-      ++seg_count;  // only live paths reach this point
+    // ---- the hierarchies, spheres then triangles ----
+    const Ray r{p.ox, p.oy, p.oz, safe_inv(p.dx), safe_inv(p.dy),
+                safe_inv(p.dz)};
+    walk<false, false>(sph, 1, r, p, best, vis);
+    if constexpr (kTris) walk<true, false>(tri, 3, r, p, best, vis);
 
-      Best best{kTMax, nullptr, 1, false};
-      // ---- globals: dense sweeps from shared memory ----
-      for (int g = 0; g < n_global; ++g)
-        test_sphere<false>(glob + g * kCols, 1, p, best);
-      if constexpr (kTris) {
-        for (int g = 0; g < n_tri_global; ++g)
-          test_triangle<false>(tglob + g * kCols, 1, p, best);
-      }
-
-      // ---- the hierarchies, spheres then triangles ----
-      const Ray r{p.ox, p.oy, p.oz, safe_inv(p.dx), safe_inv(p.dy),
-                  safe_inv(p.dz)};
-      walk<false>(ss_boxes, n_ss, super_boxes, attr, C, r, p, best);
-      if constexpr (kTris)
-        walk<true>(tss_boxes, n_tri_ss, tsuper_boxes, tattr, tri_C, r, p,
-                   best);
-
-      if (best.row == nullptr) {  // miss: background, path ends
-        p.cr = p.cr + p.tr * bg[0];
-        p.cg = p.cg + p.tg * bg[1];
-        p.cb = p.cb + p.tb * bg[2];
-        break;
-      }
-      // unpack the winner's packed row (generic loads: shared or global);
-      // its materials are 5 bf16-pair words, at word 5 of a sphere row and
-      // word 11 of a triangle row
-      const int ws = best.stride;
-      const int* m = best.row + ((kTris && best.tri) ? 11 : 5) * ws;
-      const uint32_t p0 = (uint32_t)m[0];
-      const uint32_t p1 = (uint32_t)m[ws];
-      const uint32_t p2 = (uint32_t)m[2 * ws];
-      const uint32_t p3 = (uint32_t)m[3 * ws];
-      const uint32_t p4 = (uint32_t)m[4 * ws];
-      float cx, cy, cz, ir;
-      if (kTris && best.tri) {
-        // the bf16 face normal, encoded as the TPU kernel does
-        const uint32_t n0 = (uint32_t)best.row[9 * ws];
-        const uint32_t n1 = (uint32_t)best.row[10 * ws];
-        const float nx = __uint_as_float(n0 << 16);
-        const float ny = __uint_as_float(n0 & 0xFFFF0000u);
-        const float nz = __uint_as_float(n1 << 16);
-        ir = (p.dx * nx + p.dy * ny + p.dz * nz) < 0.f ? 1.f : -1.f;
-        cx = (p.ox + p.dx * best.t) - nx;
-        cy = (p.oy + p.dy * best.t) - ny;
-        cz = (p.oz + p.dz * best.t) - nz;
-      } else {
-        cx = __int_as_float(best.row[0]);
-        cy = __int_as_float(best.row[ws]);
-        cz = __int_as_float(best.row[2 * ws]);
-        ir = __int_as_float(best.row[4 * ws]);
-      }
-      const Surface surf{
-          cx, cy, cz, ir,
-          __uint_as_float(p0 << 16), __uint_as_float(p0 & 0xFFFF0000u),
-          __uint_as_float(p1 << 16), __uint_as_float(p1 & 0xFFFF0000u),
-          __uint_as_float(p2 << 16),
-          __uint_as_float(p3 << 16), __uint_as_float(p3 & 0xFFFF0000u),
-          __uint_as_float(p4 << 16), __uint_as_float(p2 & 0xFFFF0000u)};
-      if (!shade_hit<kFlags, kNee>(p, surf, best.t, k, pix_mix,
-                                   bounce_salt(sm.primary, refr, kNee, k),
-                                   refr, false, &nee, kTris && best.tri))
-        break;
+    if (best.key < 0) {  // miss: background, path ends
+      p.cr = p.cr + p.tr * bg[0];
+      p.cg = p.cg + p.tg * bg[1];
+      p.cb = p.cb + p.tb * bg[2];
+      break;
     }
-    acc_r += p.cr;
-    acc_g += p.cg;
-    acc_b += p.cb;
+    // the winner's packed row from its key (generic loads: shared or
+    // global); its materials are 5 bf16-pair words, at word 5 of a sphere
+    // row and word 11 of a triangle row
+    const int cls = best.key >> kKeyShift;
+    const int idx = best.key & ((1 << kKeyShift) - 1);
+    const bool is_tri = kTris && cls >= 2;
+    const int* row;
+    int ws;
+    if ((cls & 1) == 0) {  // a global
+      row = (is_tri ? tglob : glob) + idx * kCols;
+      ws = 1;
+    } else {
+      ws = is_tri ? tri_C : C;
+      row = (is_tri ? tattr : attr) +
+            (size_t)(idx / ws) * ((ws * kCols / kLanes + 1) * kLanes) +
+            idx % ws;
+    }
+    const int* m = row + (is_tri ? 11 : 5) * ws;
+    const uint32_t p0 = (uint32_t)m[0];
+    const uint32_t p1 = (uint32_t)m[ws];
+    const uint32_t p2 = (uint32_t)m[2 * ws];
+    const uint32_t p3 = (uint32_t)m[3 * ws];
+    const uint32_t p4 = (uint32_t)m[4 * ws];
+    float cx, cy, cz, ir;
+    if (is_tri) {
+      // the bf16 face normal, encoded as the TPU kernel does
+      const uint32_t n0 = (uint32_t)row[9 * ws];
+      const uint32_t n1 = (uint32_t)row[10 * ws];
+      const float nx = __uint_as_float(n0 << 16);
+      const float ny = __uint_as_float(n0 & 0xFFFF0000u);
+      const float nz = __uint_as_float(n1 << 16);
+      ir = (p.dx * nx + p.dy * ny + p.dz * nz) < 0.f ? 1.f : -1.f;
+      cx = (p.ox + p.dx * best.t) - nx;
+      cy = (p.oy + p.dy * best.t) - ny;
+      cz = (p.oz + p.dz * best.t) - nz;
+    } else {
+      cx = __int_as_float(row[0]);
+      cy = __int_as_float(row[ws]);
+      cz = __int_as_float(row[2 * ws]);
+      ir = __int_as_float(row[4 * ws]);
+    }
+    const Surface surf{
+        cx, cy, cz, ir,
+        __uint_as_float(p0 << 16), __uint_as_float(p0 & 0xFFFF0000u),
+        __uint_as_float(p1 << 16), __uint_as_float(p1 & 0xFFFF0000u),
+        __uint_as_float(p2 << 16),
+        __uint_as_float(p3 << 16), __uint_as_float(p3 & 0xFFFF0000u),
+        __uint_as_float(p4 << 16), __uint_as_float(p2 & 0xFFFF0000u)};
+    if (!shade_hit<kFlags, kNee>(p, surf, best.t, k, pix_mix,
+                                 bounce_salt(sm.primary, refr, kNee, k),
+                                 refr, false, &nee, is_tri))
+      break;
   }
 
-  if (pxi < width && pyi < row_end) {
-    float* o = out + ((size_t)(pyi - row0) * width + pxi) * 3;
-    if (gamma) {
-      o[0] = fminf(fmaxf(sqrtf(fmaxf(acc_r * inv_spp, 0.f)), 0.f), 1.f);
-      o[1] = fminf(fmaxf(sqrtf(fmaxf(acc_g * inv_spp, 0.f)), 0.f), 1.f);
-      o[2] = fminf(fmaxf(sqrtf(fmaxf(acc_b * inv_spp, 0.f)), 0.f), 1.f);
-    } else {  // the linear mean
-      o[0] = acc_r * inv_spp;
-      o[1] = acc_g * inv_spp;
-      o[2] = acc_b * inv_spp;
-    }
-  }
+  // this sample's radiance, plane (blockIdx.y, channel), coalesced by
+  // thread
+  const size_t n_lanes = (size_t)gridDim.x * kBlock;
+  const size_t g = (size_t)blockIdx.x * kBlock + threadIdx.x;
+  const size_t plane = (size_t)blockIdx.y * 3;
+  scratch[(plane + 0) * n_lanes + g] = p.cr;
+  scratch[(plane + 1) * n_lanes + g] = p.cg;
+  scratch[(plane + 2) * n_lanes + g] = p.cb;
 
-  // ---- per-tile segment count: one atomic per block ----
-  add_block_count<kBlock>(seg_count + nee.segs, segs, tile);
+  // ---- per-tile segment count: one atomic per warp ----
+  add_tile_count(seg_count + nee.segs, segs, tile);
+  if constexpr (kCount) {  // one 64-bit atomic per counter and block
+    __syncthreads();
+    if (threadIdx.x < kVisitCounts)
+      atomicAdd(visits + (size_t)tile * kVisitCounts + threadIdx.x,
+                counts[threadIdx.x]);
+  }
+}
+
+// Each pixel's sum of one chunk's ``n`` samples (the grid of
+// cluster_kernel without its sample axis), added in sample order to the
+// running sum: 0.0f for the ``first`` chunk, else the one the previous
+// chunk left in ``out``; so the sum is the one a thread looping over all of
+// the pixel's samples forms. The ``last`` chunk writes the mean, with sqrt
+// gamma and clamp or linear, the others the running sum; zeros for a
+// masked screen block.
+__global__ void __launch_bounds__(kBlock)
+cluster_kernel_mean(const float* __restrict__ scratch, int n, int first,
+                    int last, float inv_spp, int gamma,
+                    const int* __restrict__ mask, int blocks_x, int row0,
+                    int width, int row_end, float* __restrict__ out) {
+  const Pixel px = pixel_of(blocks_x, row0);
+  if (px.x >= width || px.y >= row_end) return;
+  float* o = out + ((size_t)(px.y - row0) * width + px.x) * 3;
+  if (mask != nullptr && mask[blockIdx.x / 16] == 0) {
+    o[0] = 0.f;
+    o[1] = 0.f;
+    o[2] = 0.f;
+    return;
+  }
+  const size_t n_lanes = (size_t)gridDim.x * kBlock;
+  const size_t g = (size_t)blockIdx.x * kBlock + threadIdx.x;
+  float acc_r = first ? 0.f : o[0];
+  float acc_g = first ? 0.f : o[1];
+  float acc_b = first ? 0.f : o[2];
+  for (int s = 0; s < n; ++s) {
+    acc_r += scratch[((size_t)s * 3 + 0) * n_lanes + g];
+    acc_g += scratch[((size_t)s * 3 + 1) * n_lanes + g];
+    acc_b += scratch[((size_t)s * 3 + 2) * n_lanes + g];
+  }
+  if (!last) {
+    o[0] = acc_r;
+    o[1] = acc_g;
+    o[2] = acc_b;
+  } else if (gamma) {
+    o[0] = fminf(fmaxf(sqrtf(fmaxf(acc_r * inv_spp, 0.f)), 0.f), 1.f);
+    o[1] = fminf(fmaxf(sqrtf(fmaxf(acc_g * inv_spp, 0.f)), 0.f), 1.f);
+    o[2] = fminf(fmaxf(sqrtf(fmaxf(acc_b * inv_spp, 0.f)), 0.f), 1.f);
+  } else {  // the linear mean
+    o[0] = acc_r * inv_spp;
+    o[1] = acc_g * inv_spp;
+    o[2] = acc_b * inv_spp;
+  }
+}
+
+template <bool kCount>
+using KernelFn = decltype(&cluster_kernel<false, false, false, kCount>);
+
+// The instantiation for a launch: per mesh / no mesh, flag-free, kFlags or
+// kNee (always with kFlags); the counting ones only with kFlags, whose
+// flags are uniform branches.
+template <bool kCount>
+KernelFn<kCount> pick(bool tris, bool flags, bool nee) {
+  if (nee)
+    return tris ? cluster_kernel<true, true, true, kCount>
+                : cluster_kernel<false, true, true, kCount>;
+  if (kCount || flags)
+    return tris ? cluster_kernel<true, true, false, kCount>
+                : cluster_kernel<false, true, false, kCount>;
+  return tris ? cluster_kernel<true, false, false, kCount>
+              : cluster_kernel<false, false, false, kCount>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the cluster kernel on `stream`. `glob` is (n_global, 16) int32
-// words, `ss_boxes` (n_ss, 8) and `super_boxes` (8 n_ss, 8) f32, `attr`
-// (64 n_ss, C/8 + 1, 128) int32 words; the `t`-prefixed triangle tables
-// have the same layout (n_tri_ss 0 and null pointers: no mesh); `cam` (16,)
-// and `bg` (3,) f32, all on the device; with `nee`, `lights` is the
-// (8 n_lights_max + 1,) f32 light table (ops/cluster.py:light_table).
-// A band of `rows` rows from frame row `row0` (both multiples of 32 unless
-// the band is the whole frame) of the frame of `height` rows: `out` is
-// (rows, width, 3) f32; `segs` (n_tiles,) int32, zeroed by the caller,
-// with n_tiles = ceil(width/128) * ceil(rows/32); `mask` null or
-// (n_tiles,) int32 on the device, a screen block with 0 writing zeros and
-// counting no segment. `refract`, `dof`, `stratify` and `nee` switch the
-// optional flags on; `gamma` 0 stores the linear mean. Allocates nothing
-// and does not synchronise. Returns cudaGetLastError() of the launch.
+// Launches the cluster kernel and its mean pass on `stream`, once for each
+// chunk of at most `chunk` samples (1 to 65535), in sample order. `glob` is
+// (n_global, 16) int32 words, `ss_boxes` (n_ss, 8) and `super_boxes`
+// (8 n_ss, 8) f32, `attr` (64 n_ss, C/8 + 1, 128) int32 words,
+// `group_boxes` (64 n_ss, C/8, 8) f32 (ops/cluster.py:group_boxes); the
+// `t`-prefixed triangle tables have the same layout (n_tri_ss 0 and null
+// pointers: no mesh); `cam` (16,) and `bg` (3,) f32, all on the device;
+// with `nee`, `lights` is the (8 n_lights_max + 1,) f32 light table
+// (ops/cluster.py:light_table). A band of `rows` rows from frame row `row0`
+// (both multiples of 32 unless the band is the whole frame) of the frame of
+// `height` rows: `out` is (rows, width, 3) f32; `scratch` (min(chunk,
+// spp), 3, n_tiles * 4096) f32; `segs` (n_tiles,) int32, zeroed by the caller, with
+// n_tiles = ceil(width/128) * ceil(rows/32); `mask` null or (n_tiles,)
+// int32 on the device, a screen block with 0 writing zeros and counting no
+// segment. `visits` null, or (n_tiles, 2, 7) int64 zeroed by the caller:
+// then the counting instantiation runs and adds, per tile, for path and
+// then shadow rays, the slab tests at the super-super, super, cluster and
+// group levels, the sphere and triangle tests, and the primitive tests the
+// warps issued. `refract`, `dof`, `stratify` and `nee` switch the optional flags
+// on; `gamma` 0 stores the linear mean. Allocates nothing and does not
+// synchronise. Returns cudaGetLastError() of the launches.
 int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
                          int n_ss, const float* super_boxes, const int* attr,
-                         int cluster_size, const int* tglob, int n_tri_global,
+                         int cluster_size, const float* group_boxes,
+                         const int* tglob, int n_tri_global,
                          const float* tss_boxes, int n_tri_ss,
                          const float* tsuper_boxes, const int* tattr,
-                         int tri_cluster_size, const float* cam,
+                         int tri_cluster_size, const float* tgroup_boxes,
+                         const float* cam,
                          const float* bg, const float* lights,
                          int n_lights_max, int seed, int row0, int rows,
-                         int width, int height, int spp, int max_depth,
+                         int width, int height, int spp, int chunk,
+                         int max_depth,
                          int jitter, int refract, int dof, int stratify,
                          int nee, int gamma, const int* mask, float* out,
-                         int* segs, void* stream) {
+                         float* scratch, int* segs, void* visits,
+                         void* stream) {
   if (n_global < 0 || n_global > kMaxGlobal || n_ss < 1 ||
       cluster_size < 8 || cluster_size % 8 != 0 || n_tri_ss < 0 ||
       (n_tri_ss > 0 &&
        (n_tri_global < 0 || n_tri_global > kMaxGlobal ||
         tri_cluster_size < 8 || tri_cluster_size % 8 != 0 ||
         tss_boxes == nullptr || tsuper_boxes == nullptr ||
-        tattr == nullptr || (n_tri_global > 0 && tglob == nullptr))) ||
+        tattr == nullptr || tgroup_boxes == nullptr ||
+        (n_tri_global > 0 && tglob == nullptr))) ||
       (nee && (lights == nullptr || n_lights_max < 0 ||
                n_lights_max > kMaxLights)) ||
-      width < 1 || height < 1 || spp < 1 || max_depth < 1 || rows < 1 ||
-      row0 < 0 || row0 % kSublanes != 0 || row0 + rows > height ||
-      (rows != height && rows % kSublanes != 0))
+      width < 1 || height < 1 || spp < 1 || chunk < 1 || chunk > 65535 ||
+      max_depth < 1 ||
+      rows < 1 || row0 < 0 || row0 % kSublanes != 0 || row0 + rows > height ||
+      (rows != height && rows % kSublanes != 0) || scratch == nullptr ||
+      group_boxes == nullptr)
+    return (int)cudaErrorInvalidValue;
+  // the storage index of a key: below 2^28 rows a table
+  if ((long long)n_ss * kFanout * kFanout * cluster_size >= (1LL << kKeyShift) ||
+      (long long)n_tri_ss * kFanout * kFanout * tri_cluster_size >=
+          (1LL << kKeyShift))
     return (int)cudaErrorInvalidValue;
   const int blocks_x = (width + kLanes - 1) / kLanes;
   const int blocks_y = (rows + kSublanes - 1) / kSublanes;
@@ -515,20 +800,39 @@ int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
       (uint32_t)seed +
       (uint32_t)((row0 / kSublanes) * blocks_x) * (uint32_t)spp;
   const bool flags = refract || dof || stratify;
-  auto kernel =
-      nee ? (n_tri_ss > 0 ? cluster_kernel<true, true, true>
-                          : cluster_kernel<false, true, true>)
-          : n_tri_ss > 0 ? (flags ? cluster_kernel<true, true, false>
-                                  : cluster_kernel<true, false, false>)
-                         : (flags ? cluster_kernel<false, true, false>
-                                  : cluster_kernel<false, false, false>);
-  kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      glob, n_global, ss_boxes, n_ss, super_boxes, attr, cluster_size, tglob,
-      n_tri_global, tss_boxes, n_tri_ss, tsuper_boxes, tattr,
-      tri_cluster_size, cam, bg, lights, n_lights_max, seed_band, row0,
-      width, row0 + rows, blocks_x, inv_w, inv_h, spp, inv_spp, max_depth,
-      jitter, refract, dof, stratify, gamma, mask, out, segs);
-  return (int)cudaGetLastError();
+  const bool tris = n_tri_ss > 0;
+  const size_t stage_bytes =
+      (size_t)(n_ss + n_tri_ss) * (1 + kFanout) * kBoxWords * sizeof(float);
+  const int stage = stage_bytes <= (size_t)kStageBytes;
+  const size_t shmem = stage ? stage_bytes : 0;
+  cudaStream_t st = (cudaStream_t)stream;
+#define TPURT_CLUSTER_ARGS                                                   \
+  glob, n_global, ss_boxes, n_ss, super_boxes, attr, cluster_size,         \
+      group_boxes, tglob, n_tri_global, tss_boxes, n_tri_ss, tsuper_boxes,  \
+      tattr, tri_cluster_size, tgroup_boxes, cam, bg, lights, n_lights_max, \
+      seed_band, row0,                                                      \
+      width, blocks_x, inv_w, inv_h, spp, s0, max_depth, jitter, refract,   \
+      dof, stratify, stage, mask, scratch, segs,                            \
+      static_cast<unsigned long long*>(visits)
+  for (int s0 = 0; s0 < spp; s0 += chunk) {
+    const int n = min(chunk, spp - s0);
+    const dim3 grid(blocks, n);
+    if (visits != nullptr)
+      pick<true>(tris, flags, nee)<<<grid, kBlock, shmem, st>>>(
+          TPURT_CLUSTER_ARGS);
+    else
+      pick<false>(tris, flags, nee)<<<grid, kBlock, shmem, st>>>(
+          TPURT_CLUSTER_ARGS);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    cluster_kernel_mean<<<blocks, kBlock, 0, st>>>(
+        scratch, n, s0 == 0, s0 + n == spp, inv_spp, gamma, mask, blocks_x,
+        row0, width, row0 + rows, out);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+#undef TPURT_CLUSTER_ARGS
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

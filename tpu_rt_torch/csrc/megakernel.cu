@@ -51,8 +51,9 @@
 //   * ``gamma`` = 0 stores the linear mean instead of sqrt gamma and clamp;
 //   * no global state (no __constant__ symbol): a launch writes only its own
 //     output and counts, so renders on two streams cannot race;
-//   * segment counts: a block reduction, then one integer atomicAdd per block
-//     into its tile's slot, which is exact and independent of order;
+//   * segment counts: a sum over the lanes of a warp that arrive together,
+//     then one integer atomicAdd into its tile's slot (add_tile_count), which
+//     is exact and independent of order;
 //   * a band of rows (pallas_megakernel.py:818, 858-860, 894-896) is the
 //     pixel offset row_offset * width: the hash's pixel id and the camera
 //     coordinates are the full frame's (inv_h from its height), the tile
@@ -273,8 +274,8 @@ megakernel(const float* __restrict__ attr_g, int n_spheres,
     }
   }
 
-  // ---- per-tile segment count: one atomic per block ----
-  add_block_count<kBlock>(seg_count + nee.segs, segs, tile);
+  // ---- per-tile segment count: one atomic per warp ----
+  add_tile_count(seg_count + nee.segs, segs, tile);
 }
 
 }  // namespace

@@ -443,23 +443,18 @@ __device__ __forceinline__ bool shade_hit(Path& p, const Surface& w, float t,
   return true;
 }
 
-// Adds each thread's count into segs[tile] with one atomic per block: warp
-// shuffles, then the first warp sums the warp totals. Every thread of the
-// block must call it. Integer sums, so the result is exact and independent
-// of order.
-template <int kBlock>
-__device__ __forceinline__ void add_block_count(int count, int* segs, int tile) {
-  __shared__ int warp_counts[kBlock / 32];
-  for (int off = 16; off > 0; off >>= 1)
-    count += __shfl_down_sync(0xffffffffu, count, off);
-  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = count;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int v = threadIdx.x < kBlock / 32 ? warp_counts[threadIdx.x] : 0;
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (threadIdx.x == 0) atomicAdd(segs + tile, v);
-  }
+// Adds each thread's count into segs[tile]: the lanes of a warp that reach
+// this point together sum their counts (redux.sync over __activemask()),
+// and the first of them adds the sum with one integer atomic. It needs no
+// barrier and no lane outside the active mask, so it is exact however the
+// warp arrives here (a block reduction with full-warp shuffles and a
+// barrier at this point lost or garbled a warp's count on rare frames of
+// the cluster kernel). Integer sums: exact and independent of order.
+__device__ __forceinline__ void add_tile_count(int count, int* segs,
+                                               int tile) {
+  const unsigned m = __activemask();
+  const int sum = __reduce_add_sync(m, count);
+  if ((int)(threadIdx.x & 31) == __ffs(m) - 1) atomicAdd(segs + tile, sum);
 }
 
 }  // namespace

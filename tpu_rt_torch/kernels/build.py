@@ -44,9 +44,10 @@ SIGNATURES = {
     "tpurt_megakernel_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                                 _P, _P],
-    "tpurt_cluster_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P,
-                             _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tpurt_cluster_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I,
+                             _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                             _P, _P, _P, _P],
     "tpurt_fma_launch": [_P, _P, _I, _I, _P],
     "tpurt_fma_device": [_I, _P, _P, _P],
 }

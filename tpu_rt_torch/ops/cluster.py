@@ -26,18 +26,23 @@ emissive spheres by index, as the JAX package caps them.
 and runs ``render_cluster_reference`` for scenes on the CPU; there is no
 other path. The plain version finds each nearest hit by sweeping the
 globals and then every non-padding table row in storage order, spheres
-before triangles. The hierarchy walk visits clusters in that same order
-and its boxes only prune, so both compute the same function; a shadow ray
-is occluded when that search finds a hit before the light's entry t less
-1e-3.
+before triangles, and keeps the first minimum. The kernel walks the
+hierarchy near to far for each ray and keeps the least (t, key), the key
+being that sweep's order (:data:`KEY_SHIFT`); its boxes only prune, so
+both compute the same function whatever the visit order; a shadow ray is
+occluded when that search finds a hit before the light's entry t less
+1e-3. :func:`walk_visits_reference` emulates the kernel's walk in its own
+visit order and counts what it visits.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
 
+from ..core import vecmath as vm
 from ..core.types import CameraP, SphereScene, T_MAX
 from ..kernels import build
 from . import megakernel as mk
@@ -276,7 +281,7 @@ def build_tri_clusters(mesh, cluster_size: int = DEFAULT_CLUSTER,
     # |e1 x e2|, in the JAX package's order of operations
     (ax, ay, az), (bx, by, bz) = mesh.e1.unbind(1), mesh.e2.unbind(1)
     cx, cy, cz = ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx
-    area = torch.sqrt(cx * cx + cy * cy + cz * cz)
+    area = vm.sqrt(cx * cx + cy * cy + cz * cz)
     area_key = torch.where(valid, area, torch.full_like(area, -1.0))
     glob_idx = torch.argsort(-area_key, stable=True)[:G]
     glob_attr = rows_full[glob_idx]
@@ -341,7 +346,7 @@ def _finish_hierarchy(glob_attr, attr, lo, hi, K, C, background):
 def _box_distance(boxes: torch.Tensor, cam_pos: torch.Tensor) -> torch.Tensor:
     """Distance from the camera to each box centre; empty boxes sort last."""
     d = (boxes[..., 0:3] + boxes[..., 3:6]) * 0.5 - cam_pos
-    dist = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+    dist = vm.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
                       + d[..., 2] * d[..., 2])
     return torch.where(boxes[..., 0] >= BIG, 1e30, dist)
 
@@ -514,28 +519,42 @@ def _tri_sweep_rows(tri: ClusteredScene) -> torch.Tensor:
     return rows[(rows[:, 3:9] != 0).any(dim=1)]
 
 
+def _sphere_hits(o, d, g):
+    """The kernel's sphere test of rays (o, d: triples of (n, 1)) against
+    rows ``g`` (..., 5: centre, radius, inv_r): (valid, root). The
+    NaN-propagating root select: sqrt of a negative discriminant is NaN
+    and fails every compare."""
+    ocx, ocy, ocz = o[0] - g[..., 0], o[1] - g[..., 1], o[2] - g[..., 2]
+    half_b = ocx * d[0] + ocy * d[1] + ocz * d[2]
+    cq = (ocx * ocx + ocy * ocy + ocz * ocz) - g[..., 3] * g[..., 3]
+    sqrtd = vm.sqrt(half_b * half_b - cq)
+    root0 = -half_b - sqrtd
+    root = torch.where(root0 >= 1e-3, root0, sqrtd - half_b)
+    return (root >= 1e-3) & (g[..., 4] > 0.0), root
+
+
+def _tri_hits(o, d, g):
+    """Moller-Trumbore of rays against triangle rows ``g`` (..., 9: v0, e1,
+    e2): (valid, t)."""
+    return mk.mt_test(o, d, (g[..., 0], g[..., 1], g[..., 2]),
+                      (g[..., 3], g[..., 4], g[..., 5]),
+                      (g[..., 6], g[..., 7], g[..., 8]))
+
+
 def _nearest(o, d, geo, chunk):
     """Nearest hit of each ray against every row of ``geo`` ((M, 5) f32:
     centre, radius, inv_r), taken in row order with strict ``<``, so the
     first of equal roots wins: the sequential sweep's result, computed a
     chunk of rows at a time. Returns (best t, winning row or -1)."""
-    ox, oy, oz = (x[:, None] for x in o)
-    dx, dy, dz = (x[:, None] for x in d)
-    n = ox.shape[0]
-    best_t = torch.full((n,), mk._T_MAX, dtype=torch.float32, device=ox.device)
-    best_i = torch.full((n,), -1, dtype=torch.int64, device=ox.device)
-    inf = float("inf")
+    o = [x[:, None] for x in o]
+    d = [x[:, None] for x in d]
+    n = o[0].shape[0]
+    best_t = torch.full((n,), mk._T_MAX, dtype=torch.float32,
+                        device=o[0].device)
+    best_i = torch.full((n,), -1, dtype=torch.int64, device=o[0].device)
     for m0 in range(0, geo.shape[0], chunk):
-        cx, cy, cz, rad, inv_r = geo[m0:m0 + chunk].unbind(1)
-        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
-        half_b = ocx * dx + ocy * dy + ocz * dz
-        cq = (ocx * ocx + ocy * ocy + ocz * ocz) - rad * rad
-        # sqrt of a negative discriminant is NaN and fails every compare
-        sqrtd = torch.sqrt(half_b * half_b - cq)
-        root0 = -half_b - sqrtd
-        root = torch.where(root0 >= 1e-3, root0, sqrtd - half_b)
-        root = torch.where((root >= 1e-3) & (inv_r > 0.0), root, inf)
-        cmin, carg = root.min(dim=1)  # first minimum on ties
+        ok, root = _sphere_hits(o, d, geo[m0:m0 + chunk])
+        cmin, carg = torch.where(ok, root, float("inf")).min(dim=1)
         better = cmin < best_t
         best_t = torch.where(better, cmin, best_t)
         best_i = torch.where(better, carg + m0, best_i)
@@ -550,13 +569,311 @@ def _nearest_tri(o, d, geo, chunk, best_t):
     d = [x[:, None] for x in d]
     best_j = torch.full_like(best_t, -1, dtype=torch.int64)
     for m0 in range(0, geo.shape[0], chunk):
-        g = geo[m0:m0 + chunk].unbind(1)
-        ok, tt = mk.mt_test(o, d, g[0:3], g[3:6], g[6:9])
+        ok, tt = _tri_hits(o, d, geo[m0:m0 + chunk])
         cmin, carg = torch.where(ok, tt, float("inf")).min(dim=1)
         better = cmin < best_t
         best_t = torch.where(better, cmin, best_t)
         best_j = torch.where(better, carg + m0, best_j)
     return best_t, best_j
+
+
+def _sweep_keys(tab: ClusteredScene, tri: bool) -> torch.Tensor:
+    """The walk's key (class << 28 | storage index) of each row of
+    :func:`_sweep_rows` (spheres, classes 0 and 1) or
+    :func:`_tri_sweep_rows` (triangles, classes 2 and 3), in their order."""
+    rows = _table_rows(tab)
+    keep = ((rows[:, 3:9] != 0).any(dim=1) if tri
+            else _bits_f32(rows[:, 4]) > 0.0)
+    pos = torch.arange(rows.shape[0], device=rows.device)[keep]
+    G = tab.n_global
+    cls = torch.where(pos < G, 2 if tri else 0, 3 if tri else 1)
+    return (cls << KEY_SHIFT) | torch.where(pos < G, pos, pos - G)
+
+
+def dense_nearest(cl: ClusteredScene, tri: ClusteredScene | None, o, d):
+    """The plain version's nearest hit of each ray (o, d: triples of (R,)
+    f32), by the dense sweeps :func:`_nearest` and :func:`_nearest_tri`, as
+    (t, key) with the walk's key of the winner (-1: none)."""
+    chunk = max(1, (1 << 22) // max(1, o[0].numel()))
+    rows = _sweep_rows(cl)
+    best_t, best_i = _nearest(o, d, _bits_f32(rows[:, 0:5]), chunk)
+    keys = torch.cat([_sweep_keys(cl, False), best_i.new_full((1,), -1)])
+    key = keys[best_i]
+    if tri is not None:
+        trows = _tri_sweep_rows(tri)
+        best_t, best_j = _nearest_tri(o, d, _bits_f32(trows[:, 0:9]), chunk,
+                                      best_t)
+        tkeys = _sweep_keys(tri, True)
+        key = torch.where(best_j >= 0, tkeys[best_j.clamp_min(0)], key)
+    return best_t, key
+
+
+# ---------------------------------------------------------------------------
+# the kernel's walk, counted
+# ---------------------------------------------------------------------------
+
+KEY_SHIFT = 28  # a hit's key: class << 28 | storage index
+GROUP = 8       # rows under one group box
+# (lane, sample) threads of one chunk of the kernel's per-sample grid: its
+# scratch is 12 B each, 201 MB, whatever spp (1080p at 8spp is one chunk)
+SCRATCH_LANES = 1 << 24
+#: the visit counts per ray kind: slab tests at the super-super, super,
+#: cluster and group levels, sphere and triangle tests (globals included),
+#: and the primitive tests the warps issued (the kernel's alone)
+VISIT_COLS = ("ss", "super", "cluster", "group", "sphere", "tri", "warp")
+VISIT_KINDS = ("path", "shadow")
+N_WALK_COLS = 6  # the columns walk_visits_reference counts too
+
+# (id of a table's attr tensor, tri) -> (a weak reference to it, its boxes)
+_GROUP_CACHE: dict = {}
+
+
+def group_boxes(tab: ClusteredScene, tri: bool) -> torch.Tensor:
+    """The port's fourth level under the carried tables: (K, C / 8, 8) f32,
+    for each cluster the boxes of its rows in groups of :data:`GROUP`, in
+    storage order, [lo xyz, hi xyz, flag, 0]. From the packed rows:
+    spheres (``tri`` False) centre -/+ radius of the rows with inv_r > 0,
+    triangles the bounds of v0, v0 + e1, v0 + e2 of the rows whose edges
+    are not zero, each padded out by 1e-5 of its largest coordinate
+    (+1e-6), so that rounding in the slab test never cuts off a primitive
+    its cluster box lets through; a group with no such row is empty (flag
+    0). Derived once per table tensor (cached on ``tab.attr``), so a
+    RayTracer's tables, built at set_scene/set_mesh and ordered once per
+    camera position, derive it once."""
+    key = (id(tab.attr), bool(tri))
+    hit = _GROUP_CACHE.get(key)
+    if hit is not None and hit[0]() is tab.attr:
+        return hit[1]
+    K, C = tab.n_clusters, tab.cluster_size
+    rows = tab.attr[:, :(C * 16) // LANES].reshape(K, 16, C)
+    f = _bits_f32(rows[:, :9]).transpose(1, 2)              # (K, C, 9)
+    if tri:
+        v0, v1, v2 = f[..., 0:3], f[..., 0:3] + f[..., 3:6], (
+            f[..., 0:3] + f[..., 6:9])
+        lo = torch.minimum(v0, torch.minimum(v1, v2))
+        hi = torch.maximum(v0, torch.maximum(v1, v2))
+        ok = (rows[:, 3:9] != 0).any(dim=1)
+    else:
+        lo, hi = f[..., 0:3] - f[..., 3:4], f[..., 0:3] + f[..., 3:4]
+        ok = f[..., 4] > 0.0
+    pad = 1e-5 * torch.maximum(lo.abs(), hi.abs()).amax(-1, keepdim=True) \
+        + 1e-6
+    lo = torch.where(ok[..., None], lo - pad, BIG)
+    hi = torch.where(ok[..., None], hi + pad, -BIG)
+    G = C // GROUP
+    lo = lo.reshape(K, G, GROUP, 3).amin(dim=2)
+    hi = hi.reshape(K, G, GROUP, 3).amax(dim=2)
+    flag = (lo[..., :1] <= hi[..., :1]).to(torch.float32)
+    boxes = torch.cat([lo, hi, flag, torch.zeros_like(flag)], dim=-1)
+    boxes = boxes.contiguous()
+    _GROUP_CACHE[key] = (weakref.ref(tab.attr), boxes)
+    weakref.finalize(tab.attr, _GROUP_CACHE.pop, key, None)
+    return boxes
+
+
+class Walk(NamedTuple):
+    """What :func:`walk_visits_reference` finds for each of R rays: the
+    nearest hit's t and key (-1: none; any-hit: t_edge and -1), whether it
+    hit (any-hit: occluded), and the (R, 6) int64 visit counts (the first
+    six :data:`VISIT_COLS`)."""
+
+    t: torch.Tensor
+    key: torch.Tensor
+    hit: torch.Tensor
+    visits: torch.Tensor
+
+
+def _safe_inv(d: torch.Tensor) -> torch.Tensor:
+    """The kernel's 1 / d with |d| clamped to >= 1e-20 (cluster.cu
+    safe_inv)."""
+    tiny = torch.where(d >= 0.0, 1e-20, -1e-20).to(d.dtype)
+    return 1.0 / torch.where(d.abs() > 1e-20, d, tiny)
+
+
+def _slab(b: torch.Tensor, ray, best_t: torch.Tensor) -> torch.Tensor:
+    """cluster.cu slab: the entry t of each box of ``b`` (n, m, 8) for the
+    ray (origin, 1/direction: six (n, 1) planes) if it crosses it within
+    [1e-3, best_t (n, 1)], else -1."""
+    ox, oy, oz, ix, iy, iz = ray
+    tx0, tx1 = (b[..., 0] - ox) * ix, (b[..., 3] - ox) * ix
+    ty0, ty1 = (b[..., 1] - oy) * iy, (b[..., 4] - oy) * iy
+    tz0, tz1 = (b[..., 2] - oz) * iz, (b[..., 5] - oz) * iz
+    eps = torch.full((), 1e-3, dtype=b.dtype, device=b.device)
+    enter = torch.maximum(
+        torch.maximum(torch.minimum(tx0, tx1), torch.minimum(ty0, ty1)),
+        torch.maximum(torch.minimum(tz0, tz1), eps))
+    exit_ = torch.minimum(
+        torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1)),
+        torch.minimum(torch.maximum(tz0, tz1), best_t))
+    return torch.where((b[..., 6] > 0.0) & (exit_ >= enter), enter, -1.0)
+
+
+class _WalkState:
+    """The rays of one :func:`walk_visits_reference` call and their running
+    search: best t and key, any-hit's done flags, the visit counts."""
+
+    def __init__(self, o, d, t_edge):
+        self.o, self.d = o, d
+        self.inv = tuple(_safe_inv(x) for x in d)
+        n = o[0].shape[0]
+        self.any_hit = t_edge is not None
+        self.best_t = (t_edge.clone() if self.any_hit else torch.full(
+            (n,), mk._T_MAX, dtype=torch.float32, device=o[0].device))
+        self.best_key = torch.full((n,), -1, dtype=torch.int64,
+                                   device=o[0].device)
+        self.done = torch.zeros((n,), dtype=torch.bool, device=o[0].device)
+        self.visits = torch.zeros((n, N_WALK_COLS), dtype=torch.int64,
+                                  device=o[0].device)
+
+    def rays(self, idx):
+        return (tuple(x[idx, None] for x in self.o),
+                tuple(x[idx, None] for x in self.d))
+
+    def slab_ray(self, idx):
+        return tuple(x[idx, None] for x in self.o + self.inv)
+
+    def test(self, idx, rows, tri, key0):
+        """Test rays ``idx`` against their rows ``rows`` (n, m, fields),
+        keys key0 (n,) + column, in order; count the tests. Nearest-hit
+        takes the least (t, key); any-hit stops each ray at its first
+        hit."""
+        o, d = self.rays(idx)
+        ok, t = (_tri_hits if tri else _sphere_hits)(o, d, rows)
+        col = 5 if tri else 4
+        m = rows.shape[1]
+        if self.any_hit:
+            hit = ok & (t < self.best_t[idx, None])
+            anyh = hit.any(dim=1)
+            first = hit.to(torch.int8).argmax(dim=1)
+            self.visits[idx, col] += torch.where(anyh, first + 1, m)
+            self.done[idx[anyh]] = True
+            return
+        self.visits[idx, col] += m
+        cmin, carg = torch.where(ok, t, float("inf")).min(dim=1)
+        key = key0 + carg
+        bt, bk = self.best_t[idx], self.best_key[idx]
+        win = (cmin < bt) | ((cmin == bt) & (key < bk))
+        self.best_t[idx] = torch.where(win, cmin, bt)
+        self.best_key[idx] = torch.where(win, key, bk)
+
+
+def _walk_table(st: _WalkState, tab: ClusteredScene, tri: bool):
+    """One table's globals and hierarchy, as cluster.cu sweeps and walks
+    them."""
+    F = FANOUT
+    cls = 2 if tri else 0
+    nf = 9 if tri else 5
+    dev = tab.attr.device
+    glob = _bits_f32(tab.glob_attr[:, :nf])
+    K, C = tab.n_clusters, tab.cluster_size
+    words = (C * 16) // LANES
+    geo = _bits_f32(tab.attr[:, :words].reshape(K, 16, C)[:, :nf]
+                    ).transpose(1, 2)                        # (K, C, nf)
+    cbox = _bits_f32(tab.attr[:, words, 0:8]).reshape(-1, F, 8)
+    sup = tab.super_boxes.reshape(-1, F, 8)
+    ss = tab.ss_boxes
+
+    def live(idx):
+        return idx[~st.done[idx]]
+
+    # the globals, every ray (any-hit: up to its first hit)
+    idx = live(torch.arange(st.best_t.shape[0], device=dev))
+    if idx.numel() and glob.shape[0]:
+        st.test(idx, glob.expand(idx.numel(), -1, -1), tri,
+                torch.full_like(idx, cls << KEY_SHIFT))
+
+    groups = group_boxes(tab, tri)                          # (K, C/8, 8)
+
+    def visit(idx, k):
+        parent[idx] = k
+        for gb in range(0, C // GROUP, 32):
+            level(idx, groups[k, gb:gb + 32], 3,
+                  lambda i, g, gb=gb: into_group(i, gb + g))
+
+    def into_group(idx, g):
+        k = parent[idx]
+        rows = geo.reshape(K, C // GROUP, GROUP, nf)[k, g]
+        st.test(idx, rows, tri,
+                ((cls + 1) << KEY_SHIFT) + k * C + g * GROUP)
+
+    def level(idx, boxes, col, descend):
+        """Rays ``idx`` walk the children whose boxes are ``boxes`` (n, m,
+        8), counting slab tests in column ``col``; descend(idx, child)."""
+        m = torch.ones(boxes.shape[:2], dtype=torch.bool, device=dev)
+        while True:
+            keep = ~st.done[idx] & m.any(dim=1)
+            idx, boxes, m = idx[keep], boxes[keep], m[keep]
+            if idx.numel() == 0:
+                return
+            st.visits[idx, col] += m.sum(dim=1)
+            e = _slab(boxes, st.slab_ray(idx), st.best_t[idx, None])
+            m = m & (e >= 0.0)
+            has = m.any(dim=1)
+            sel = torch.where(m, e, float("inf")).min(dim=1)[1]
+            idx, boxes, m, sel = idx[has], boxes[has], m[has], sel[has]
+            m[torch.arange(idx.numel(), device=dev), sel] = False
+            descend(idx, sel)
+
+    # each level hands its child's index down through a per-ray map
+    parent = torch.zeros_like(st.best_key)
+
+    def into_clusters(idx, c):
+        saved = parent[idx]
+        visit(idx, saved * F + c)
+        parent[idx] = saved
+
+    def into_supers(idx, s):
+        saved = parent[idx]
+        sp = saved * F + s
+        parent[idx] = sp
+        level(idx, cbox[sp], 2, into_clusters)
+        parent[idx] = saved
+
+    for base in range(0, ss.shape[0], 32):
+        chunk = ss[base:base + 32]
+
+        def into_ss(idx, a, base=base):
+            parent[idx] = base + a
+            level(idx, sup[base + a], 1, into_supers)
+
+        idx = live(torch.arange(st.best_t.shape[0], device=dev))
+        level(idx, chunk.expand(idx.numel(), -1, -1), 0, into_ss)
+
+
+def walk_visits_reference(cl: ClusteredScene, tri: ClusteredScene | None,
+                          o, d, t_edge: torch.Tensor | None = None) -> Walk:
+    """The cluster kernel's search for rays (o, d: triples of (R,) f32), in
+    the kernel's own visit order, with its visit counts: the sphere globals,
+    the triangle globals, the sphere walk and the triangle walk, each level
+    near to far by rounds with the running best t (csrc/cluster.cu walk).
+    Nearest-hit keeps the least (t, key) (key = class << 28 | storage
+    index), which is :func:`dense_nearest`'s winner whatever the order;
+    with ``t_edge`` (R,) the rays are shadow rays, any-hit below t_edge,
+    each stopping at its first hit.
+
+    Vectorised over rays, level by level with each ray's state; returns a
+    :class:`Walk`. The counts equal the counting kernel's (``render_cluster
+    (..., with_visits=True)``) on the same rays."""
+    n = o[0].shape[0]
+    # a chunk of rays at a time: a cluster visit gathers (rays, C, 9) rows
+    step = 1 << (19 if o[0].device.type == "cuda" else 16)
+    if n > step:
+        parts = [walk_visits_reference(
+            cl, tri, tuple(x[i:i + step] for x in o),
+            tuple(x[i:i + step] for x in d),
+            None if t_edge is None else t_edge[i:i + step])
+            for i in range(0, n, step)]
+        return Walk(*(torch.cat(f) for f in zip(*parts)))
+    st = _WalkState(tuple(x.to(torch.float32) for x in o),
+                    tuple(x.to(torch.float32) for x in d), t_edge)
+    order = ((cl, False), (tri, True)) if tri is not None else ((cl, False),)
+    # the globals of both tables first, then the walks (the kernel's order)
+    for tab, is_tri in order:
+        _walk_table(st, tab._replace(ss_boxes=tab.ss_boxes[:0]), is_tri)
+    for tab, is_tri in order:
+        _walk_table(st, tab._replace(glob_attr=tab.glob_attr[:0]), is_tri)
+    hit = st.done if st.any_hit else st.best_key >= 0
+    return Walk(st.best_t, st.best_key, hit, st.visits)
 
 
 def _winner_table(rows: torch.Tensor, cols) -> torch.Tensor:
@@ -578,7 +895,8 @@ def _winner_table(rows: torch.Tensor, cols) -> torch.Tensor:
 def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
                  width, height, spp, max_depth, jitter, blocks_x, blocks_y,
                  refract=False, dof=False, stratify=False, lights=None,
-                 gamma=True, out_rows=None, row0=0, mask=None):
+                 gamma=True, out_rows=None, row0=0, mask=None,
+                 visits=False):
     """The kernel's computation as whole-tensor PyTorch ops over every
     lane of every screen block; with a light table ``lights``, NEE, whose
     shadow rays search every row as the nearest-hit search does. A band
@@ -586,7 +904,10 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
     ``row0`` and keys every stream by the frame's tile. Every block is
     traced; those whose ``mask`` entry is 0 are zeroed afterwards, pixels
     and segment count. Returns ((out_rows, width, 3) f32 image, (n_tiles,)
-    int32 segment counts)."""
+    int32 segment counts), and with ``visits`` the (n_tiles, 2, 7) int64
+    visit counts of the kernel's walk over the same rays
+    (:func:`walk_visits_reference`; the warp column is -1: not
+    emulated)."""
     f32 = torch.float32
     rows = _sweep_rows(cl)
     dev = rows.device
@@ -628,11 +949,20 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
     chunk = max(1, min(rows.shape[0], budget // n))
     tchunk = max(1, budget // n)
     light = None
+    vis = torch.zeros((n_tiles, 2, len(VISIT_COLS)), dtype=torch.int64,
+                      device=dev)
+
+    def count(kind, lanes, o, d, t_edge=None):
+        w = walk_visits_reference(cl, tri, o, d, t_edge)
+        vis[:, kind, :N_WALK_COLS].index_add_(0, lanes // TILE, w.visits)
+
     if lights is not None:
         def occluded(o, d, t_edge):
             best_t, _ = _nearest(o, d, geo, chunk)
             if tri is not None:
                 best_t, _ = _nearest_tri(o, d, tgeo, tchunk, best_t)
+            if visits:
+                count(1, light.lanes, o, d, t_edge)
             return best_t < t_edge
 
         tab = lights[:-1].view(-1, 8)
@@ -667,6 +997,10 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
         for depth_idx in range(1, max_depth + 1):
             segs += act.view(n_tiles, TILE).sum(1, dtype=torch.int32)
             o, d = (ox, oy, oz), (dx, dy, dz)
+            if visits:
+                lanes = act.nonzero()[:, 0]
+                count(0, lanes, tuple(x[lanes] for x in o),
+                      tuple(x[lanes] for x in d))
             best_t, best_i = _nearest(o, d, geo, chunk)
             w = list(table[best_i].unbind(1))
             is_tri = None
@@ -696,10 +1030,15 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
         on = mask != 0
         img = torch.where(on[tile, None], img, 0.0)
         segs = torch.where(on, segs, 0)
+        vis = torch.where(on[:, None, None], vis, 0)
     # screen blocks -> image rows and columns
     img = img.view(blocks_y, blocks_x, SUBLANES, LANES, 3).permute(
         0, 2, 1, 3, 4).reshape(blocks_y * SUBLANES, blocks_x * LANES, 3)
-    return img[:out_rows, :width].contiguous(), segs
+    img = img[:out_rows, :width].contiguous()
+    if visits:
+        vis[:, :, N_WALK_COLS] = -1
+        return img, segs, vis
+    return img, segs
 
 
 def render_cluster_reference(
@@ -730,21 +1069,25 @@ def render_cluster_reference(
     tile_mask=None,
     n_lights_max: int = DEFAULT_LIGHTS,
     lights: torch.Tensor | None = None,
+    with_visits: bool = False,
 ):
     """The plain PyTorch version of the cluster kernel, on any device.
 
-    Same contract as :func:`render_cluster`."""
+    Same contract as :func:`render_cluster`; its ``with_visits`` counts
+    come from :func:`walk_visits_reference` over the same rays (the warp
+    column is -1: the plain version has no warps), in the kernel's
+    order."""
     kw = {k: v for k, v in locals().items() if k not in ("scene", "cam",
                                                          "seed")}
     (cl, tri, lights, cam_packed, blocks_x, blocks_y, out_rows, row0,
      mask) = _prepare(scene, cam, **kw)
-    img, segs = _trace_plain(cl, tri, cam_packed, seed, width, height, spp,
-                             max_depth, jitter, blocks_x, blocks_y,
-                             bool(enable_refraction), bool(enable_dof),
-                             bool(stratify), lights, bool(gamma), out_rows,
-                             row0, mask)
-    return mk._finish(img, segs, width * out_rows, blocks_x * blocks_y,
-                      with_stats)
+    img, segs, *vis = _trace_plain(
+        cl, tri, cam_packed, seed, width, height, spp, max_depth, jitter,
+        blocks_x, blocks_y, bool(enable_refraction), bool(enable_dof),
+        bool(stratify), lights, bool(gamma), out_rows, row0, mask,
+        bool(with_visits))
+    return _with_visits(mk._finish(img, segs, width * out_rows,
+                                   blocks_x * blocks_y, with_stats), vis)
 
 
 def render_cluster(
@@ -775,6 +1118,7 @@ def render_cluster(
     tile_mask=None,
     n_lights_max: int = DEFAULT_LIGHTS,
     lights: torch.Tensor | None = None,
+    with_visits: bool = False,
 ):
     """Render one batch of ``spp`` samples of a large scene through the
     cluster engine.
@@ -793,7 +1137,10 @@ def render_cluster(
 
     Tables on the CPU run the plain version; tables on a CUDA device launch
     the CUDA kernel (built on first use) and raise if the launch fails.
-    ``render_cluster.launches`` counts kernel launches. ``enable_refraction``,
+    ``render_cluster.launches`` counts launches of the kernel: one per
+    chunk of samples (a frame's samples run in chunks of
+    ``SCRATCH_LANES // (tiles x 4096)``, one chunk at 1080p up to 8spp),
+    each followed by one launch of its mean pass. ``enable_refraction``,
     ``enable_dof``, ``stratify`` and ``nee`` are the megakernel's (see
     ``render_megakernel``); NEE samples the light table ``lights``
     (:func:`light_table` of the scene with ``n_lights_max`` rows, built
@@ -807,6 +1154,13 @@ def render_cluster(
     device, or a numpy array; copied to the tables' device); a block with
     0 is skipped and returns zeros and no segments, every other block the
     unmasked render's values.
+
+    ``with_visits`` runs the kernel's counting instantiation and appends
+    the (n_tiles, 2, 7) int64 visit counts: per screen block (row-major),
+    for path rays and then shadow rays, the columns of
+    :data:`VISIT_COLS` (slab tests per level, sphere and triangle tests,
+    the primitive tests the warps issued); the image and segments, from
+    the counting instantiation, equal the timed one's.
     """
     kw = {k: v for k, v in locals().items() if k not in ("scene", "cam",
                                                          "seed")}
@@ -820,34 +1174,55 @@ def render_cluster(
      mask) = _prepare(scene, cam, **kw)
     lib = build.load()
     n_tiles = blocks_x * blocks_y
+    groups = group_boxes(cl, False)
     if tri is None:  # no mesh: no triangle tables (n_tri_ss = 0)
-        t_args = (0, 0, 0, 0, 0, 0, 8)
+        t_args = (0, 0, 0, 0, 0, 0, 8, 0)
     else:
+        t_groups = group_boxes(tri, True)
         t_args = (tri.glob_attr.data_ptr(), tri.n_global,
                   tri.ss_boxes.data_ptr(), tri.n_ss,
                   tri.super_boxes.data_ptr(), tri.attr.data_ptr(),
-                  tri.cluster_size)
+                  tri.cluster_size, t_groups.data_ptr())
     with torch.cuda.device(dev):
         out = torch.empty((out_rows, width, 3), dtype=torch.float32,
                           device=dev)
+        # each (pixel, sample) thread's radiance, summed by the mean pass,
+        # for one chunk of samples at a time
+        chunk = max(1, min(spp, SCRATCH_LANES // (n_tiles * TILE)))
+        scratch = torch.empty((chunk, 3, n_tiles * TILE),
+                              dtype=torch.float32, device=dev)
         segs = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
+        vis = (torch.zeros((n_tiles, 2, len(VISIT_COLS)), dtype=torch.int64,
+                           device=dev) if with_visits else None)
         err = lib.tpurt_cluster_launch(
             cl.glob_attr.data_ptr(), cl.n_global, cl.ss_boxes.data_ptr(),
             cl.n_ss, cl.super_boxes.data_ptr(), cl.attr.data_ptr(),
-            cl.cluster_size, *t_args, cam_packed.data_ptr(),
+            cl.cluster_size, groups.data_ptr(), *t_args,
+            cam_packed.data_ptr(),
             cl.background.data_ptr(),
             0 if lights is None else lights.data_ptr(),
             0 if lights is None else (lights.numel() - 1) // 8,
-            mk._signed32(seed), row0, out_rows, width, height, spp,
+            mk._signed32(seed), row0, out_rows, width, height, spp, chunk,
             max_depth, int(bool(jitter)), int(bool(enable_refraction)),
             int(bool(enable_dof)), int(bool(stratify)),
             int(lights is not None), int(bool(gamma)),
             0 if mask is None else mask.data_ptr(), out.data_ptr(),
-            segs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            scratch.data_ptr(), segs.data_ptr(),
+            0 if vis is None else vis.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cluster kernel launch failed: CUDA error {err}")
-    render_cluster.launches += 1
-    return mk._finish(out, segs, width * out_rows, n_tiles, with_stats)
+    render_cluster.launches += -(-spp // chunk)
+    return _with_visits(mk._finish(out, segs, width * out_rows, n_tiles,
+                                   with_stats), [] if vis is None else [vis])
+
+
+def _with_visits(result, vis):
+    """``result`` (an image, or an image and a segment count) with the
+    visit counts appended when there are any."""
+    if not vis:
+        return result
+    return (*result, *vis) if isinstance(result, tuple) else (result, *vis)
 
 
 render_cluster.launches = 0

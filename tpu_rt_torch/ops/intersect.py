@@ -101,7 +101,7 @@ def sphere_ts(
 
     disc = half_b * half_b - a * cq
     feasible = disc >= 0.0
-    sqrtd = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sqrtd = vm.sqrt(torch.clamp_min(disc, 0.0))
     inv_a = 1.0 / a
     root0 = (-half_b - sqrtd) * inv_a
     root1 = (-half_b + sqrtd) * inv_a
@@ -137,7 +137,7 @@ def _refine_t(center, radius, origins, directions, t_min, t_max, coarse_t):
     half_b = vm.dot(oc, directions)
     cq = vm.dot(oc, oc) - radius * radius
     disc = half_b * half_b - a * cq
-    sqrtd = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sqrtd = vm.sqrt(torch.clamp_min(disc, 0.0))
     root0 = (-half_b - sqrtd) / a
     root1 = (-half_b + sqrtd) / a
     in0 = (root0 >= t_min) & (root0 <= t_max)

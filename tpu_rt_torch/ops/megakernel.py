@@ -240,8 +240,9 @@ class NeePlain:
     ``occluded((hx, hy, hz), (dx, dy, dz), t_edge)`` (whether a primitive
     lies in [1e-3, t_edge) along each ray); and of one path sample
     ``no_emit`` (the lanes whose last scatter was diffuse), which
-    :func:`shade_plain` reads and updates, and ``diffuse``, the lanes that
-    traced a shadow segment in its last call."""
+    :func:`shade_plain` reads and updates, ``diffuse``, the lanes that
+    traced a shadow segment in its last call, and ``lanes``, the indices of
+    the lanes whose shadow rays ``occluded`` is called with."""
 
     def __init__(self, n_lights, pick, occluded):
         self.n_lights = n_lights
@@ -249,6 +250,7 @@ class NeePlain:
         self.occluded = occluded
         self.no_emit = None
         self.diffuse = None
+        self.lanes = None
 
 
 def shade_plain(state, best_t, w, bg, depth_idx, U, face=None,
@@ -317,7 +319,7 @@ def shade_plain(state, best_t, w, bg, depth_idx, U, face=None,
     # uniform point in the unit ball: direction x cbrt radius
     u1, u2, u3 = U(), U(), U()
     z = 1.0 - 2.0 * u1
-    r_xy = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    r_xy = vm.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
     phi = _TWO_PI * u2
     r = torch.exp(torch.log(torch.clamp_min(u3, 1e-12)) * _THIRD)
     bx = r_xy * torch.cos(phi) * r
@@ -356,7 +358,7 @@ def shade_plain(state, best_t, w, bg, depth_idx, U, face=None,
         eta = torch.where(front, 1.0 / b_ior, b_ior)
         dt = dx * nex + dy * ney + dz * nez
         disc = 1.0 - eta * eta * (1.0 - dt * dt)
-        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        sq = vm.sqrt(torch.clamp_min(disc, 0.0))
         cosine = torch.clamp_max(-dt, 1.0)
         r0 = (1.0 - b_ior) / (1.0 + b_ior)
         r0 = r0 * r0
@@ -407,10 +409,10 @@ def _direct_light(nee, diffuse, h, n, thr, albedo, col, U):
     d2 = torch.clamp_min(tlx * tlx + tly * tly + tlz * tlz, 1e-12)
     sin2 = (l_r * l_r) / d2
     inside = sin2 >= 1.0
-    cos_max = torch.sqrt(torch.clamp(1.0 - sin2, 0.0, 1.0))
+    cos_max = vm.sqrt(torch.clamp(1.0 - sin2, 0.0, 1.0))
     xi1, xi2 = U(), U()
     cos_t = 1.0 - xi1 * (1.0 - cos_max)
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    sin_t = vm.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
     phi_l = _TWO_PI * xi2
     inv_dl = vm.rsqrt(d2)
     wx, wy, wz = tlx * inv_dl, tly * inv_dl, tlz * inv_dl
@@ -433,7 +435,7 @@ def _direct_light(nee, diffuse, h, n, thr, albedo, col, U):
     lhb = lox * ldx + loy * ldy + loz * ldz
     lcq = lox * lox + loy * loy + loz * loz - l_r * l_r
     ldisc = lhb * lhb - lcq
-    lsq = torch.sqrt(torch.clamp_min(ldisc, 0.0))
+    lsq = vm.sqrt(torch.clamp_min(ldisc, 0.0))
     lt0 = -lhb - lsq
     lt1 = -lhb + lsq
     t_light = torch.where(lt0 >= 1e-3, lt0, lt1)
@@ -445,6 +447,7 @@ def _direct_light(nee, diffuse, h, n, thr, albedo, col, U):
     # only the gated lanes trace their shadow ray (the others' result is
     # unused): the lanes are independent, so the subset changes no value
     idx = gate.nonzero()[:, 0]
+    nee.lanes = idx  # which lanes trace, for a caller that counts them
     occ = nee.occluded((hx[idx], hy[idx], hz[idx]),
                        (ldx[idx], ldy[idx], ldz[idx]), t_edge[idx])
     gate = gate.index_put((idx,), ~occ)
@@ -495,7 +498,7 @@ def primary_rays(cam, px, py, inv_w, inv_h, s, U, *, jitter, dof,
     if dof:
         tfoc = fo / torch.clamp_min(dx * fwx + dy * fwy + dz * fwz, 1e-6)
         fpx, fpy, fpz = ox + dx * tfoc, oy + dy * tfoc, oz + dz * tfoc
-        r_l = ap * torch.sqrt(U())
+        r_l = ap * vm.sqrt(U())
         ph = _TWO_PI * U()
         lx = r_l * torch.cos(ph)
         ly = r_l * torch.sin(ph)
@@ -546,7 +549,7 @@ def _sphere_occluded(rows, o, d, t_edge):
         ocx, ocy, ocz = ox - a[0], oy - a[1], oz - a[2]
         half_b = ocx * dx + ocy * dy + ocz * dz
         cq = ocx * ocx + ocy * ocy + ocz * ocz - a[3] * a[3]
-        sqrtd = torch.sqrt(half_b * half_b - cq)
+        sqrtd = vm.sqrt(half_b * half_b - cq)
         root0 = -half_b - sqrtd
         root = torch.where(root0 >= 1e-3, root0, sqrtd - half_b)
         occ = occ | ((root >= 1e-3) & (root < t_edge) & (a[14] > 0.0))
@@ -556,7 +559,7 @@ def _sphere_occluded(rows, o, d, t_edge):
 def _output(acc, inv_spp, gamma):
     """The spp mean of each channel: sqrt gamma and clamp, or linear."""
     if gamma:
-        acc = [torch.clamp(torch.sqrt(torch.clamp_min(a * inv_spp, 0.0)),
+        acc = [torch.clamp(vm.sqrt(torch.clamp_min(a * inv_spp, 0.0)),
                            0.0, 1.0) for a in acc]
     else:
         acc = [a * inv_spp for a in acc]
@@ -647,7 +650,7 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
                 cq = (ocx * ocx + ocy * ocy + ocz * ocz) - a[3] * a[3]
                 # sqrt of a negative discriminant is NaN: every compare on
                 # it is False, so misses fall out without a disc >= 0 test
-                sqrtd = torch.sqrt(half_b * half_b - cq)
+                sqrtd = vm.sqrt(half_b * half_b - cq)
                 root0 = -half_b - sqrtd
                 root = torch.where(root0 >= 1e-3, root0, sqrtd - half_b)
                 better = (root >= 1e-3) & (root < best_t) & (a[14] > 0.0)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import vecmath as vm
 from ..ops import post
 from .frame import enhance_contrast, tone_map
 
@@ -70,7 +71,7 @@ def display_stack(
     as the JAX package)."""
     img = acc
     if linear:
-        img = torch.clamp(torch.sqrt(torch.clamp_min(img, 0.0)), 0.0, 1.0)
+        img = torch.clamp(vm.sqrt(torch.clamp_min(img, 0.0)), 0.0, 1.0)
     disp = tone_map(img, exposure)
     outs = [disp, enhance_contrast(disp) if enhance else disp]
     if methods and grid_scale > 1:

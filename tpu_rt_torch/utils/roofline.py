@@ -12,7 +12,9 @@ Counterpart of ``tpu_rt/utils/roofline.py``, designed for the H100:
   instruction per lane per clock.
 * The operation model counts the path-trace kernels' f32 operations from
   the CUDA sources: one for each add, mul, compare, min/max, sqrt, division
-  or transcendental. The kernels are built with ``--fmad=false``, so no
+  or transcendental. The cluster kernel's walk depends on the data: its
+  counting instantiation counts the slab and primitive tests each frame
+  did (:func:`cluster_op_model`). The kernels are built with ``--fmad=false``, so no
   FMA is contracted and every counted op is one executed instruction, the
   same unit as the two rates above; so no share of a bound can read over
   100%.
@@ -45,6 +47,10 @@ FP32_LANES_PER_SM = 128
 SPHERE_TEST_OPS = 24  # oc 3, half_b 5, |oc|^2 - r^2 7, disc 2, sqrt, 2 roots,
                       # 4 compares
 SLAB_TEST_OPS = 26    # flag, 6 sub, 6 mul, 6 min/max, enter 3, exit 3, compare
+# a slab test of the cluster walk (cluster.cu next_child): the slab test
+# and its two compares of the entry (crossed, least so far)
+WALK_SLAB_OPS = SLAB_TEST_OPS + 2
+TIE_OPS = 1           # a nearest-hit test's t == best t of the (t, key) order
 RAY_SETUP_OPS = 12    # the walk's 3 safe reciprocals
 SHADE_OPS = 62        # shade_hit without roulette: emission 6, hit point 6,
                       # normal 6, unit ball 18, scatter 23, throughput 3
@@ -63,8 +69,9 @@ R2_OPS = 8        # per primary ray: 2 x (mul, add, floor, sub)
 NEE_OPS = 120     # per shadow segment (path_common.cuh, kNee): the cosine
                   # sampler's 8 beyond the flipped one, suppression test 11,
                   # pick 1, cone and basis 76, light entry 23, gate 6,
-                  # contribution 15 (the shadow sweep itself is not counted:
-                  # it stops at its first blocker)
+                  # contribution 15 (the shadow sweep itself is not counted
+                  # here: K1's stops at its first blocker; K2's is in the
+                  # walk's counted visits, cluster_walk_ops)
 
 # K3: chains per thread, the multiplier, the threads of a block (fma.cu)
 CARRIES = 32
@@ -262,6 +269,48 @@ def megakernel_op_model(segments: int, n_pix: int, spp: int, n_spheres: int,
     a dense count would overstate it by the share of dead paths."""
     return path_ops(segments, n_pix, spp,
                     n_spheres * SPHERE_TEST_OPS + n_tris * TRI_TEST_OPS, flags)
+
+
+def cluster_walk_ops(visits) -> int:
+    """f32 operations of the cluster walk's counted visits: ``visits`` is
+    ``render_cluster(..., with_visits=True)``'s (n_tiles, 2, 7) counts (or
+    their (2, 7) sum): for path and shadow rays the slab tests of the four
+    levels at :data:`WALK_SLAB_OPS` each, and the sphere and triangle tests
+    (globals included) at :data:`SPHERE_TEST_OPS` and :data:`TRI_TEST_OPS`,
+    with the tie compare on path rays (nearest-hit); shadow rays are
+    any-hit. The warps' column is not an operation count."""
+    v = torch.as_tensor(visits).reshape(-1, 2, 7).sum(dim=0).tolist()
+    ops = 0
+    for kind, row in enumerate(v):
+        tie = TIE_OPS if kind == 0 else 0
+        ops += (sum(row[0:4]) * WALK_SLAB_OPS
+                + row[4] * (SPHERE_TEST_OPS + tie)
+                + row[5] * (TRI_TEST_OPS + tie))
+    return int(ops)
+
+
+def cluster_op_model(segments: int, visits, n_pix: int, spp: int,
+                     flags=None) -> int:
+    """f32 operations of one cluster-kernel (K2) frame: the segments' ray
+    setup (the walk's 3 reciprocals), shading, primary rays, NEE and pixels
+    (:func:`path_ops`), plus the walk the kernel did, counted by its
+    counting instantiation (:func:`cluster_walk_ops`). The work depends on
+    the data, so it is what this frame's rays needed, not the most they
+    could; the same unit as :func:`megakernel_op_model`."""
+    return (path_ops(segments, n_pix, spp, RAY_SETUP_OPS, flags)
+            + cluster_walk_ops(visits))
+
+
+def cluster_floor_per_segment(n_global: int, n_ss: int,
+                              n_tri_global: int = 0, n_tri_ss: int = 0
+                              ) -> int:
+    """f32 operations every K2 path segment needs whatever the walk's
+    design: the ray setup, every global of both tables and the slab test of
+    every super-super (each walk starts at the top level). With
+    :func:`path_ops` it gives a floor under :func:`cluster_op_model` that a
+    walk which visits more does not raise."""
+    return (RAY_SETUP_OPS + n_global * SPHERE_TEST_OPS
+            + n_tri_global * TRI_TEST_OPS + (n_ss + n_tri_ss) * SLAB_TEST_OPS)
 
 
 def megakernel_bytes(n_spheres: int, n_pix: int, n_tris: int = 0) -> int:
