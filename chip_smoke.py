@@ -56,11 +56,22 @@ counts, checks the 1/sqrt(N) convergence of its means, and times it:
   spheres, a frame's samples in chunks against one chunk and the plain
   version, and the counting kernel against the timed one at the 100k-sphere
   NEE shapes where a counting build with counters in registers faulted.
+* the megakernel's lanes per (pixel, sample): every instantiation at spp
+  1, 3, 8 and 13, whole, masked and in a masked band, the timed kernel,
+  the plain version and the counting kernel bit for bit, and the counting
+  kernel's per-tile counts (path and shadow segments, sphere and triangle
+  tests) against megakernel_visits_reference's, on the demo scene and the
+  Cornell box with a bulb.
 
 Each kernel must agree with its plain version bit for bit, segment counts
-included. Every cluster-kernel bound counts the walk its frame did (the
-counting instantiation's slab and primitive tests, utils/roofline.py:
-cluster_op_model); each K2 timing prints what the walk visited per segment,
+included. Every megakernel bound counts what its frame's rays did (the
+counting instantiation's path and shadow segments and its shadow rays'
+sphere and triangle tests, utils/roofline.py:megakernel_op_model), and
+each K1 timing prints those counts, ns per test and the lanes a
+warp-issued test carries. Every cluster-kernel bound counts the walk its
+frame did (the counting instantiation's slab and primitive tests,
+utils/roofline.py:cluster_op_model); each K2 timing prints what the walk
+visited per segment,
 its ns per visit and, beside the bound, a floor that does not depend on the
 walk (``floor_ms``: ray setup, globals and super-super slab tests per
 segment). Every phase raises on failure. The last line of standard output
@@ -378,13 +389,14 @@ def main() -> int:
     from tpu_rt_torch.ops.megakernel import (
         render_megakernel, render_megakernel_reference)
     import tpu_rt_torch.ops.cluster as cluster_mod
+    import tpu_rt_torch.ops.megakernel as mk_mod
     from tpu_rt_torch.render.display import display_stack
     from tpu_rt_torch.render.frame import accumulate, render
     from tpu_rt_torch.utils.profiling import (
         cuda_frame_ms, device_ms_by_kernel, traced_mrays_per_s)
     from tpu_rt_torch.utils.roofline import (
-        SPHERE_TEST_OPS, TRI_TEST_OPS, bound_ms, cluster_floor_per_segment,
-        cluster_op_model, megakernel_bytes, path_ops)
+        bound_ms, cluster_floor_per_segment, cluster_op_model,
+        megakernel_bytes, megakernel_op_model, path_ops)
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -401,10 +413,16 @@ def main() -> int:
     lib_path = build.build()
     lib = build.load()
     print(f"[2 build] {lib_path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
+    log = lib_path.with_suffix(".log").read_text()
+    for line in log.splitlines():
         if ("registers" in line or "spill" in line
                 or "Compiling entry" in line):
             print(f"[2 build] {line.strip()}")
+    k1_builds = build.ptxas_lines(log)
+    for line in k1_builds:
+        print(f"[2 build] K1 <kTris, kFlags, kNee, kCount> {line}")
+    check(len(k1_builds) == 10, "ptxas reported the 6 timed and 4 counting "
+          "K1 instantiations")
 
     # ---- 2b. K3, the FMA microkernel: the card's measured f32 rate,
     # beside the theoretical rate that every bound below divides by ----
@@ -463,6 +481,31 @@ def main() -> int:
                 f"{w['ns_per_visit']:.4f} ns per visit; "
                 f"{w['lanes_per_warp_test']:.1f} lanes per warp-issued "
                 "primitive test")
+
+    def k1_rays(visits, k_ms):
+        """What a K1 frame's rays did (the counting instantiation's counts):
+        path and shadow segments, the sphere and triangle tests per segment
+        of each kind (a shadow ray's up to its first blocker), ns per test
+        at the kernel's time, and the lanes a warp-issued test carries on
+        average (32: no divergence)."""
+        v = visits.sum(dim=0).tolist()
+        per = {kind: {"segments": row[0], "sphere": row[1] / max(row[0], 1),
+                      "tri": row[2] / max(row[0], 1)}
+               for kind, row in zip(mk_mod.VISIT_KINDS, v)}
+        tests = v[0][1] + v[0][2] + v[1][1] + v[1][2]
+        return {"rays": per, "ns_per_test": k_ms * 1e6 / max(tests, 1),
+                "lanes_per_warp_test": tests / max(v[0][3] + v[1][3], 1)}
+
+    def k1_text(b):
+        r = b["rays"]
+        return (f"{r['path']['segments']} path segments "
+                f"({r['path']['sphere']:.2f} sphere, {r['path']['tri']:.2f} "
+                "triangle tests each), "
+                f"{r['shadow']['segments']} shadow segments "
+                f"({r['shadow']['sphere']:.2f} sphere, "
+                f"{r['shadow']['tri']:.2f} triangle tests each, up to the "
+                f"first blocker); {b['ns_per_test']:.5f} ns per test; "
+                f"{b['lanes_per_warp_test']:.1f} lanes per warp-issued test")
 
     scene = tpu_rt_torch.demo_scene(device=dev)
 
@@ -587,18 +630,21 @@ def main() -> int:
             print("[7 device] " + device_line(f"{name} {which}", by_kernel,
                                               ms[which], "megakernel"))
         n_pix = shape["width"] * shape["height"]
-        ops = path_ops(segs, n_pix, shape["spp"],
-                       N_ACTIVE * SPHERE_TEST_OPS)
+        _, segs1, vis = render_megakernel(scene, cam_t, 1, with_stats=True,
+                                          with_visits=True, **kw)
+        ops = megakernel_op_model(int(segs1), n_pix, shape["spp"], N_ACTIVE,
+                                  visits=vis)
         nbytes = megakernel_bytes(N_ACTIVE, n_pix)
-        bnd = bounds(ops, nbytes)
         k_ms = dev_ms["kernel"]
         check(k_ms > 0, f"{name}: torch.profiler recorded the megakernel")
+        bnd = dict(bounds(ops, nbytes), **k1_rays(vis, k_ms))
         ev_ms = event_kernel_ms(lib, "tpurt_megakernel_launch",
                                 fns["kernel"], 20, dev)
         print(f"[7 bound] {name}: {ops / 1e9:.3f} G f32 ops, {nbytes} bytes "
               f"-> {bound_text(bnd)}; kernel {k_ms:.4f} ms "
               f"(profiler; CUDA events over 20 launches {ev_ms:.4f} ms), "
               f"{bnd['bound_ms'] / k_ms:.3f} of the bound's rate")
+        print(f"[7 rays] {name}: {k1_text(bnd)}")
         if mega is None:  # the interactive shape is the main path's
             mega = {"name": "megakernel", "route": "cuda",
                     "source": "tpu_rt_torch/csrc/megakernel.cu",
@@ -1047,11 +1093,13 @@ def main() -> int:
                     nbytes, flags=None, phase=17):
         """Frame ms, kernel device ms, idle share, segments/frame, traced
         Mrays/s and the bound of ``fn``; returns (kernel ms (profiler),
-        kernel ms (CUDA events), frame ms, :func:`bounds`). For the cluster
-        kernel ``seg_fn()`` gives (segments, visit counts) and the bound
-        counts the walk (cluster_op_model) and ``per_segment`` gives the
-        walk-independent floor beside it (``floor_ms``); for the
-        megakernel, segments and ``per_segment`` sweep ops."""
+        kernel ms (CUDA events), frame ms, :func:`bounds`). ``seg_fn()``
+        gives (segments, visit counts) from the counting instantiation. For
+        the cluster kernel the bound counts the walk (cluster_op_model) and
+        ``per_segment`` gives the walk-independent floor beside it
+        (``floor_ms``); for the megakernel ``per_segment`` is the
+        (spheres, triangles) a path segment sweeps and the bound is
+        megakernel_op_model's, the shadow sweep counted."""
         frame = statistics.median(cuda_frame_ms(fn, 7, device=dev)
                                   + cuda_frame_ms(fn, 7, device=dev))
         by_kernel = device_ms_by_kernel(fn, 5, device=dev)
@@ -1060,9 +1108,9 @@ def main() -> int:
         entry = ("tpurt_cluster_launch" if kname == "cluster_kernel"
                  else "tpurt_megakernel_launch")
         ev_ms = event_kernel_ms(lib, entry, fn, 20, dev)
-        got = seg_fn()
+        segs, visits = seg_fn()
+        segs = int(segs)
         if kname == "cluster_kernel":
-            segs, visits = int(got[0]), got[1]
             ops = cluster_op_model(segs, visits, n_pix, spp, flags)
             bnd = dict(bounds(ops, nbytes + n_pix * 12),
                        **walk_stats(visits, segs, k_ms))
@@ -1070,9 +1118,11 @@ def main() -> int:
                 path_ops(segs, n_pix, spp, per_segment, flags),
                 nbytes + n_pix * 12, fp32_peak)[0]
         else:
-            segs = int(got)
-            ops = path_ops(segs, n_pix, spp, per_segment, flags)
-            bnd = bounds(ops, nbytes + n_pix * 12)
+            n_sph, n_tri = per_segment
+            ops = megakernel_op_model(segs, n_pix, spp, n_sph, n_tris=n_tri,
+                                      flags=flags, visits=visits)
+            bnd = dict(bounds(ops, nbytes + n_pix * 12),
+                       **k1_rays(visits, k_ms))
         print(f"[{phase} timing] {label} on {card}: frame {frame:.4f} ms "
               f"(median "
               f"of 2x7 chained frames), {kname} {k_ms:.4f} ms (profiler; "
@@ -1085,6 +1135,8 @@ def main() -> int:
         if "visits_per_segment" in bnd:
             print(f"[{phase} walk] {label}: {walk_text(bnd)}; "
                   f"{floor_text(bnd)}")
+        else:
+            print(f"[{phase} rays] {label}: {k1_text(bnd)}")
         print(f"[{phase} device] " + device_line(label, by_kernel, frame,
                                                  kname))
         return k_ms, ev_ms, frame, bnd
@@ -1094,8 +1146,8 @@ def main() -> int:
                    for t in tab)
 
     # K1-tri: per segment 4 sphere tests and 12 Moller-Trumbore tests
-    k1_tri_ops = (CORNELL_ACTIVE["n_active"] * SPHERE_TEST_OPS
-                  + CORNELL_ACTIVE["n_tri_active"] * TRI_TEST_OPS)
+    k1_tri_prims = (CORNELL_ACTIVE["n_active"],
+                    CORNELL_ACTIVE["n_tri_active"])
     k1_tri_bytes = (4 * 16 + 12 * 20 + 16 + 3) * 4
     mega_tri = None
     for name, shape in (("640x480/8spp/d4", INTERACTIVE),
@@ -1105,9 +1157,10 @@ def main() -> int:
         k_ms, ev_ms, frame, bnd = mesh_timing(
             f"K1-tri Cornell {name}",
             lambda i: render_megakernel(cs, cam_t, 500 + i, **kw),
-            lambda: render_megakernel(cs, cam_t, 0, with_stats=True, **kw)[1],
+            lambda: render_megakernel(cs, cam_t, 0, with_stats=True,
+                                      with_visits=True, **kw)[1:],
             shape["width"] * shape["height"], shape["spp"], "megakernel",
-            k1_tri_ops, k1_tri_bytes + (-(-shape["width"] * shape["height"]
+            k1_tri_prims, k1_tri_bytes + (-(-shape["width"] * shape["height"]
                                           // 4096)) * 4)
         if mega_tri is None:  # the Cornell main path's shape
             times = {"kernel": [], "plain": []}
@@ -1418,8 +1471,8 @@ def main() -> int:
         k_ms, ev_ms, frame, bnd = mesh_timing(
             label, fn,
             lambda: render_megakernel(scene, cam_t, 0, with_stats=True,
-                                      **kw)[1],
-            n_pix, shape["spp"], "megakernel", N_ACTIVE * SPHERE_TEST_OPS,
+                                      with_visits=True, **kw)[1:],
+            n_pix, shape["spp"], "megakernel", (N_ACTIVE, 0),
             k1_bytes + (-(-n_pix // 4096)) * 4, ALL_FLAGS, 22)
         mp = in_turns({
             "kernel": lambda i: render_megakernel(scene, cam_t, 950 + i, **kw),
@@ -1633,8 +1686,9 @@ def main() -> int:
         lambda i: rt_n.render_device(
             INTERACTIVE["width"], INTERACTIVE["height"], INTERACTIVE["spp"],
             INTERACTIVE["max_depth"]),
-        lambda: render_megakernel(scene, cam_n, 0, with_stats=True, **kw)[1],
-        n_int, INTERACTIVE["spp"], "megakernel", N_ACTIVE * SPHERE_TEST_OPS,
+        lambda: render_megakernel(scene, cam_n, 0, with_stats=True,
+                                  with_visits=True, **kw)[1:],
+        n_int, INTERACTIVE["spp"], "megakernel", (N_ACTIVE, 0),
         k1_bytes + 4 + (-(-n_int // 4096)) * 4, NEE, 24)
     mp = in_turns({
         "kernel": lambda i: render_megakernel(scene, cam_n, 1200 + i, **kw),
@@ -1658,8 +1712,8 @@ def main() -> int:
             INTERACTIVE["width"], INTERACTIVE["height"], INTERACTIVE["spp"],
             INTERACTIVE["max_depth"]),
         lambda: render_megakernel(bulb, cam_cn, 0, with_stats=True,
-                                  **kw_c)[1],
-        n_int, INTERACTIVE["spp"], "megakernel", k1_tri_ops,
+                                  with_visits=True, **kw_c)[1:],
+        n_int, INTERACTIVE["spp"], "megakernel", k1_tri_prims,
         k1_tri_bytes + 4 + (-(-n_int // 4096)) * 4, NEE, 24)
     cam24 = cam_for(BENCH["width"], BENCH["height"])
     n_bench = BENCH["width"] * BENCH["height"]
@@ -1668,8 +1722,8 @@ def main() -> int:
         "K1-nee demo scene 1080p/4spp/d4",
         lambda i: render_megakernel(scene, cam24, 1300 + i, **kw_b),
         lambda: render_megakernel(scene, cam24, 0, with_stats=True,
-                                  **kw_b)[1],
-        n_bench, BENCH["spp"], "megakernel", N_ACTIVE * SPHERE_TEST_OPS,
+                                  with_visits=True, **kw_b)[1:],
+        n_bench, BENCH["spp"], "megakernel", (N_ACTIVE, 0),
         k1_bytes + 4 + (-(-n_bench // 4096)) * 4, NEE, 24)
 
     # ---- 25. K2-nee: kernel vs plain, bit for bit ----
@@ -2256,8 +2310,8 @@ def main() -> int:
             f"(~{share:.0%}) demo scene 640x480/8spp/d4",
             lambda i: render_megakernel(scene, cam_ad, 1700 + i, **kw),
             lambda: render_megakernel(scene, cam_ad, 0, with_stats=True,
-                                      **kw)[1],
-            n_on, INTERACTIVE["spp"], "megakernel", N_ACTIVE * SPHERE_TEST_OPS,
+                                      with_visits=True, **kw)[1:],
+            n_on, INTERACTIVE["spp"], "megakernel", (N_ACTIVE, 0),
             k1_bytes + n_int_tiles * 8 + (n_int - n_on) * 12, phase=31)
     kw = dict(n_active=N_ACTIVE, tile_mask=torch.from_numpy(
         timed_masks["K1", 0.5]).to(dev), **INTERACTIVE)
@@ -2600,8 +2654,72 @@ def main() -> int:
               "seeds 0-7: the timed kernel twice and the counting kernel "
               "equal bit for bit, segments included")
 
+    # ---- 35. K1: a lane per (pixel, sample) at spp that do and do not
+    # divide a warp (1, 3, 8, 13) or run a second, ragged round of 32-lane
+    # groups (33, 40), whole, masked and in a masked band whose last tile
+    # is ragged, and at the timed frames, where a lane traces several
+    # samples in rounds (640x480/8spp) or holds its pixel alone
+    # (1080p/4spp), in every instantiation: the timed kernel, the plain
+    # version and the counting kernel bit for bit, segments included, and
+    # the counting kernel's per-tile counts equal to
+    # megakernel_visits_reference's ----
+    t0 = time.perf_counter()
+    all_flags = dict(enable_refraction=True, enable_dof=True, stratify=True)
+    half = torch.tensor([1, 0, 0, 1, 1, 0, 1, 0], dtype=torch.int32)
+    parts = (("whole", {}), ("masked", dict(tile_mask=half)),
+             ("masked band", dict(rows=40, row_offset=88,
+                                  tile_mask=torch.tensor([1, 0, 1]))))
+    for mesh_on in (False, True):
+        sc35, extra = ((bulb, bulb_active) if mesh_on
+                       else (scene, dict(n_active=N_ACTIVE)))
+        what = "Cornell box + bulb" if mesh_on else "demo scene"
+        for fname, fl in (("no flags", {}), ("all flags", all_flags),
+                          ("NEE + all flags", dict(nee=True, **all_flags))):
+            counted = {}
+            cases = [(256, 128, spp_, part, more)
+                     for spp_ in (1, 3, 8, 13, 33, 40)
+                     for part, more in parts]
+            cases += [(640, 480, 8, "whole", {}), (1920, 1080, 4, "whole", {})]
+            for w35, h35, spp_, part, more in cases:
+                kw35 = dict(width=w35, height=h35, spp=spp_, max_depth=4,
+                            with_stats=True, **extra, **fl)
+                where = f"K1 {what} {fname} {w35}x{h35}/{spp_}spp {part}"
+                cam_ = cam_for(w35, h35, aperture=0.1,
+                               **(CORNELL_CAM if mesh_on else {}))
+                args = (sc35, cam_, 2**31 - 2)
+                a, seg_a = render_megakernel(*args, **kw35, **more)
+                b, seg_b, ref = render_megakernel_reference(
+                    *args, with_visits=True, **kw35, **more)
+                c, seg_c, vis = render_megakernel(
+                    *args, with_visits=True, **kw35, **more)
+                check_exact(compare(a, b), f"{where}: kernel vs plain",
+                            (seg_a, seg_b))
+                check_exact(compare(c, a), f"{where}: counting vs timed",
+                            (seg_c, seg_a))
+                check(torch.equal(vis[..., :3], ref[..., :3]),
+                      f"{where}: counts {vis.sum(0).tolist()} vs "
+                      f"megakernel_visits_reference's "
+                      f"{ref.sum(0).tolist()}")
+                tests = int(vis[..., 1:3].sum())
+                warps = int(vis[..., 3].sum())
+                check(warps <= tests <= 32 * warps,
+                      f"{where}: warps issue 1 to 32 lanes a test")
+                counted[w35, spp_, part] = vis.sum(0).tolist()
+            v8 = counted[256, 8, "whole"]
+            lanes8 = ((v8[0][1] + v8[0][2] + v8[1][1] + v8[1][2])
+                      / max(v8[0][3] + v8[1][3], 1))
+            print(f"[35 K1 counts] {what}, {fname}: 256x128 at spp 1, 3, 8, "
+                  "13, 33, 40, whole, masked and in a masked band, and "
+                  "640x480/8spp and 1080p/4spp: kernel, plain and counting "
+                  "kernel bit for bit, counts equal "
+                  "megakernel_visits_reference's; at 256x128/8spp whole: "
+                  f"path {v8[0][:3]}, shadow {v8[1][:3]} (segments, sphere "
+                  f"tests, triangle tests), {lanes8:.1f} lanes per "
+                  "warp-issued test")
+    print(f"[35 K1 counts] {time.perf_counter() - t0:.1f} s")
+
     mega["name"] = "megakernel-spheres"
-    print(f"[35 done] all phases passed in {time.perf_counter() - t_start:.1f}"
+    print(f"[36 done] all phases passed in {time.perf_counter() - t_start:.1f}"
           " s")
     kernels = [mega, mega_tri, cluster, cluster_tri, mega_flags,
                cluster_flags, mega_nee, cluster_nee, mega_mask, cluster_mask,

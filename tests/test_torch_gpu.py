@@ -5,7 +5,9 @@ linear output, adaptive tile masks and bands of rows, their RMSE of means
 against the JAX package's N=4096 goldens, and the display at 4K UHD; the
 FMA microkernel (K3) against its plain version and the measured f32 rate
 against the theoretical; the denoiser bank and the first-hit AOVs on the
-card against the CPU.
+card against the CPU; the megakernel's per-sample threads at spp that do
+and do not divide a warp, and its counting instantiation against the plain
+version's counts.
 
 Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is
 False. Imports no jax, so it runs on a machine with torch alone:
@@ -25,7 +27,8 @@ from tpu_rt_torch.ops.cluster import (
     build_clusters, build_tri_clusters, order_clusters, render_cluster,
     render_cluster_reference)
 from tpu_rt_torch.ops.megakernel import (
-    render_megakernel, render_megakernel_reference)
+    megakernel_visits_reference, render_megakernel,
+    render_megakernel_reference)
 from tpu_rt_torch.ops.triangle import box, merge_meshes
 from tpu_rt_torch.app.denoiser import Denoiser
 from tpu_rt_torch.render.aov import render_aovs
@@ -733,3 +736,137 @@ def test_cluster_samples_in_chunks_bit_for_bit(dev, gamma, monkeypatch):
     assert torch.equal(a, b) and torch.equal(a, ref)
     assert int(seg_a) == int(seg_b) == int(seg_ref)
     assert torch.equal(vis_a[..., :6], vis_b[..., :6])
+
+
+ALL_FLAGS = dict(enable_refraction=True, enable_dof=True, stratify=True)
+# each <kTris, kFlags, kNee> instantiation of the megakernel
+K1_BUILDS = {
+    "spheres": (False, {}),
+    "spheres_flags": (False, ALL_FLAGS),
+    "spheres_nee": (False, dict(nee=True, **ALL_FLAGS)),
+    "tris": (True, {}),
+    "tris_flags": (True, ALL_FLAGS),
+    "tris_nee": (True, dict(nee=True, **ALL_FLAGS)),
+}
+
+
+def k1_case(dev, mesh):
+    """The demo scene, or the Cornell box with a bulb and its walls; the
+    render's keywords and a camera with a thin lens."""
+    if mesh:
+        spheres, m = cornell_bulb(dev)
+        kw, pose = dict(mesh=m, n_active=4, n_tri_active=12), CORNELL_POSE
+    else:
+        spheres, kw, pose = tpu_rt_torch.demo_scene(device=dev), dict(
+            n_active=N_ACTIVE), {}
+    cam = tpu_rt_torch.make_camera(aspect=2.0, aperture=0.1, device=dev,
+                                   **pose)
+    return spheres, cam, kw
+
+
+def kernel_tile_segments(*args, **kw):
+    """The timed kernel's per-tile segment counts of a whole-tile frame:
+    the frame's count under a mask that leaves one tile on, tile by
+    tile."""
+    n_tiles = -(-kw["width"] * kw["height"] // 4096)
+    counts = []
+    for t in range(n_tiles):
+        one = torch.zeros(n_tiles, dtype=torch.int32)
+        one[t] = 1
+        counts.append(int(render_megakernel(*args, tile_mask=one, **kw)[1]))
+    return torch.tensor(counts)
+
+
+@pytest.mark.parametrize("spp", [1, 3, 8, 13, 33, 40])
+@pytest.mark.parametrize("build", list(K1_BUILDS))
+def test_megakernel_per_sample_threads_bit_for_bit(dev, build, spp):
+    """One thread per (pixel, sample), the pixel's samples summed by a
+    shuffle chain in sample order: every instantiation at spp 1, 3, 8, 13,
+    33 and 40 (3 and 13 leave lanes of a warp idle; 33 and 40 run a
+    second, ragged round of 32-lane groups) equals the plain version bit
+    for bit, images and per-tile segments, whole, under a tile mask, and
+    in a masked band whose last tile is ragged."""
+    mesh, flags = K1_BUILDS[build]
+    spheres, cam, kw = k1_case(dev, mesh)
+    kw.update(width=256, height=128, spp=spp, max_depth=4, with_stats=True,
+              **flags)
+    args = (spheres, cam, 2**31 - 2)
+    pair = (render_megakernel, render_megakernel_reference)
+    before = render_megakernel.launches
+    kernel_and_plain(*pair, *args, **kw)
+    kernel_and_plain(*pair, *args, tile_mask=HALF, **kw)
+    kernel_and_plain(*pair, *args, rows=40, row_offset=88,
+                     tile_mask=torch.tensor([1, 0, 1], dtype=torch.int32),
+                     **kw)
+    assert render_megakernel.launches == before + 3
+    ref = megakernel_visits_reference(*args, **kw)
+    tiles = kernel_tile_segments(*args, **kw)
+    assert torch.equal(tiles, ref[:, :, 0].sum(1).cpu()), (
+        tiles.tolist(), ref[:, :, 0].sum(1).tolist())
+
+
+# chip_smoke.py's timed frames: on an H100 (132 SMs) samples_per_lane
+# gives a lane 2 samples at 640x480/8spp (groups of 4 lanes) and 4 at
+# 1080p/4spp (a lane per pixel, no shuffle), 1 with NEE
+K1_TIMED_SHAPES = {"640x480_8spp": dict(width=640, height=480, spp=8),
+                   "1080p_4spp": dict(width=1920, height=1080, spp=4)}
+
+
+@pytest.mark.parametrize("shape", list(K1_TIMED_SHAPES))
+@pytest.mark.parametrize("build", list(K1_BUILDS))
+def test_megakernel_timed_shapes_bit_for_bit(dev, build, shape):
+    """Every instantiation at the timed frames, where a lane traces
+    several samples in rounds or holds its pixel alone: the timed kernel
+    equals the plain version bit for bit, image and segments; the counting
+    kernel equals the timed one, and its per-tile counts the plain
+    version's."""
+    mesh, flags = K1_BUILDS[build]
+    spheres, cam, kw = k1_case(dev, mesh)
+    kw.update(max_depth=4, with_stats=True, **K1_TIMED_SHAPES[shape],
+              **flags)
+    args = (spheres, cam, 2**31 - 2)
+    a, seg_a = render_megakernel(*args, **kw)
+    c, seg_c, vis = render_megakernel(*args, with_visits=True, **kw)
+    b, seg_b, ref = render_megakernel_reference(*args, with_visits=True,
+                                                **kw)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(a, b), int((a != b).sum())
+    assert int(seg_a) == int(seg_b)
+    assert torch.equal(c, a) and int(seg_c) == int(seg_a)
+    assert torch.equal(vis[..., :3], ref[..., :3]), (
+        vis.sum(0).tolist(), ref.sum(0).tolist())
+
+
+K1_VISIT_SETS = {
+    "demo_8spp": (False, dict(spp=8)),
+    "demo_nee_flags": (False, dict(spp=3, nee=True, **ALL_FLAGS)),
+    "cornell_bulb_nee": (True, dict(spp=8, nee=True)),
+    "cornell_bulb_masked_band": (True, dict(
+        spp=4, nee=True, stratify=True, rows=40, row_offset=88,
+        tile_mask=torch.tensor([1, 0, 1], dtype=torch.int32))),
+}
+
+
+@pytest.mark.parametrize("case", list(K1_VISIT_SETS))
+def test_megakernel_visit_counts_match_reference(dev, case):
+    """The counting instantiation's image and segments are the timed
+    kernel's; its per-tile counts (path and shadow segments, sphere and
+    triangle tests, a shadow ray's up to its first blocker) equal
+    megakernel_visits_reference's over the plain version's rays; the warps
+    issue between 1/32 of their lanes' tests and all of them."""
+    mesh, extra = K1_VISIT_SETS[case]
+    spheres, cam, kw = k1_case(dev, mesh)
+    kw.update(width=256, height=128, max_depth=4, with_stats=True, **extra)
+    a, seg_a = render_megakernel(spheres, cam, 5, **kw)
+    b, seg_b, vis = render_megakernel(spheres, cam, 5, with_visits=True, **kw)
+    ref = megakernel_visits_reference(spheres, cam, 5, **kw)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(a, b) and int(seg_a) == int(seg_b)
+    assert vis.shape == ref.shape and vis.dtype == torch.int64
+    assert torch.equal(vis[..., :3], ref[..., :3]), (
+        vis.sum(0).tolist(), ref.sum(0).tolist())
+    lanes = vis[..., 1:3].sum(-1).sum(0)
+    warps = vis[..., 3].sum(0)
+    assert bool((warps * 32 >= lanes).all()) and bool((warps <= lanes).all())
+    if extra.get("nee"):
+        assert int(vis[:, 1, 1:3].sum()) > 0

@@ -24,6 +24,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,7 +44,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "tpurt_megakernel_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
-                                _P, _P],
+                                _P, _P, _P],
     "tpurt_cluster_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I,
                              _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
@@ -143,3 +144,31 @@ def load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """The megakernel instantiations' registers and spills from the ptxas
+    report that :func:`build` keeps beside the library: one line
+    '<kTris, kFlags, kNee, kCount>: N registers; <its spill line>' each."""
+    out, entry, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if "megakernel" in m.group(1) else None
+            spill = ""
+        elif entry and "spill" in line:
+            spill = line.strip()
+        elif entry and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{demangle(entry)}: {regs.group(1)} registers; "
+                       f"{spill}")
+            entry = None
+    return out
+
+
+def demangle(entry: str) -> str:
+    """The template arguments of a mangled megakernel instantiation."""
+    args = re.search(r"megakernel.*?I(L?b[01]E)+", entry)
+    if not args:
+        return entry
+    return "<" + ", ".join(re.findall(r"b([01])E", args.group(0))) + ">"

@@ -1086,8 +1086,9 @@ def render_cluster_reference(
         blocks_x, blocks_y, bool(enable_refraction), bool(enable_dof),
         bool(stratify), lights, bool(gamma), out_rows, row0, mask,
         bool(with_visits))
-    return _with_visits(mk._finish(img, segs, width * out_rows,
-                                   blocks_x * blocks_y, with_stats), vis)
+    return mk._with_visits(mk._finish(img, segs, width * out_rows,
+                                      blocks_x * blocks_y, with_stats),
+                           vis[0] if vis else None)
 
 
 def render_cluster(
@@ -1213,16 +1214,8 @@ def render_cluster(
     if err != 0:
         raise RuntimeError(f"cluster kernel launch failed: CUDA error {err}")
     render_cluster.launches += -(-spp // chunk)
-    return _with_visits(mk._finish(out, segs, width * out_rows, n_tiles,
-                                   with_stats), [] if vis is None else [vis])
-
-
-def _with_visits(result, vis):
-    """``result`` (an image, or an image and a segment count) with the
-    visit counts appended when there are any."""
-    if not vis:
-        return result
-    return (*result, *vis) if isinstance(result, tuple) else (result, *vis)
+    return mk._with_visits(mk._finish(out, segs, width * out_rows, n_tiles,
+                                      with_stats), vis)
 
 
 render_cluster.launches = 0

@@ -43,6 +43,11 @@ TILE = 4096          # rays per TPU tile (32 sublanes x 128 lanes)
 RR_START = 3         # Russian roulette after this many bounces
 MAX_SPHERES = 64     # size of the kernel's shared-memory attribute table
 MAX_TRIS = 256       # size of the kernel's shared-memory triangle table
+#: the visit counts per ray kind (path, shadow): segments, sphere tests,
+#: triangle tests (a shadow ray's up to its first blocker), and the tests
+#: the warps issued (the kernel's alone)
+VISIT_COLS = ("segments", "sphere", "tri", "warp")
+VISIT_KINDS = ("path", "shadow")
 
 _M32 = 0xFFFFFFFF
 # int32 multipliers of the JAX hash (-1640531527, -2048144789,
@@ -216,6 +221,14 @@ def _finish(img, segs, n_pix, n_tiles, with_stats):
     total = segs.sum(dtype=torch.int32).to(torch.float32)
     scale = _f32(n_pix / (n_tiles * TILE))
     return img, (total * scale).to(torch.int32)
+
+
+def _with_visits(result, vis):
+    """``result`` (an image, or an image and a segment count) with the
+    visit counts appended when there are any."""
+    if vis is None:
+        return result
+    return (*result, vis) if isinstance(result, tuple) else (result, vis)
 
 
 def _normalize3(x, y, z):
@@ -539,13 +552,19 @@ def mt_test(o, d, v0, e1, e2):
     return ok, tt
 
 
-def _sphere_occluded(rows, o, d, t_edge):
-    """Whether any sphere row (attribute planes: centre 0-2, radius 3,
-    inv_r 14) has a root in [1e-3, t_edge) along (o, d): the JAX shadow
-    sweep's NaN-propagating root select (pallas_megakernel.py:613-629)."""
+def _shadow_sweep(rows, tri_rows, o, d, t_edge):
+    """The kernel's shadow sweep (``MegaNee::occluded``,
+    pallas_megakernel.py:613-657): whether a sphere row (attribute planes:
+    centre 0-2, radius 3, inv_r 14; the NaN-propagating root select) or a
+    triangle row of ``tri_rows`` has a root or t in [1e-3, t_edge) along
+    (o, d), with the sphere and triangle tests the kernel runs for each
+    ray: spheres, then triangles, up to the first blocker. Returns
+    (occluded, sphere tests, triangle tests)."""
     (ox, oy, oz), (dx, dy, dz) = o, d
     occ = torch.zeros_like(t_edge, dtype=torch.bool)
+    n_sph = torch.zeros_like(t_edge, dtype=torch.int64)
     for a in rows:
+        n_sph += ~occ
         ocx, ocy, ocz = ox - a[0], oy - a[1], oz - a[2]
         half_b = ocx * dx + ocy * dy + ocz * dz
         cq = ocx * ocx + ocy * ocy + ocz * ocz - a[3] * a[3]
@@ -553,7 +572,12 @@ def _sphere_occluded(rows, o, d, t_edge):
         root0 = -half_b - sqrtd
         root = torch.where(root0 >= 1e-3, root0, sqrtd - half_b)
         occ = occ | ((root >= 1e-3) & (root < t_edge) & (a[14] > 0.0))
-    return occ
+    n_tri = torch.zeros_like(n_sph)
+    for g in tri_rows:
+        n_tri += ~occ
+        ok, tt = mt_test(o, d, g[0:3], g[3:6], g[6:9])
+        occ = occ | (ok & (tt < t_edge))
+    return occ, n_sph, n_tri
 
 
 def _output(acc, inv_spp, gamma):
@@ -569,7 +593,7 @@ def _output(acc, inv_spp, gamma):
 def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
                  jitter, n_tiles, refract=False, dof=False, stratify=False,
                  nee=False, gamma=True, out_rows=None, row_offset=0,
-                 mask=None):
+                 mask=None, visits=False):
     """The kernel's computation as whole-tensor PyTorch ops over every lane
     of every tile, in the JAX kernel's order of operations: the spheres,
     then the triangles of ``tris`` (or None), one row at a time. With
@@ -580,7 +604,10 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
     is traced; those whose ``mask`` entry is 0 are zeroed afterwards, pixels
     and segment count (streams do not depend on the mask).
 
-    Returns ((n_pix, 3) f32 image, (n_tiles,) int32 segment counts)."""
+    Returns ((n_pix, 3) f32 image, (n_tiles,) int32 segment counts, and
+    with ``visits`` the (n_tiles, 2, 4) int64 counts of :data:`VISIT_COLS`
+    for path and shadow rays, whose warp column is -1 (the kernel's alone),
+    else None)."""
     dev = attr.device
     f32 = torch.float32
     n = n_tiles * TILE
@@ -603,12 +630,15 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
     cols = (0, 1, 2, 14, 4, 5, 6, 7, 8, 9, 10, 11, 12)
     tcols = tuple(range(12, 21))
     light = None
+    vis = torch.zeros((n_tiles, 2, len(VISIT_COLS)), dtype=torch.int64,
+                      device=dev)
     if nee:
         def occluded(o, d, t_edge):
-            occ = _sphere_occluded(rows, o, d, t_edge)
-            for g in tri_rows:
-                ok, tt = mt_test(o, d, g[0:3], g[3:6], g[6:9])
-                occ = occ | (ok & (tt < t_edge))
+            occ, n_sph, n_tri = _shadow_sweep(rows, tri_rows, o, d, t_edge)
+            if visits:
+                at = light.lanes // TILE
+                vis[:, 1, 1].index_add_(0, at, n_sph)
+                vis[:, 1, 2].index_add_(0, at, n_tri)
             return occ
 
         light = NeePlain(bg[3], lambda u: pick_light(
@@ -638,7 +668,11 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
             light.no_emit = torch.zeros_like(act)
 
         for depth_idx in range(1, max_depth + 1):
-            segs += act.view(n_tiles, TILE).sum(1, dtype=torch.int32)
+            live = act.view(n_tiles, TILE).sum(1, dtype=torch.int32)
+            segs += live
+            if visits:  # each live path sweeps every row
+                vis[:, 0] += live[:, None].long() * torch.tensor(
+                    [1, len(rows), len(tri_rows), 0], device=dev)
 
             best_t = torch.full((n,), _T_MAX, dtype=f32, device=dev)
             zero = torch.zeros(n, dtype=f32, device=dev)
@@ -680,8 +714,10 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
                                 depth_idx, U, face, refract, light,
                                 None if face is None else face[0])
             if light is not None:  # one shadow segment per diffuse lane
-                segs += light.diffuse.view(n_tiles, TILE).sum(
+                shadow = light.diffuse.view(n_tiles, TILE).sum(
                     1, dtype=torch.int32)
+                segs += shadow
+                vis[:, 1, 0] += shadow
 
         acc = [acc[0] + cr, acc[1] + cg, acc[2] + cb]
 
@@ -690,7 +726,9 @@ def _trace_plain(attr, tris, cam, bg, seed, width, height, spp, max_depth,
         on = mask != 0
         img = torch.where(on[tile, None], img, 0.0)
         segs = torch.where(on, segs, 0)
-    return img[:width * out_rows], segs
+        vis = torch.where(on[:, None, None], vis, 0)
+    vis[..., 3] = -1
+    return img[:width * out_rows], segs, vis if visits else None
 
 
 def render_megakernel_reference(
@@ -716,23 +754,40 @@ def render_megakernel_reference(
     gamma: bool = True,
     lights: torch.Tensor | None = None,
     tile_mask=None,
+    with_visits: bool = False,
 ):
     """The plain PyTorch version of the megakernel, on any device.
 
     Same contract as :func:`render_megakernel`: (rows, width, 3) f32 in
     [0, 1] (the linear mean with ``gamma=False``), plus the real-pixel
-    segment count when ``with_stats``."""
+    segment count when ``with_stats``, plus with ``with_visits`` the
+    counts of :func:`megakernel_visits_reference`."""
     attr, cam_packed, bg, out_rows, row_offset, n_tiles, mask = _prepare(
         scene, cam, n_active, width, height, spp, max_depth, rows, row_offset,
         nee, lights, tile_mask)
     tris = _pack_tris(mesh, n_tri_active)
-    img, segs = _trace_plain(attr, tris, cam_packed, bg, seed, width, height,
-                             spp, max_depth, jitter, n_tiles,
-                             bool(enable_refraction), bool(enable_dof),
-                             bool(stratify), bool(nee), bool(gamma),
-                             out_rows, row_offset, mask)
-    return _finish(img.reshape(out_rows, width, 3), segs, width * out_rows,
-                   n_tiles, with_stats)
+    img, segs, vis = _trace_plain(
+        attr, tris, cam_packed, bg, seed, width, height, spp, max_depth,
+        jitter, n_tiles, bool(enable_refraction), bool(enable_dof),
+        bool(stratify), bool(nee), bool(gamma), out_rows, row_offset, mask,
+        bool(with_visits))
+    return _with_visits(_finish(img.reshape(out_rows, width, 3), segs,
+                                width * out_rows, n_tiles, with_stats), vis)
+
+
+def megakernel_visits_reference(scene: SphereScene, cam: CameraP, seed: int,
+                                **kw) -> torch.Tensor:
+    """What the megakernel's rays test, emulated by the plain version over
+    the same rays (the keywords of :func:`render_megakernel`): per 4096-ray
+    tile, for path and then shadow rays, the :data:`VISIT_COLS` counts as
+    (n_tiles, 2, 4) int64: segments (path and shadow segments sum to the
+    tile's segment count), sphere and triangle tests (every path segment
+    sweeps every row; a traced shadow ray sweeps the spheres, then the
+    triangles, up to its first blocker), and -1 for the tests the warps
+    issued, which only the kernel's counting instantiation counts. Zeros
+    for a masked tile."""
+    kw = dict(kw, with_stats=False, with_visits=True)
+    return render_megakernel_reference(scene, cam, seed, **kw)[1]
 
 
 def _signed32(x: int) -> int:
@@ -763,6 +818,7 @@ def render_megakernel(
     gamma: bool = True,
     lights: torch.Tensor | None = None,
     tile_mask=None,
+    with_visits: bool = False,
 ):
     """Render one batch of ``spp`` samples through the megakernel.
 
@@ -793,6 +849,13 @@ def render_megakernel(
     returns zeros and no segments, every other tile the unmasked render's
     values.
 
+    ``with_visits`` runs the kernel's counting instantiation and appends
+    the (n_tiles, 2, 4) int64 counts of :data:`VISIT_COLS` per tile, for
+    path and then shadow rays (segments, sphere tests, triangle tests, the
+    tests the warps issued); the image and segments, from the counting
+    instantiation, equal the timed one's. On the CPU the counts are
+    :func:`megakernel_visits_reference`'s.
+
     A scene on the CPU runs the plain version; a scene on a CUDA device
     launches the CUDA kernel (built on first use) and raises if the launch
     fails. ``render_megakernel.launches`` counts kernel launches.
@@ -806,7 +869,7 @@ def render_megakernel(
             mesh=mesh, n_tri_active=n_tri_active,
             enable_refraction=enable_refraction, enable_dof=enable_dof,
             stratify=stratify, nee=nee, gamma=gamma, lights=lights,
-            tile_mask=tile_mask)
+            tile_mask=tile_mask, with_visits=with_visits)
     if dev.type != "cuda":
         raise ValueError(f"render_megakernel runs on cpu or cuda, not {dev}")
 
@@ -822,6 +885,8 @@ def render_megakernel(
         out = torch.empty((out_rows, width, 3), dtype=torch.float32,
                           device=dev)
         segs = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
+        vis = (torch.zeros((n_tiles, 2, len(VISIT_COLS)), dtype=torch.int64,
+                           device=dev) if with_visits else None)
         err = lib.tpurt_megakernel_launch(
             attr.data_ptr(), attr.shape[0],
             0 if tris is None else tris.data_ptr(),
@@ -831,11 +896,12 @@ def render_megakernel(
             int(bool(enable_dof)), int(bool(stratify)), int(bool(nee)),
             int(bool(gamma)), n_tiles, 0 if mask is None else mask.data_ptr(),
             out.data_ptr(), n_pix, segs.data_ptr(),
+            0 if vis is None else vis.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     render_megakernel.launches += 1
-    return _finish(out, segs, n_pix, n_tiles, with_stats)
+    return _with_visits(_finish(out, segs, n_pix, n_tiles, with_stats), vis)
 
 
 render_megakernel.launches = 0

@@ -17,7 +17,9 @@ Counterpart of ``tpu_rt/utils/roofline.py``, designed for the H100:
   did (:func:`cluster_op_model`). The kernels are built with ``--fmad=false``, so no
   FMA is contracted and every counted op is one executed instruction, the
   same unit as the two rates above; so no share of a bound can read over
-  100%.
+  100%. The megakernel's NEE shadow sweep stops at its first blocker: its
+  counting instantiation counts the tests it ran
+  (:func:`megakernel_op_model` with ``visits``).
 * :func:`bound_ms` is the least time the card could take for a kernel's
   work: the larger of its f32 operations over an f32 rate and its bytes
   over the memory rate. The bound is taken at the theoretical rate, the
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from ..ops.megakernel import TILE as MEGA_TILE
 
 # One NVIDIA H100 SXM's memory rate (NVIDIA's data sheet, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -69,9 +72,10 @@ R2_OPS = 8        # per primary ray: 2 x (mul, add, floor, sub)
 NEE_OPS = 120     # per shadow segment (path_common.cuh, kNee): the cosine
                   # sampler's 8 beyond the flipped one, suppression test 11,
                   # pick 1, cone and basis 76, light entry 23, gate 6,
-                  # contribution 15 (the shadow sweep itself is not counted
-                  # here: K1's stops at its first blocker; K2's is in the
-                  # walk's counted visits, cluster_walk_ops)
+                  # contribution 15 (the shadow sweep itself is counted
+                  # apart: K1's sphere and triangle tests up to the first
+                  # blocker, megakernel_sweep_ops; K2's in the walk's
+                  # counted visits, cluster_walk_ops)
 
 # K3: chains per thread, the multiplier, the threads of a block (fma.cu)
 CARRIES = 32
@@ -235,40 +239,75 @@ def measure_fma_ops(d1: int = FMA_DEPTHS[0], d2: int = FMA_DEPTHS[1],
 # ---------------------------------------------------------------------------
 
 def path_ops(segments: int, n_pix: int, spp: int, per_segment: int,
-             flags=None) -> int:
+             flags=None, shadow: int | None = None) -> int:
     """f32 operations every traced segment needs whatever the data, plus the
     full shading of the hits at bounces before the last: with roulette only
     at the last bounce, those are at least segments - rays. ``flags``: the
     render's ``enable_refraction``, ``enable_dof``, ``stratify`` and
-    ``nee`` switches."""
+    ``nee`` switches. With ``nee``, ``shadow`` is how many of the
+    ``segments`` are shadow segments, where a counting kernel counted it;
+    ``per_segment`` is then a path segment's."""
     flags = flags or {}
     rays = n_pix * spp
     shade = SHADE_OPS + (REFRACT_OPS if flags.get("enable_refraction") else 0)
     primary = (PRIMARY_OPS + (LENS_OPS if flags.get("enable_dof") else 0)
                + (R2_OPS if flags.get("stratify") else 0))
-    shadow = 0
-    if flags.get("nee"):
+    if not flags.get("nee"):
+        shadow = 0
+    elif shadow is None:
         # the count holds one shadow segment per diffuse hit, so at least
         # half of it is bounces; the bound takes the split that costs least
         shadow = segments // 2
-        segments -= shadow
+    segments -= shadow
     return (segments * per_segment + max(segments - rays, 0) * shade
             + shadow * NEE_OPS + rays * primary + n_pix * PIXEL_OPS)
 
 
+def megakernel_sweep_ops(visits) -> int:
+    """f32 operations of the NEE shadow sweeps of one megakernel frame:
+    ``visits`` is ``render_megakernel(..., with_visits=True)``'s
+    (n_tiles, 2, 4) counts (or their (2, 4) sum), whose shadow sphere and
+    triangle tests (each sweep up to its first blocker) count
+    :data:`SPHERE_TEST_OPS` and :data:`TRI_TEST_OPS` each."""
+    v = torch.as_tensor(visits).reshape(-1, 2, 4).sum(dim=0).tolist()
+    return int(v[1][1] * SPHERE_TEST_OPS + v[1][2] * TRI_TEST_OPS)
+
+
 def megakernel_op_model(segments: int, n_pix: int, spp: int, n_spheres: int,
-                        *, n_tris: int = 0, flags=None) -> int:
+                        *, n_tris: int = 0, flags=None, visits=None) -> int:
     """f32 operations of one megakernel (K1) frame that sweeps ``n_spheres``
-    rows and ``n_tris`` triangles per segment, from the kernel's own count
-    of traced ``segments``.
+    rows and ``n_tris`` triangles per path segment, from the kernel's own
+    count of traced ``segments``.
+
+    With NEE, ``visits`` (``render_megakernel(..., with_visits=True)``'s
+    (n_tiles, 2, 4) counts) gives the counted split of the segments and
+    the shadow rays' sphere and triangle tests
+    (:func:`megakernel_sweep_ops`); without it the model takes half of the
+    segments as shadow segments and no shadow sweep, the least a NEE frame
+    could cost. With ``visits`` the model counts every segment the grid
+    traced, lanes past the last pixel included; ``segments`` must be the
+    same frame's count, as the visits hold it or as ``with_stats`` reports
+    it over ``n_pix`` real pixels (scaled by n_pix / (n_tiles * 4096)).
 
     It differs from the JAX package's model, which counts every lane at
     every bounce: the TPU kernel is masked-dense, so a dead lane still
-    executes. On the card K1 runs one thread per pixel and a path that dies
-    leaves its bounce loop, so the work is what the traced segments need;
-    a dense count would overstate it by the share of dead paths."""
-    return path_ops(segments, n_pix, spp,
-                    n_spheres * SPHERE_TEST_OPS + n_tris * TRI_TEST_OPS, flags)
+    executes. On the card K1 runs one thread per (pixel, sample) and a path
+    that dies leaves its bounce loop, so the work is what the traced
+    segments need; a dense count would overstate it by the share of dead
+    paths."""
+    per_segment = n_spheres * SPHERE_TEST_OPS + n_tris * TRI_TEST_OPS
+    if visits is None:
+        return path_ops(segments, n_pix, spp, per_segment, flags)
+    tiles = torch.as_tensor(visits).reshape(-1, 2, 4)
+    v = tiles.sum(dim=0).tolist()
+    traced = v[0][0] + v[1][0]
+    real = int(np.float32(traced)
+               * np.float32(n_pix / (tiles.shape[0] * MEGA_TILE)))
+    if segments not in (traced, real):
+        raise ValueError(f"the visits count {v[0][0]} + {v[1][0]} segments "
+                         f"({real} over the real pixels), not {segments}")
+    return (path_ops(traced, n_pix, spp, per_segment, flags, v[1][0])
+            + megakernel_sweep_ops(visits))
 
 
 def cluster_walk_ops(visits) -> int:
