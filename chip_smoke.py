@@ -57,11 +57,18 @@ counts, checks the 1/sqrt(N) convergence of its means, and times it:
   version, and the counting kernel against the timed one at the 100k-sphere
   NEE shapes where a counting build with counters in registers faulted.
 * the megakernel's lanes per (pixel, sample): every instantiation at spp
-  1, 3, 8 and 13, whole, masked and in a masked band, the timed kernel,
+  1, 3, 8, 13, 33 and 40, whole, masked and in a masked band, and at the
+  timed frames, the timed kernel,
   the plain version and the counting kernel bit for bit, and the counting
   kernel's per-tile counts (path and shadow segments, sphere and triangle
   tests) against megakernel_visits_reference's, on the demo scene and the
   Cornell box with a bulb.
+* the interactive app (phase 36): headless RayTracerInteraction sessions
+  at 640x480, 8 spp a batch, depth 4, 32 samples (plain, NEE, adaptive
+  tiles) held bit for bit against their chains driven by hand, a session
+  with the four denoisers against the CPU port's stack, save_session /
+  load_session on the card, and ``python -m tpu_rt_torch.app.run
+  --headless``; the app's median batch and display-frame ms.
 
 Each kernel must agree with its plain version bit for bit, segment counts
 included. Every megakernel bound counts what its frame's rays did (the
@@ -367,6 +374,244 @@ def device_line(what: str, by_kernel: dict, frame_ms: float,
             "names, top: " + ", ".join(
                 f"{k[:40]} {v:.4f}" for k, v in sorted(
                     by_kernel.items(), key=lambda kv: -kv[1])[:3]))
+
+
+#: phase 36's sessions: the GUI's size and the reference's batch defaults
+APP = dict(width=640, height=480, samples_per_batch=8, max_depth=4,
+           max_samples=32)
+APP_TARGET = 0.02  # the adaptive session's noise target (phase 30's)
+APP_METHODS = ("bilateral", "nlmeans", "gaussian", "median")
+
+
+def app_phase(dev, card: str) -> dict:
+    """[36 app]: the interactive runtime, tpu_rt_torch.app's headless
+    RayTracerInteraction, on the card at 640x480, 8 spp a batch, depth 4,
+    32 samples. Each session must end done at 32 samples with its
+    accumulator bit for bit the chain driven by hand at the same seeds
+    (RayTracer.render_device -> accumulate; with NEE; with adaptive_tiles +
+    noise_target the masked chain through accumulate_tiled and the app's
+    per-tile rule), K1 launched once a batch; every displayed frame of a
+    session with the four denoisers carries all four, within 1 uint8 step
+    of the CPU port's stack; a session round-trips through
+    save_session/load_session on the card; ``python -m
+    tpu_rt_torch.app.run --headless --samples 8`` exits 0. Returns the
+    phase's times."""
+    from tpu_rt_torch.api import RayTracer
+    from tpu_rt_torch.app import RayTracerInteraction, SceneManager
+    from tpu_rt_torch.ops.cluster import render_cluster
+    from tpu_rt_torch.ops.megakernel import TILE, render_megakernel
+    from tpu_rt_torch.render.display import display_stack, unpack_grid
+    from tpu_rt_torch.render.frame import accumulate, accumulate_tiled
+
+    t0 = time.perf_counter()
+    w, h = APP["width"], APP["height"]
+    spb, depth, total = (APP["samples_per_batch"], APP["max_depth"],
+                         APP["max_samples"])
+
+    def drain(rti, what):
+        frames = []
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            f = rti.get_frame()
+            if f is None:
+                time.sleep(0.002)
+                continue
+            frames.append(f)
+            if f.get("done"):
+                return frames
+        raise RuntimeError(f"check failed: {what}: no done frame in 120 s")
+
+    def session(what, **settings):
+        """One session to its done frame, the launch counts set to 0 just
+        before it and read just after; returns (runtime, frames, K1
+        launches, K2 launches)."""
+        rti = RayTracerInteraction(w, h, device=dev)
+        rti.settings.update({k: v for k, v in APP.items()
+                             if k not in ("width", "height")})
+        rti.settings.update(settings)
+        render_megakernel.launches = render_cluster.launches = 0
+        try:
+            rti.start_rendering()
+            frames = drain(rti, what)
+        finally:
+            rti.stop_rendering()
+        torch.cuda.synchronize(dev)
+        return (rti, frames, render_megakernel.launches,
+                render_cluster.launches)
+
+    def hand_chain(nee=False, adaptive=False):
+        """The sessions' chain driven by hand: RayTracer(seed=0) on the
+        interactive scene; with ``adaptive``, the masked chain under the
+        app's per-tile rule. Returns (accumulator, masks rendered)."""
+        rt = RayTracer(device=dev)
+        rt.set_scene(SceneManager.create_interactive_scene())
+        rt.set_nee(nee)
+        if not adaptive:
+            acc, n = None, 0
+            for _ in range(total // spb):
+                acc, n = accumulate(acc, n, rt.render_device(w, h, spb, depth),
+                                    spb)
+            return acc, None
+        n_tiles = -(-(w * h) // TILE)
+        mask = np.ones(n_tiles, np.int32)
+        streak = np.zeros(n_tiles, np.int32)
+        acc = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+        counts = torch.zeros((n_tiles,), dtype=torch.float32, device=dev)
+        masks = []
+        while float(counts.max()) < total and mask.any():
+            masks.append(mask)
+            m = torch.from_numpy(mask).to(dev)
+            batch = rt.render_device(w, h, spb, depth, tile_mask=m)
+            acc, counts, change = accumulate_tiled(acc, counts, batch, m, spb,
+                                                   TILE)
+            active = mask > 0
+            streak = np.where(active & (change.cpu().numpy() < APP_TARGET),
+                              streak + 1, 0)
+            mask = (active & (streak < 2)).astype(np.int32)
+        return acc, masks
+
+    def shown(frames):
+        return [f for f in frames if f.get("is_raytracing")]
+
+    def ms(frames, key):
+        return 1e3 * statistics.median(f[key] for f in shown(frames))
+
+    times = {}
+    # (a) the progressive session against its chain
+    rti, frames, k1, k2 = session("progressive session")
+    acc, _ = hand_chain()
+    stats = compare(rti._acc_dev, acc)
+    last = shown(frames)[-1]
+    print(f"[36 app] RayTracerInteraction(640, 480, device={dev}), 8 spp a "
+          f"batch, depth 4, 32 samples: done at {rti.total_samples} "
+          f"(converged {frames[-1]['converged']}), {len(shown(frames))} "
+          f"frames; megakernel launches {k1}, cluster launches {k2}; "
+          "accumulator vs RayTracer.render_device -> accumulate at the same "
+          f"seeds: {stats}")
+    check(rti.total_samples == total and last["samples"] == total,
+          "the session ended at 32 samples")
+    check(k1 == total // spb and k2 == 0,
+          "the session launched K1 once a batch, and never K2")
+    check_exact(stats, "app session accumulator")
+    ref_stack = display_stack(acc, 1.5, as_uint8=True).cpu().numpy()
+    check(np.array_equal(last["display"], ref_stack[0])
+          and np.array_equal(last["enhanced"], ref_stack[1]),
+          "the last frame is the display stack of the final accumulator")
+    times["batch_ms"] = ms(frames, "render_time")
+    times["frame_ms"] = ms(frames, "frame_latency")
+    session_acc = rti._acc_dev
+    # one app frame's work driven by hand on this thread, batch by batch
+    # (render, merge, display stack, pull), without the worker thread, its
+    # lock, its sleeps and its double buffering
+    rt = RayTracer(device=dev)
+    rt.set_scene(SceneManager.create_interactive_scene())
+    acc_h, n_h, per = None, 0, []
+    for _ in range(total // spb):
+        t1 = time.perf_counter()
+        acc_h, n_h = accumulate(acc_h, n_h, rt.render_device(w, h, spb, depth),
+                                spb)
+        display_stack(acc_h, 1.5, as_uint8=True).cpu()
+        per.append(time.perf_counter() - t1)
+    times["chain_ms"] = 1e3 * statistics.median(per)
+
+    # (b) NEE
+    rti_n, frames_n, k1, k2 = session("NEE session", nee=True)
+    acc_n, _ = hand_chain(nee=True)
+    stats = compare(rti_n._acc_dev, acc_n)
+    print(f"[36 app] nee=True: done at {rti_n.total_samples}; megakernel "
+          f"launches {k1}, cluster launches {k2}; accumulator vs the chain "
+          f"with set_nee(True): {stats}")
+    check(rti_n.total_samples == total and k1 == total // spb and k2 == 0,
+          "NEE session: 32 samples, K1 once a batch")
+    check_exact(stats, "app NEE session accumulator")
+
+    # (c) adaptive tiles + noise target
+    rti_a, frames_a, k1, k2 = session("adaptive session", adaptive_tiles=True,
+                                      noise_target=APP_TARGET)
+    acc_a, masks = hand_chain(adaptive=True)
+    stats = compare(rti_a._acc_dev, acc_a)
+    n_tiles = masks[0].shape[0]
+    print(f"[36 app] adaptive_tiles + noise_target {APP_TARGET}: "
+          f"{len(masks)} batches, active tiles per batch "
+          f"{[int(m.sum()) for m in masks]} of {n_tiles}, frames' active "
+          f"tiles {[f['active_tiles'] for f in shown(frames_a)]}; megakernel "
+          f"launches {k1}; accumulator vs the masked chain: {stats}")
+    check(k1 == len(masks) and k2 == 0, "adaptive: K1 once a batch")
+    check(any(0 < int(m.sum()) < n_tiles for m in masks),
+          "adaptive: a batch rendered under a partial mask")
+    check_exact(stats, "app adaptive session accumulator")
+
+    # (d) the denoiser grid on every displayed frame
+    rti_d, frames_d, k1, _ = session("denoiser session", max_samples=2 * spb,
+                                     show_denoisers=True,
+                                     selected_denoisers=list(APP_METHODS))
+    check(len(shown(frames_d)) == 2 and all(
+        set(f["denoised"]) == set(APP_METHODS) for f in shown(frames_d)),
+        "every displayed frame carries the four denoisers")
+    plain = display_stack(rti_d._acc_dev.cpu(), 1.5, methods=APP_METHODS,
+                          as_uint8=True, grid_scale=2).numpy()
+    last = shown(frames_d)[-1]
+    check(np.array_equal(last["display"], plain[0])
+          and np.array_equal(last["enhanced"], plain[1]),
+          "denoiser session: display and enhanced equal the CPU port's")
+    cpu_rows = unpack_grid(plain[2], APP_METHODS, 2)
+    worst = {}
+    for m in APP_METHODS:
+        d = np.abs(last["denoised"][m].astype(int) - cpu_rows[m].astype(int))
+        worst[m] = (int(d.max()), float((d == 0).mean()))
+        check(last["denoised"][m].shape == (h // 2, w // 2, 3)
+              and int(d.max()) <= 1, f"{m}: within 1 uint8 step of the CPU")
+    times["denoise_batch_ms"] = ms(frames_d, "render_time")
+    times["denoise_frame_ms"] = ms(frames_d, "frame_latency")
+    print(f"[36 app] four denoisers (grid_scale 2): every displayed frame "
+          f"carries {sorted(APP_METHODS)}; the last frame vs the CPU port's "
+          f"stack, (max uint8 difference, share equal): {worst}")
+
+    # (e) a session through save_session / load_session on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "session.npz")
+        rti.save_session(path)
+        r2 = RayTracerInteraction(w, h, device=dev)
+        try:
+            r2.load_session(path)  # at max_samples: resumes to done at once
+            drain(r2, "restored session")
+            restored = (r2._acc_dev.device == dev
+                        and bool(torch.equal(r2._acc_dev, session_acc))
+                        and r2.total_samples == total)
+            r2.settings["max_samples"] = total + spb
+            r2.resume_rendering()
+            drain(r2, "resumed session")
+        finally:
+            r2.stop_rendering()
+    print(f"[36 app] save_session -> load_session on {dev}: accumulator "
+          f"and samples equal {restored}; resumed to {r2.total_samples}")
+    check(restored, "the restored session's accumulator is the saved one")
+    check(r2.total_samples == total + spb, "the resumed session went on")
+
+    # (f) the launcher, as a user starts it
+    with tempfile.TemporaryDirectory() as tmp:
+        png = Path(tmp) / "app.png"
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_rt_torch.app.run", "--headless",
+             "--samples", "8", "--output", str(png)],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        ok = proc.returncode == 0 and png.exists()
+    print(f"[36 app] python -m tpu_rt_torch.app.run --headless --samples 8: "
+          f"rc {proc.returncode}, image written {ok}, "
+          f"{time.perf_counter() - t1:.1f} s; its last line: "
+          f"{proc.stdout.strip().splitlines()[-1:]}")
+    check(ok, f"the headless launcher: {proc.stderr[-2000:]}")
+    times["seconds"] = time.perf_counter() - t0
+    print(f"[36 app timing] {card}: batch {times['batch_ms']:.4f} ms, "
+          f"display frame {times['frame_ms']:.4f} ms (medians over the "
+          "progressive session's frames: render_time, frame_latency); the "
+          "same batch, merge, display stack and pull driven by hand "
+          f"{times['chain_ms']:.4f} ms (median of {total // spb}); with "
+          f"four denoisers batch {times['denoise_batch_ms']:.4f} ms, "
+          f"display frame {times['denoise_frame_ms']:.4f} ms; phase "
+          f"{times['seconds']:.1f} s")
+    return times
 
 
 def main() -> int:
@@ -2718,8 +2963,11 @@ def main() -> int:
                   "warp-issued test")
     print(f"[35 K1 counts] {time.perf_counter() - t0:.1f} s")
 
+    # ---- 36. the interactive app on the card ----
+    app_phase(dev, card)
+
     mega["name"] = "megakernel-spheres"
-    print(f"[36 done] all phases passed in {time.perf_counter() - t_start:.1f}"
+    print(f"[37 done] all phases passed in {time.perf_counter() - t_start:.1f}"
           " s")
     kernels = [mega, mega_tri, cluster, cluster_tri, mega_flags,
                cluster_flags, mega_nee, cluster_nee, mega_mask, cluster_mask,

@@ -393,7 +393,7 @@ def test_raytracer_70_spheres_end_to_end(monkeypatch):
     assert calls == {"build": 1, "order": 2}
     assert stack.shape == (2, h, w, 3) and stack.dtype == torch.uint8
 
-    scene = api_scene(70).to_arrays(CPU)
+    scene = api_scene(70).to_arrays(device=CPU)
     tables = build(scene, n_active=frame.quantize_count(70, 128))
     acc_p, total_p = None, 0
     cam_api = rt.get_camera()

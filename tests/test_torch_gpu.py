@@ -7,7 +7,9 @@ FMA microkernel (K3) against its plain version and the measured f32 rate
 against the theoretical; the denoiser bank and the first-hit AOVs on the
 card against the CPU; the megakernel's per-sample threads at spp that do
 and do not divide a warp, and its counting instantiation against the plain
-version's counts.
+version's counts; the interactive runtime's session on the card against
+its hand-driven chain, and the Qt GUI (against tests/pyqt5_stub/) receiving
+a real 640x480 frame from the card.
 
 Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is
 False. Imports no jax, so it runs on a machine with torch alone:
@@ -16,6 +18,8 @@ False. Imports no jax, so it runs on a machine with torch alone:
 """
 
 import os
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -870,3 +874,82 @@ def test_megakernel_visit_counts_match_reference(dev, case):
     assert bool((warps * 32 >= lanes).all()) and bool((warps <= lanes).all())
     if extra.get("nee"):
         assert int(vis[:, 1, 1:3].sum()) > 0
+
+
+def test_app_session_on_card_equals_hand_chain(dev):
+    """A headless RayTracerInteraction on the card at 640x480/8spp/d4 ends
+    done at 32 samples with the accumulator of RayTracer.render_device ->
+    accumulate at the same seeds, bit for bit, launching K1 once a batch."""
+    from tpu_rt_torch.api import RayTracer
+    from tpu_rt_torch.app import RayTracerInteraction, SceneManager
+    from tpu_rt_torch.render.frame import accumulate
+
+    rti = RayTracerInteraction(640, 480, device=dev)
+    render_megakernel.launches = 0
+    frames = []
+    try:
+        rti.start_rendering()
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            f = rti.get_frame()
+            if f is None:
+                time.sleep(0.01)
+                continue
+            frames.append(f)
+            if f.get("done"):
+                break
+    finally:
+        rti.stop_rendering()
+    assert frames and frames[-1].get("done")
+    assert rti.total_samples == 32 and render_megakernel.launches == 4
+    rt = RayTracer(device=dev)
+    rt.set_scene(SceneManager.create_interactive_scene())
+    acc, total = None, 0
+    for _ in range(4):
+        acc, total = accumulate(acc, total, rt.render_device(640, 480, 8, 4),
+                                8)
+    assert rti._acc_dev.device == acc.device
+    assert torch.equal(rti._acc_dev, acc)
+    last = [f for f in frames if "display" in f][-1]
+    assert last["samples"] == 32 and last["display"].shape == (480, 640, 3)
+
+
+def test_gui_render_thread_gets_a_640x480_frame_from_the_card(dev):
+    """The port's gui.py against tests/pyqt5_stub/: the RenderThread polls
+    the session rendering on the card and the main display receives its
+    first real 640x480 frame (the card's machine has no PyQt5)."""
+    stub = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "pyqt5_stub")
+
+    def purge():
+        return {k: sys.modules.pop(k) for k in list(sys.modules)
+                if k.split(".")[0] == "PyQt5"
+                or k == "tpu_rt_torch.app.gui"}
+
+    saved = purge()
+    sys.path.insert(0, stub)
+    try:
+        import tpu_rt_torch.app.gui as gui
+
+        assert gui.HAVE_QT
+        render_megakernel.launches = 0
+        g = gui.GUI(640, 480, device=dev)
+        try:
+            deadline = time.time() + 120
+            while g.main_display.pixmap() is None and time.time() < deadline:
+                time.sleep(0.05)
+            pm = g.main_display.pixmap()
+            assert pm is not None, "no frame reached the main display"
+            img = pm.image()
+            assert (img.width(), img.height()) == (640, 480)
+            assert g.enhanced_display.pixmap() is not None
+            assert "Samples" in g.status_label.text()
+            assert render_megakernel.launches >= 1
+            assert g.raytracer._acc_dev.device == dev
+        finally:
+            g.close()
+        assert not g.raytracer.render_state.is_rendering
+    finally:
+        sys.path.remove(stub)
+        purge()
+        sys.modules.update(saved)

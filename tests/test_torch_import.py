@@ -44,7 +44,11 @@ def test_every_module_imports_without_jax():
             "tpu_rt_torch.core.scenes", "tpu_rt_torch.utils.objio",
             "tpu_rt_torch.utils.convert", "tpu_rt_torch.utils.roofline",
             "tpu_rt_torch.ops.post", "tpu_rt_torch.app.denoiser",
-            "tpu_rt_torch.render.aov"} <= set(SLICE_MODULES)
+            "tpu_rt_torch.render.aov", "tpu_rt_torch.app.interaction",
+            "tpu_rt_torch.app.gui", "tpu_rt_torch.app.panel_logic",
+            "tpu_rt_torch.app.preview", "tpu_rt_torch.app.utils",
+            "tpu_rt_torch.utils.checkpoint",
+            "tpu_rt_torch.utils.config"} <= set(SLICE_MODULES)
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_IMPORT, *SLICE_MODULES],
         cwd=ROOT, capture_output=True, text=True, timeout=120)

@@ -7,6 +7,8 @@ calls ``render_pallas(interpret=True)`` directly with the RayTracer's seeds
 version because its scene lies on the CPU.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -208,7 +210,7 @@ def test_raytracer_surface():
     assert rt.render_device(8, 4, 1, 1) is None
 
 
-def test_headless_app_writes_image(tmp_path):
+def test_headless_app_writes_image(tmp_path, monkeypatch):
     out = tmp_path / "x.png"
     rc = app_run.main(["--headless", "--device", "cpu", "--width", "48",
                        "--height", "32", "--samples", "3", "--batch", "2",
@@ -216,4 +218,7 @@ def test_headless_app_writes_image(tmp_path):
     assert rc == 0
     written = out if out.exists() else tmp_path / "x.png.npy"
     assert written.exists()
-    assert app_run.main(["--device", "cpu"]) == 2  # no GUI in the port yet
+    # without PyQt5 the GUI mode returns 1, as the JAX package's launcher
+    monkeypatch.setitem(sys.modules, "PyQt5", None)
+    monkeypatch.delitem(sys.modules, "tpu_rt_torch.app.gui", raising=False)
+    assert app_run.main(["--device", "cpu"]) == 1

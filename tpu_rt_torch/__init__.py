@@ -11,8 +11,10 @@ package's layout, module for module:
   kernels/  the nvcc build and ctypes loader
   render/   engine choice, batch render, accumulation, display stack
   api/      the drop-in object surface (Vector3 ... RayTracer)
-  app/      the headless launcher
-  utils/    numpy converters, OBJ import/export, CUDA-event timing
+  app/      the interactive runtime (RayTracerInteraction), its previews,
+            panel logic, denoiser bank, Qt GUI and launcher
+  utils/    numpy converters, OBJ import/export, settings, session
+            checkpoints, CUDA-event timing and frame counters
 
 Every function takes an explicit ``device``; tensors on the CPU run the
 plain PyTorch version of each kernel, tensors on a CUDA device run the

@@ -2,7 +2,10 @@
 
 from .compat import (  # noqa: F401
     Camera,
+    DebugInfo,
+    HitRecord,
     Material,
+    Ray,
     RayTracer,
     Scene,
     Sphere,

@@ -1,13 +1,20 @@
 """Drop-in object surface of the reference's pybind11 module, on PyTorch.
 
-Counterpart of ``tpu_rt/api/compat.py`` for the slice the port carries:
-``Vector3``, ``Material``, ``Sphere``, ``Camera`` (with ``to_params``),
-``Scene`` (with ``to_arrays``) and ``RayTracer`` with ``set_scene``,
-``set_mesh``, ``set_stratify``, ``set_nee``, ``get_camera``, ``set_camera``,
-``move_camera``, ``render`` and ``render_device``. Scene edits mutate
-plain Python objects; ``set_scene`` snapshots them into tensors on the
-tracer's device, and ``render_device`` drives the megakernel there, or the
-cluster engine past 64 spheres or 256 triangles.
+Counterpart of ``tpu_rt/api/compat.py``, class for class: ``Vector3``,
+``Ray``, ``Material``, ``HitRecord``, ``Sphere`` (with ``.hit``),
+``Camera`` (with ``get_ray``, ``rotate``, ``move`` and ``to_params``),
+``DebugInfo``, ``Scene`` (CRUD, ``build_bvh``, ``hit``,
+``cast_ray_for_selection`` and ``to_arrays``) and ``RayTracer`` (scene,
+mesh, camera, flags, ``render``/``render_device``, ``select_object`` and
+the debug counters). Scene edits mutate plain Python objects; the scalar
+hit tests run on the host in Python floats, as in the JAX package;
+``set_scene`` snapshots the spheres into tensors on the tracer's device,
+and ``render_device`` drives the megakernel there, or the cluster engine
+past 64 spheres or 256 triangles.
+
+``Camera.to_params`` and ``Scene.to_arrays`` take the JAX package's
+signatures; with no ``device`` they land on the device of the RayTracer
+that holds the camera or the scene snapshot, and else on the card.
 """
 
 from __future__ import annotations
@@ -97,8 +104,39 @@ class Vector3:
     def to_array(self) -> np.ndarray:
         return np.array([self.x, self.y, self.z], np.float32)
 
+    @staticmethod
+    def from_array(a) -> "Vector3":
+        a = np.asarray(a, float)
+        return Vector3(float(a[0]), float(a[1]), float(a[2]))
+
     def copy(self) -> "Vector3":
         return Vector3(self.x, self.y, self.z)
+
+
+def _device_of(obj, device) -> torch.device:
+    """``device`` when given, else the device of the RayTracer that holds
+    ``obj`` (a camera or scene snapshot), else the card."""
+    if device is not None:
+        return torch.device(device)
+    held = getattr(obj, "_device", None)
+    return held if held is not None else torch.device("cuda")
+
+
+def _lens(cam) -> tuple[float, float]:
+    """A camera's (aperture, focus_dist), 0.0 where it has none or None."""
+    return (float(getattr(cam, "aperture", 0.0) or 0.0),
+            float(getattr(cam, "focus_dist", 0.0) or 0.0))
+
+
+class Ray:
+    """Origin + normalized direction."""
+
+    def __init__(self, origin: Vector3, direction: Vector3):
+        self.origin = Vector3(origin.x, origin.y, origin.z)
+        self.direction = direction.normalize()
+
+    def at(self, t: float) -> Vector3:
+        return self.origin + self.direction * t
 
 
 class Material:
@@ -112,8 +150,24 @@ class Material:
         self.ior = 1.5
 
 
+class HitRecord:
+    """Scalar hit record."""
+
+    def __init__(self):
+        self.t = 0.0
+        self.point = Vector3()
+        self.normal = Vector3()
+        self.material = Material()
+        self.front_face = True
+        self.object_id = 0
+
+    def set_face_normal(self, ray: Ray, outward_normal: Vector3):
+        self.front_face = ray.direction.dot(outward_normal) < 0
+        self.normal = outward_normal if self.front_face else outward_normal * -1.0
+
+
 class Sphere:
-    """Sphere with a name and object id."""
+    """Sphere with a name, an object id and a scalar ``hit``."""
 
     def __init__(self):
         self.center = Vector3(0.0, 0.0, 0.0)
@@ -121,6 +175,29 @@ class Sphere:
         self.material = Material()
         self.object_id = 0
         self.name = ""
+
+    def hit(self, ray: Ray, t_min: float, t_max: float, rec: HitRecord) -> bool:
+        """Two-root quadratic test with the face-normal flip."""
+        oc = ray.origin - self.center
+        a = ray.direction.dot(ray.direction)
+        half_b = oc.dot(ray.direction)
+        c = oc.dot(oc) - self.radius * self.radius
+        disc = half_b * half_b - a * c
+        if disc < 0:
+            return False
+        sqrtd = math.sqrt(disc)
+        root = (-half_b - sqrtd) / a
+        if root < t_min or root > t_max:
+            root = (-half_b + sqrtd) / a
+            if root < t_min or root > t_max:
+                return False
+        rec.t = root
+        rec.point = ray.at(root)
+        outward = (rec.point - self.center) * (1.0 / self.radius)
+        rec.set_face_normal(ray, outward)
+        rec.material = self.material
+        rec.object_id = self.object_id
+        return True
 
 
 class Camera:
@@ -137,8 +214,30 @@ class Camera:
         self.aperture = 0.0
         self.focus_dist = 0.0
 
+    def get_ray(self, u: float, v: float) -> Ray:
+        """The ray through normalized screen point (u, v), v downwards."""
+        ndc_x = (u - 0.5) * 2.0
+        ndc_y = (0.5 - v) * 2.0
+        tan_fov = math.tan(self.fov * 3.14159 / 360.0)
+        forward = (self.target - self.position).normalize()
+        right = forward.cross(Vector3(0, 1, 0)).normalize()
+        if right.length() < 0.001:
+            right = Vector3(1, 0, 0)
+        up = right.cross(forward).normalize()
+        direction = (
+            forward
+            + right * (ndc_x * self.aspect_ratio * tan_fov)
+            + up * (ndc_y * tan_fov)
+        )
+        return Ray(self.position, direction)
+
     def move(self, delta: Vector3):
         self.position = self.position + delta
+
+    def rotate(self, dx: float, dy: float):
+        # a no-op, as in the v1 core; the interaction layer's
+        # CameraController rotates
+        pass
 
     def copy(self) -> "Camera":
         c = Camera()
@@ -147,40 +246,97 @@ class Camera:
         c.up = self.up.copy()
         c.fov = self.fov
         c.aspect_ratio = self.aspect_ratio
-        c.aperture = self.aperture
-        c.focus_dist = self.focus_dist
+        c.aperture, c.focus_dist = _lens(self)
         return c
 
-    def to_params(self, device) -> CameraP:
+    def to_params(self, device=None) -> CameraP:
+        """The camera as CameraP tensors on ``device`` (None: the holding
+        RayTracer's device, else the card)."""
+        aperture, focus_dist = _lens(self)
         return _T.make_camera(
             position=(self.position.x, self.position.y, self.position.z),
             target=(self.target.x, self.target.y, self.target.z),
             up=(self.up.x, self.up.y, self.up.z),
             fov=self.fov,
             aspect=self.aspect_ratio,
-            aperture=self.aperture,
-            focus_dist=self.focus_dist,
-            device=device,
+            aperture=aperture,
+            focus_dist=focus_dist,
+            device=_device_of(self, device),
         )
 
 
+class DebugInfo:
+    """Build/render counters."""
+
+    def __init__(self):
+        self.enable_debug = False
+        self.build_count = 0
+        self.render_count = 0
+
+    def reset(self):
+        self.build_count = 0
+        self.render_count = 0
+
+    def get_stats(self) -> str:
+        return f"Builds: {self.build_count}, Renders: {self.render_count}"
+
+
 class Scene:
-    """Python-side scene container."""
+    """Python-side scene container. ``build_bvh`` only marks the snapshot
+    dirty: the device tables are rebuilt at the next ``set_scene``."""
 
     def __init__(self):
         self.spheres: list[Sphere] = []
         self.background_color = Vector3(0.1, 0.1, 0.1)
         self.use_bvh = True
         self.debug_mode = False
+        self._dirty = True
+        self._build_count = 0
 
     def add_sphere(self, sphere: Sphere):
         self.spheres.append(sphere)
+        self._dirty = True
 
     def remove_sphere(self, object_id: int):
         self.spheres = [s for s in self.spheres if s.object_id != object_id]
+        self._dirty = True
 
-    def to_arrays(self, device, capacity: int | None = None) -> _T.SphereScene:
-        """Snapshot to a bucketed SphereScene on ``device``."""
+    def build_bvh(self):
+        self._dirty = True
+        self._build_count += 1
+
+    def hit(self, ray: Ray, t_min: float, t_max: float, rec: HitRecord) -> bool:
+        """Sequential closest-so-far scan."""
+        temp = HitRecord()
+        found = False
+        closest = t_max
+        for s in self.spheres:
+            if s.hit(ray, t_min, closest, temp):
+                found = True
+                closest = temp.t
+                rec.t = temp.t
+                rec.point = temp.point
+                rec.normal = temp.normal
+                rec.material = temp.material
+                rec.front_face = temp.front_face
+                rec.object_id = temp.object_id
+        return found
+
+    def cast_ray_for_selection(self, ray: Ray, t_min: float, t_max: float) -> int:
+        """Closest object id, -1 on a miss."""
+        rec = HitRecord()
+        selected = -1
+        closest = t_max
+        for s in self.spheres:
+            if s.hit(ray, t_min, closest, rec):
+                closest = rec.t
+                selected = s.object_id
+        return selected
+
+    def to_arrays(self, capacity: int | None = None, *,
+                  device=None) -> _T.SphereScene:
+        """Snapshot to a bucketed SphereScene on ``device`` (None: the
+        holding RayTracer's device, else the card)."""
         s = self.spheres
         return _T.make_scene(
             centers=np.array([x.center.to_array() for x in s],
@@ -196,7 +352,7 @@ class Scene:
             object_ids=[x.object_id for x in s],
             background=self.background_color.to_array(),
             capacity=capacity,
-            device=device,
+            device=_device_of(self, device),
         )
 
 
@@ -249,13 +405,17 @@ class RayTracer:
         self.camera.position = Vector3(0, 2, 5)
         self.camera.target = Vector3(0, 0, -1)
         self.camera.fov = 45.0
+        self.camera._device = self.device
         self._scene_snapshot = Scene()
         self._scene_arrays: _T.SphereScene | None = None
         self._seed_base = int(seed) + 1
         self._frame = 0
+        self._debug = DebugInfo()
         # set at set_scene time on the host, so a render pulls nothing back
         self._n_active: int | None = None
         self._last_engine: str | None = None
+        # the JAX package's LBVH flag: only its lax engine traverses one
+        self._last_use_bvh: bool | None = None
         # whether the last batch rendered with its tile mask (megakernel)
         self._last_adaptive: bool = False
         # cluster engine tables: built per snapshot, ordered per position
@@ -290,11 +450,13 @@ class RayTracer:
             c.object_id = s.object_id
             c.name = s.name
             snap.spheres.append(c)
+        snap._device = self.device
         self._scene_snapshot = snap
-        self._scene_arrays = snap.to_arrays(self.device)
+        self._scene_arrays = snap.to_arrays(device=self.device)
         self._n_active = _F.quantize_count(len(snap.spheres),
                                            self._scene_arrays.capacity)
         self._build_tables()
+        self._debug.build_count += 1
 
     def set_mesh(self, mesh) -> None:
         """Attach (or clear, with None) a TriangleMesh, rendered beside the
@@ -353,9 +515,14 @@ class RayTracer:
         self._build_lights()
 
     def get_camera(self) -> Camera:
-        return self.camera.copy()
+        """A copy of the camera; its ``to_params()`` lands on this
+        tracer's device."""
+        c = self.camera.copy()
+        c._device = self.device
+        return c
 
     def set_camera(self, cam: Camera):
+        cam._device = self.device
         self.camera = cam
 
     def move_camera(self, delta: Vector3):
@@ -386,6 +553,8 @@ class RayTracer:
         seed = batch_seed(self._seed_base, self._frame)
         self._frame += 1
         self._last_engine = self._engine()
+        self._last_use_bvh = (bool(self._scene_snapshot.use_bvh)
+                              and self._last_engine == "lax")
         self._last_adaptive = (tile_mask is not None
                                and self._last_engine == "pallas")
         if not self._last_adaptive:
@@ -404,12 +573,32 @@ class RayTracer:
                 self._ordered_at = at
             kw = dict(prebuilt=self._ordered, tri_prebuilt=self._tri_ordered,
                       pre_ordered=True)
-        return _F.render(
+        img = _F.render(
             self._scene_arrays, cam, seed, width=width, height=height,
             spp=samples_per_pixel, max_depth=max_depth,
             n_active=self._n_active, mesh=self._mesh,
             n_tri_active=self._n_tri_active,
             enable_refraction=self._enable_refraction,
             stratify=self._stratify, nee=self._nee, lights=self._lights,
-            enable_dof=float(self.camera.aperture) > 0.0,
+            enable_dof=_lens(self.camera)[0] > 0.0,
             tile_mask=tile_mask, **kw)
+        self._debug.render_count += 1
+        return img
+
+    def trace_ray(self, ray: Ray, depth: int, max_depth: int) -> Vector3:
+        """Single-ray radiance estimate: the JAX package's lax ``trace``,
+        not ported yet."""
+        raise _F._not_ported("RayTracer.trace_ray (the lax integrator's "
+                             "trace)", "Queue 1, lax integrator")
+
+    def select_object(self, x: float, y: float, width: int, height: int) -> int:
+        """The object id under normalized screen point (x, y) through the
+        camera, -1 on a miss."""
+        ray = self.camera.get_ray(x, y)
+        return self._scene_snapshot.cast_ray_for_selection(ray, 0.001, 1000.0)
+
+    def set_debug_mode(self, enable: bool):
+        self._debug.enable_debug = enable
+
+    def get_debug_info(self) -> DebugInfo:
+        return self._debug

@@ -1,15 +1,108 @@
-"""Frame timing on the card and traced-ray throughput.
+"""Frame timing on the card, traced-ray throughput, and the app's frame
+counters.
 
-Counterpart of ``tpu_rt/utils/profiling.py``: CUDA events stand in for
-``block_until_ready`` fences. Timing is a device measurement, so it raises
-on anything but a CUDA device instead of timing a CPU run.
+Counterpart of ``tpu_rt/utils/profiling.py``: :func:`sync` stands in for
+its ``block_until_ready`` fence, :class:`FrameStats` and
+:func:`frame_timer` are its rolling counters, and :func:`torch_trace` a
+``torch.profiler`` trace where it has ``xla_trace``. CUDA events time the
+card's frames (:func:`cuda_frame_ms`); those device measurements raise on
+anything but a CUDA device instead of timing a CPU run.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import time
+from dataclasses import dataclass, field
 from typing import Callable, List
 
 import torch
+
+
+def _tensors(x):
+    if torch.is_tensor(x):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def sync(x=None) -> None:
+    """Wait until the card has finished the work queued for ``x`` (a
+    tensor, or a dict, list or tuple holding tensors): synchronize each
+    CUDA device it lies on. With no ``x``, the current CUDA device, when
+    CUDA has been used. A no-op on the CPU, whose tensors are done when
+    they are returned."""
+    if x is None:
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        return
+    for dev in {t.device for t in _tensors(x) if t.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+
+
+@dataclass
+class FrameStats:
+    """Rolling render statistics (Mrays/s, ms/frame)."""
+
+    window: int = 32
+    times: List[float] = field(default_factory=list)
+    rays: List[int] = field(default_factory=list)
+
+    def record(self, seconds: float, ray_segments: int):
+        self.times.append(seconds)
+        self.rays.append(ray_segments)
+        if len(self.times) > self.window:
+            self.times.pop(0)
+            self.rays.pop(0)
+
+    @property
+    def frame_ms(self) -> float:
+        return 1e3 * (sum(self.times) / len(self.times)) if self.times else 0.0
+
+    @property
+    def mrays_per_s(self) -> float:
+        t = sum(self.times)
+        return (sum(self.rays) / t / 1e6) if t > 0 else 0.0
+
+    def summary(self) -> str:
+        return f"{self.frame_ms:.1f} ms/frame, {self.mrays_per_s:.1f} Mrays/s"
+
+
+@contextlib.contextmanager
+def frame_timer(stats: FrameStats | None = None, ray_segments: int = 0):
+    """Time a render call up to the end of its device work: the body puts
+    its output in ``holder["result"]``, which :func:`sync` waits for; the
+    seconds land in ``holder["seconds"]`` and, optionally, in ``stats``."""
+    t0 = time.perf_counter()
+    holder = {}
+    yield holder
+    sync(holder.get("result"))
+    dt = time.perf_counter() - t0
+    holder["seconds"] = dt
+    if stats is not None:
+        stats.record(dt, ray_segments)
+
+
+@contextlib.contextmanager
+def torch_trace(logdir: str):
+    """A ``torch.profiler`` trace of the body (host ops, and CUDA kernels
+    and copies when CUDA is available), written as a Chrome trace to
+    ``logdir/trace.json`` (open it in chrome://tracing or Perfetto)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        sync()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 def cuda_frame_ms(fn: Callable[[int], object], frames: int = 7, *,
