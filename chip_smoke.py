@@ -69,6 +69,12 @@ counts, checks the 1/sqrt(N) convergence of its means, and times it:
   with the four denoisers against the CPU port's stack, save_session /
   load_session on the card, and ``python -m tpu_rt_torch.app.run
   --headless``; the app's median batch and display-frame ms.
+* the lax engine (phase 37, plain torch, no kernel): the depth-1 golden,
+  the v1 parity test at 160x120/512spp/d4, RayTracer(linear=True) and
+  RayTracer(mode="v1") on the demo scene at 640x480/8spp/d4 through the
+  LBVH and against the CPU port at 160x120/2spp, the lax v2 mean against
+  K1's, trace_ray and a linear-accumulation session on the card, and the
+  lax frames' times with and without the LBVH.
 
 Each kernel must agree with its plain version bit for bit, segment counts
 included. Every megakernel bound counts what its frame's rays did (the
@@ -614,6 +620,203 @@ def app_phase(dev, card: str) -> dict:
     return times
 
 
+LAX = dict(width=640, height=480, spp=8, max_depth=4)  # the GUI's batch
+LAX_CPU = dict(width=160, height=120, spp=2, max_depth=4)  # held vs the CPU
+
+
+def lax_phase(dev, card: str) -> dict:
+    """[37 lax]: the lax engine (ops/integrator.py, plain torch, no kernel)
+    on the card. (a) render(engine="lax", jitter=False, max_depth=1) of the
+    demo scene at 160x120 against the C++ golden to 1e-6; (b) the v1
+    parity test at its full size, 160x120/512spp/d4 at seeds 7 and 8
+    against the C++ golden (cross RMSE under 1.15x the two-seed floor, mean
+    within 2e-3); (c) RayTracer(linear=True) and RayTracer(mode="v1") on
+    the demo scene at 640x480/8spp/d4 through the LBVH, 4 batches, and the
+    same tracers against the CPU port at 160x120/2spp at the same seeds
+    (threefry bits equal; 99.9% of values within 1e-4, segments within
+    0.1%); (d) the lax v2 linear mean against K1's linear mean at
+    64x48/64spp/d4, within 3 SE per channel; (e) trace_ray on the card
+    against the CPU, and a RayTracerInteraction(linear_accumulation=True)
+    session of 4 frames; (f) timings (CUDA events over chained frames:
+    median and spread). Nothing falls back to the CPU: every tensor of the
+    card's runs lies on the card. Returns the phase's times."""
+    from tpu_rt_torch.api import Ray, RayTracer, Vector3
+    from tpu_rt_torch.api.compat import batch_seed
+    from tpu_rt_torch.app import RayTracerInteraction, SceneManager
+    from tpu_rt_torch.core import rng
+    from tpu_rt_torch.core.types import demo_scene, make_camera
+    from tpu_rt_torch.ops.cluster import render_cluster
+    from tpu_rt_torch.ops.megakernel import render_megakernel
+    from tpu_rt_torch.render.frame import render
+    from tpu_rt_torch.utils.profiling import cuda_frame_ms
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    scene = demo_scene(device=dev)
+
+    def cam(w, h, device=dev):
+        return make_camera(aspect=w / h, device=device)
+
+    # (a) the deterministic golden
+    gold = np.load(GOLDENS / "ref_depth1_160x120.npy")
+    img = render(scene, cam(160, 120), 0, width=160, height=120, spp=1,
+                 max_depth=1, jitter=False, engine="lax")
+    check(img.device == dev, "the lax engine renders on the card")
+    err = float(np.abs(img.cpu().numpy() - gold).max())
+    print(f"[37 lax golden] render(engine='lax', jitter=False, max_depth=1) "
+          f"160x120 vs the C++ golden: max abs {err:.3g}")
+    check(err <= 1e-6, "lax depth-1 golden within 1e-6")
+
+    # (b) the v1 parity test at its full size
+    ref = np.load(GOLDENS / "ref_render_160x120_512spp.npy")
+    a, b = (render(scene, cam(160, 120), s, width=160, height=120, spp=512,
+                   max_depth=4, mode="v1").cpu().numpy() for s in (7, 8))
+    rmse_ref = float(np.sqrt(((a - ref) ** 2).mean()))
+    floor = float(np.sqrt(((a - b) ** 2).mean()))
+    gap = abs(float(a.mean() - ref.mean()))
+    print(f"[37 lax v1 parity] 160x120/512spp/d4 seeds 7, 8: cross RMSE vs "
+          f"the C++ golden {rmse_ref:.6f}, two-seed floor {floor:.6f} "
+          f"(ratio {rmse_ref / floor:.4f}), mean gap {gap:.6f}")
+    check(rmse_ref < 1.15 * floor, "v1 parity: cross RMSE under 1.15x floor")
+    check(gap < 2e-3, "v1 parity: mean within 2e-3")
+
+    # (c) the slice at full width, and against the CPU port
+    k_cpu = rng.bits(rng.fold_in(rng.key(5, device=cpu), 101), (4096, 3))
+    k_dev = rng.bits(rng.fold_in(rng.key(5, device=dev), 101), (4096, 3))
+    check(torch.equal(k_dev.cpu(), k_cpu), "threefry bits: card == CPU")
+    tracers = {}
+    for label, kw in (("linear", dict(linear=True)), ("v1", dict(mode="v1"))):
+        rt = RayTracer(device=dev, **kw)
+        rt.set_scene(SceneManager.create_interactive_scene())
+        render_megakernel.launches = render_cluster.launches = 0
+        batches = [rt.render_device(**{k: LAX[k] for k in ("width",
+                                                            "height")},
+                                    samples_per_pixel=LAX["spp"],
+                                    max_depth=LAX["max_depth"])
+                   for _ in range(4)]
+        torch.cuda.synchronize(dev)
+        ok = all(x.device == dev and x.shape == (480, 640, 3)
+                 and bool(torch.isfinite(x).all()) for x in batches)
+        peak = max(float(x.max()) for x in batches)
+        print(f"[37 lax main path] RayTracer({label}) demo scene "
+              f"640x480/8spp/d4 x4: engine {rt._last_engine}, LBVH "
+              f"{rt._last_use_bvh}, K1/K2 launches "
+              f"{render_megakernel.launches}/{render_cluster.launches}, "
+              f"finite on the card {ok}, peak {peak:.4f}")
+        check(rt._last_engine == "lax" and rt._last_use_bvh is True,
+              f"RayTracer({label}) takes the lax engine through the LBVH")
+        check(ok and render_megakernel.launches == 0
+              and render_cluster.launches == 0, f"RayTracer({label}) batches")
+        check((peak > 1.0) == (label == "linear"),
+              f"RayTracer({label}): linear radiance only when linear")
+        tracers[label] = kw
+        # the same tracer on both devices at 160x120/2spp, same seeds
+        fracs, segs = [], []
+        for f in range(2):
+            args = dict(LAX_CPU, seed=batch_seed(1, f), with_stats=True,
+                        engine="lax", use_bvh=True,
+                        mode=kw.get("mode", "v2"),
+                        gamma=not kw.get("linear", False))
+            outs = [render(demo_scene(device=d_), cam(160, 120, d_),
+                           **args) for d_ in (dev, cpu)]
+            diff = (outs[0][0].cpu() - outs[1][0]).abs()
+            fracs.append(float((diff <= 1e-4).float().mean()))
+            segs.append((int(outs[0][1]), int(outs[1][1])))
+        print(f"[37 lax vs CPU] RayTracer({label})'s batches 0, 1 at "
+              f"160x120/2spp/d4: values within 1e-4 {fracs}, segments "
+              f"(card, CPU) {segs}")
+        check(min(fracs) >= 0.999, f"{label}: card vs CPU values")
+        check(all(abs(x - y) <= 0.001 * y for x, y in segs),
+              f"{label}: card vs CPU segments")
+
+    # (d) the lax v2 mean against K1's, linear, 64x48/64spp/d4 in 16
+    # independent batches of 4 samples each (the SE from their spread)
+    c48 = cam(64, 48)
+    means = {}
+    for name, fn in (
+            ("lax", lambda s: render(scene, c48, s, width=64, height=48,
+                                     spp=4, max_depth=4, gamma=False,
+                                     engine="lax")),
+            ("K1", lambda s: render_megakernel(scene, c48, s, width=64,
+                                               height=48, spp=4, max_depth=4,
+                                               gamma=False, n_active=12))):
+        per = torch.stack([fn(3000 + 17 * i).mean(dim=(0, 1))
+                           for i in range(16)]).double().cpu()
+        means[name] = (per.mean(0), per.std(0) / 4.0)
+    se = torch.sqrt(means["lax"][1] ** 2 + means["K1"][1] ** 2)
+    z = ((means["lax"][0] - means["K1"][0]).abs() / se).tolist()
+    print(f"[37 lax vs K1] linear channel means 64x48/64spp/d4: lax "
+          f"{means['lax'][0].tolist()}, K1 {means['K1'][0].tolist()}, "
+          f"|gap| / SE {z}")
+    check(max(z) <= 3.0, "lax v2 mean within 3 SE of K1's")
+
+    # (e) trace_ray and a linear-accumulation session on the card
+    rays = [((0.0, 2.0, 5.0), (0.0, -1.5, -8.0)),
+            ((0.0, 2.0, 5.0), (0.0, 1.0, -6.0)),
+            ((0.0, 2.0, 5.0), (2.0, -1.5, -8.0))]
+    got = {}
+    for where, d_ in (("card", dev), ("cpu", cpu)):
+        rt = RayTracer(seed=3, device=d_)
+        rt.set_scene(SceneManager.create_interactive_scene())
+        got[where] = [rt.trace_ray(Ray(Vector3(*o), Vector3(*v)), 0, 4)
+                      for o, v in rays]
+    tr = [[round(c, 6) for c in (v.x, v.y, v.z)] for v in got["card"]]
+    close = all(abs(p - q) <= 1e-4 * max(1.0, abs(q))
+                for u, v in zip(got["card"], got["cpu"])
+                for p, q in zip((u.x, u.y, u.z), (v.x, v.y, v.z)))
+    print(f"[37 lax trace_ray] on the card {tr}; equal to the CPU's within "
+          f"1e-4: {close}")
+    check(close, "trace_ray on the card vs the CPU")
+    rti = RayTracerInteraction(640, 480, linear_accumulation=True, device=dev)
+    rti.settings.update(max_samples=32, samples_per_batch=8, max_depth=4)
+    frames = []
+    try:
+        rti.start_rendering()
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            f = rti.get_frame()
+            if f is None:
+                time.sleep(0.002)
+                continue
+            frames.append(f)
+            if f.get("done"):
+                break
+    finally:
+        rti.stop_rendering()
+    shown = [f for f in frames if f.get("is_raytracing")]
+    acc = rti._acc_dev
+    ok = (bool(frames) and frames[-1].get("done") and rti.total_samples == 32
+          and acc.device == dev and bool(torch.isfinite(acc).all())
+          and float(acc.max()) > 1.0)
+    print(f"[37 lax session] RayTracerInteraction(640, 480, "
+          f"linear_accumulation=True, device={dev}): {len(shown)} frames, "
+          f"done at {rti.total_samples}, engine "
+          f"{rti.ray_tracer._last_engine}, accumulator on the card, linear "
+          f"(peak {float(acc.max()):.4f}): {ok}")
+    check(ok and len(shown) == 4 and rti.ray_tracer._last_engine == "lax",
+          "the linear-accumulation session on the card")
+
+    # (f) timings
+    times = {"batch_ms": 1e3 * statistics.median(
+        f["render_time"] for f in shown)}
+    c640 = cam(640, 480)
+    for label, kw in (("lax v2 linear, LBVH", dict(use_bvh=True,
+                                                   gamma=False)),
+                      ("lax v2 linear, dense", dict(gamma=False)),
+                      ("lax v1, LBVH", dict(use_bvh=True, mode="v1"))):
+        ms = cuda_frame_ms(lambda i, kw=kw: render(
+            scene, c640, 500 + i, engine="lax", **LAX, **kw), 7, device=dev)
+        times[label] = ms
+        print(f"[37 lax timing] {card}: {label} demo 640x480/8spp/d4: "
+              f"median {statistics.median(ms):.4f} ms, spread "
+              f"{min(ms):.4f}-{max(ms):.4f} ms (7 chained frames)")
+    times["seconds"] = time.perf_counter() - t0
+    print(f"[37 lax timing] {card}: linear-accumulation session batch "
+          f"{times['batch_ms']:.4f} ms (median render_time of its 4 "
+          f"frames); phase {times['seconds']:.1f} s")
+    return times
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -983,11 +1186,18 @@ def main() -> int:
                                            n_active=rt._n_active),
                             cam_main.position)
     acc_p, total_p = None, 0
+    # the plain chain's batches, kept: phase 30's masked K2 chain runs on
+    # the same scene, camera, tables and seeds, and the plain version
+    # traces every block and zeroes the masked ones, so its masked batches
+    # are these with the masked blocks zeroed (run once, shared)
+    plain10 = []
     for f in range(4):
         b = render_cluster_reference(
             None, cam_main, batch_seed(5 + 1, f), prebuilt=tables,
             pre_ordered=True, **INTERACTIVE)
+        plain10.append(b)
         acc_p, total_p = accumulate(acc_p, total_p, b, INTERACTIVE["spp"])
+    scene10, cam10, tables10 = rt._scene_arrays, cam_main, tables
     stack_p = display_stack(acc_p, EXPOSURE, as_uint8=True)
     lsb = (stack.int() - stack_p.int()).abs()
     frac = float((lsb <= 1).float().mean())
@@ -2482,10 +2692,10 @@ def main() -> int:
     # blocks are sky (no change at all) and the rest fall under 0.02 at
     # once, so the target is the median change, among the blocks that
     # change, of a second batch over a first at other seeds: the sky and
-    # about half the other blocks leave after the third batch.
-    cam_k2 = cam_for(INTERACTIVE["width"], INTERACTIVE["height"], **BIG_CAM)
-    tab_k2 = order_clusters(build_clusters(big, n_active=BIG["n"]),
-                            cam_k2.position)
+    # about half the other blocks leave after the third batch. The scene,
+    # camera, tables and seeds are phase 10's main path's, whose plain
+    # batches give the plain chain's (their masked blocks zeroed).
+    cam_k2, tab_k2 = cam10, tables10
     tmap_k2, n_k2_tiles = cluster_tile_map(INTERACTIVE["width"],
                                            INTERACTIVE["height"], device=dev)
 
@@ -2497,15 +2707,15 @@ def main() -> int:
     acc_c, counts_c, _ = k2_merge(
         torch.zeros((INTERACTIVE["height"], INTERACTIVE["width"], 3),
                     device=dev), torch.zeros(n_k2_tiles, device=dev),
-        render(big, cam_k2, 9000, prebuilt=tab_k2, pre_ordered=True,
+        render(scene10, cam_k2, 9000, prebuilt=tab_k2, pre_ordered=True,
                **INTERACTIVE), ones_k2, INTERACTIVE["spp"])
     _, _, change_c = k2_merge(acc_c, counts_c, render(
-        big, cam_k2, 9001, prebuilt=tab_k2, pre_ordered=True, **INTERACTIVE),
-        ones_k2, INTERACTIVE["spp"])
+        scene10, cam_k2, 9001, prebuilt=tab_k2, pre_ordered=True,
+        **INTERACTIVE), ones_k2, INTERACTIVE["spp"])
     k2_target = float(change_c[change_c > 0].median())
     render_megakernel.launches = render_cluster.launches = 0
     acc, masks2, last2, stack = adaptive_chain(
-        lambda f, mask: render(big, cam_k2, batch_seed(23 + 1, f),
+        lambda f, mask: render(scene10, cam_k2, batch_seed(5 + 1, f),
                                prebuilt=tab_k2, pre_ordered=True,
                                tile_mask=mask, **INTERACTIVE),
         k2_merge, n_k2_tiles, 4, k2_target)
@@ -2525,17 +2735,22 @@ def main() -> int:
         "K2: blocks left the mask, and a batch rendered under a partial mask")
     check_stack(stack, acc, "K2 adaptive path")
     t0 = time.perf_counter()
+
+    def plain_masked(f, mask):
+        """render_cluster_reference(tile_mask=mask) of batch f: phase 10's
+        plain batch f (the same inputs) with the masked blocks zeroed."""
+        on = torch.from_numpy(mask).to(dev)[tmap_k2.long()] != 0
+        return torch.where(on[..., None], plain10[f], 0.0)
+
     acc_p, masks2_p, _, _ = adaptive_chain(
-        lambda f, mask: render_cluster_reference(
-            None, cam_k2, batch_seed(23 + 1, f), prebuilt=tab_k2,
-            pre_ordered=True, tile_mask=mask, **INTERACTIVE),
-        k2_merge, n_k2_tiles, 4, k2_target, display=False)
+        plain_masked, k2_merge, n_k2_tiles, 4, k2_target, display=False)
     stats = compare(acc, acc_p)
     cluster_mask_err = max(cluster_mask_err, stats["max_abs"])
     same_masks = (len(masks2_p) == len(masks2)
                   and all(map(np.array_equal, masks2, masks2_p)))
     print(f"[30 adaptive main path] K2 vs the plain chain at the same size "
-          f"({time.perf_counter() - t0:.1f} s): accumulator {stats}; masks "
+          f"(phase 10's plain batches, masked blocks zeroed; "
+          f"{time.perf_counter() - t0:.1f} s): accumulator {stats}; masks "
           f"equal {same_masks}")
     check(same_masks, "K2: the plain chain's masks equal the kernel chain's")
     check_exact(stats, "K2 adaptive path accumulator")
@@ -2907,20 +3122,38 @@ def main() -> int:
     # (1080p/4spp), in every instantiation: the timed kernel, the plain
     # version and the counting kernel bit for bit, segments included, and
     # the counting kernel's per-tile counts equal to
-    # megakernel_visits_reference's ----
+    # megakernel_visits_reference's (the masked frames' plain runs are the
+    # whole frames' with the masked tiles zeroed, as the plain version
+    # computes them) ----
     t0 = time.perf_counter()
     all_flags = dict(enable_refraction=True, enable_dof=True, stratify=True)
     half = torch.tensor([1, 0, 0, 1, 1, 0, 1, 0], dtype=torch.int32)
     parts = (("whole", {}), ("masked", dict(tile_mask=half)),
              ("masked band", dict(rows=40, row_offset=88,
                                   tile_mask=torch.tensor([1, 0, 1]))))
+
+    def masked_plain(whole, mask, w, h):
+        """(image, segments, counts) of render_megakernel_reference(...,
+        tile_mask=mask, with_stats=True, with_visits=True) from the whole
+        frame's (image, counts): the masked tiles' pixels and counts zeroed
+        (the warp column stays the plain version's -1), the segments the
+        active tiles' path and shadow segments (no ragged tile)."""
+        img, vis = whole
+        check(w * h % TILE == 0, "a masked frame of whole tiles")
+        on = mask.to(dev) != 0
+        img = torch.where(on.repeat_interleave(TILE).reshape(h, w, 1), img,
+                          0.0)
+        vis = vis.clone()
+        vis[~on, :, :3] = 0
+        return img, vis[:, :, 0].sum(), vis
+
     for mesh_on in (False, True):
         sc35, extra = ((bulb, bulb_active) if mesh_on
                        else (scene, dict(n_active=N_ACTIVE)))
         what = "Cornell box + bulb" if mesh_on else "demo scene"
         for fname, fl in (("no flags", {}), ("all flags", all_flags),
                           ("NEE + all flags", dict(nee=True, **all_flags))):
-            counted = {}
+            counted, plain35 = {}, {}
             cases = [(256, 128, spp_, part, more)
                      for spp_ in (1, 3, 8, 13, 33, 40)
                      for part, more in parts]
@@ -2933,8 +3166,17 @@ def main() -> int:
                                **(CORNELL_CAM if mesh_on else {}))
                 args = (sc35, cam_, 2**31 - 2)
                 a, seg_a = render_megakernel(*args, **kw35, **more)
-                b, seg_b, ref = render_megakernel_reference(
-                    *args, with_visits=True, **kw35, **more)
+                if part == "masked":
+                    # the plain version traces every tile and zeroes the
+                    # masked ones (pixels, counts, segments): the whole
+                    # frame's plain run, shared
+                    b, seg_b, ref = masked_plain(plain35[w35, spp_], half,
+                                                 w35, h35)
+                else:
+                    b, seg_b, ref = render_megakernel_reference(
+                        *args, with_visits=True, **kw35, **more)
+                if part == "whole":
+                    plain35[w35, spp_] = (b, ref)
                 c, seg_c, vis = render_megakernel(
                     *args, with_visits=True, **kw35, **more)
                 check_exact(compare(a, b), f"{where}: kernel vs plain",
@@ -2966,8 +3208,11 @@ def main() -> int:
     # ---- 36. the interactive app on the card ----
     app_phase(dev, card)
 
+    # ---- 37. the lax engine on the card ----
+    lax_phase(dev, card)
+
     mega["name"] = "megakernel-spheres"
-    print(f"[37 done] all phases passed in {time.perf_counter() - t_start:.1f}"
+    print(f"[38 done] all phases passed in {time.perf_counter() - t_start:.1f}"
           " s")
     kernels = [mega, mega_tri, cluster, cluster_tri, mega_flags,
                cluster_flags, mega_nee, cluster_nee, mega_mask, cluster_mask,

@@ -81,10 +81,6 @@ def test_select_engine_matches_jax(jax_on_tpu, which, engine):
             frame.select_engine(ts, mesh=tm, engine=engine)
         return
     ref = j_frame.select_engine(js, mesh=jm, engine=engine)
-    if ref == "lax":  # the lax integrator is not ported yet
-        with pytest.raises(NotImplementedError, match="lax integrator"):
-            frame.select_engine(ts, mesh=tm, engine=engine)
-        return
     assert frame.select_engine(ts, mesh=tm, engine=engine) == ref
 
 

@@ -5,8 +5,8 @@ Camera.get_ray, RayTracer.select_object and DebugInfo are plain Python
 floats in both packages: on seeded rays they give the same numbers, float
 for float. The signatures the app calls match tpu_rt's: ``to_params()``
 with no argument, ``to_arrays(256)`` as a capacity, and a camera without
-(or with a None) aperture. ``trace_ray`` needs the lax integrator and
-raises, naming it.
+(or with a None) aperture. ``trace_ray`` runs the lax integrator's
+``trace`` with the key ``fold_in(key(seed), frame)``.
 """
 
 import numpy as np
@@ -20,6 +20,8 @@ from tpu_rt_torch.api import (
     Vector3,
 )
 from tpu_rt_torch.app.interaction import SceneManager
+from tpu_rt_torch.core import rng
+from tpu_rt_torch.ops.integrator import trace
 
 CPU = torch.device("cpu")
 torch.set_num_threads(1)
@@ -257,5 +259,11 @@ def test_trace_ray_raises_naming_the_lax_integrator():
     rt = RayTracer(device=CPU)
     rt.set_scene(SceneManager.create_interactive_scene())
     ray = Ray(Vector3(0, 2, 5), Vector3(0, 1, -6))
-    with pytest.raises(NotImplementedError, match="lax integrator"):
-        rt.trace_ray(ray, 4, 4)
+    got = [rt.trace_ray(ray, 4, 4) for _ in range(2)]
+    assert rt._frame == 2
+    o = torch.tensor([[0.0, 2.0, 5.0]])
+    d = torch.tensor([[0.0, 1.0, -6.0]])
+    for frame, v in enumerate(got):
+        ref = trace(rt._scene_arrays, o, d,
+                    rng.fold_in(rng.key(0, device=CPU), frame), max_depth=4)
+        assert [v.x, v.y, v.z] == ref[0].tolist()

@@ -475,11 +475,27 @@ def test_frame_stats_tracked(rti):
 
 
 def test_linear_accumulation_mode():
-    """linear_accumulation=True needs RayTracer(linear=True), the JAX
-    package's lax engine: it raises, naming the lax integrator (ROADMAP
-    Queue 1 item 7), and starts no worker."""
-    with pytest.raises(NotImplementedError, match="lax integrator"):
-        RayTracerInteraction(48, 36, linear_accumulation=True, device="cpu")
+    """linear_accumulation=True accumulates RayTracer(linear=True)'s
+    pre-gamma batches (the lax engine), bit for bit the hand-driven chain,
+    and displays them with the gamma applied."""
+    r = RayTracerInteraction(W, H, linear_accumulation=True, device="cpu")
+    r.settings.update(max_samples=4, samples_per_batch=SPB, max_depth=DEPTH)
+    assert r.settings["linear_accumulation"] is True
+    frames = run_session(r)
+    assert r.ray_tracer._last_engine == "lax"
+    rt = RayTracer(linear=True, device=CPU)
+    rt.set_scene(SceneManager.create_interactive_scene())
+    acc, total = None, 0
+    for _ in range(2):
+        acc, total = frame.accumulate(
+            acc, total, rt.render_device(W, H, SPB, DEPTH), SPB)
+    assert r.total_samples == total == 4
+    assert np.array_equal(r.accumulated_image, acc.numpy())
+    assert float(acc.max()) > 1.0  # linear radiance, before the gamma
+    shown = [f for f in frames if "display" in f][-1]["display"]
+    ref = display.display_stack(acc, r.settings["exposure"], linear=True,
+                                enhance=True, as_uint8=True)
+    assert np.array_equal(np.asarray(shown), ref[0].numpy())
 
 
 def test_mesh_attach_render_and_session_roundtrip(rti, tmp_path):

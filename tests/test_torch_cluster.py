@@ -273,8 +273,7 @@ def test_select_engine_routes_past_64_spheres():
     demo = tpu_rt_torch.demo_scene(device=CPU)
     assert frame.select_engine(demo, engine="cluster") == "cluster"
     # linear output with engine="auto": the JAX package's lax engine
-    with pytest.raises(NotImplementedError, match="lax integrator"):
-        frame.select_engine(sphere_scene(65), gamma=False)
+    assert frame.select_engine(sphere_scene(65), gamma=False) == "lax"
 
 
 def test_render_routes_to_cluster_engine():

@@ -180,8 +180,19 @@ def test_stratify_without_jitter_shoots_pixel_centres():
 
 
 def test_raytracer_mode_v1_raises():
-    with pytest.raises(NotImplementedError, match="lax integrator"):
-        RayTracer(0, "v1", device=CPU)
+    """RayTracer(mode="v1") renders with the lax engine (through the LBVH,
+    the scene's use_bvh flag), refraction on, equal to the lax reference at
+    the batch's seed."""
+    rt = RayTracer(0, "v1", True, device=CPU)
+    rt.set_scene(app_run.demo_api_scene())
+    img = rt.render_device(32, 16, 2, 3)
+    assert rt._last_engine == "lax" and rt._last_use_bvh is True
+    ref = frame.render(rt._scene_arrays, rt.camera.to_params(CPU),
+                       (1 * 1000003) & 0x7FFFFFFF, width=32, height=16,
+                       spp=2, max_depth=3, mode="v1", enable_refraction=True,
+                       engine="lax", use_bvh=True)
+    assert torch.equal(img, ref) and 0.0 <= float(img.min())
+    assert float(img.max()) <= 1.0
 
 
 def test_headless_app_with_aperture(tmp_path):

@@ -9,7 +9,8 @@ card against the CPU; the megakernel's per-sample threads at spp that do
 and do not divide a warp, and its counting instantiation against the plain
 version's counts; the interactive runtime's session on the card against
 its hand-driven chain, and the Qt GUI (against tests/pyqt5_stub/) receiving
-a real 640x480 frame from the card.
+a real 640x480 frame from the card; the lax engine's threefry bits, LBVH
+hits and renders on the card against the CPU's.
 
 Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is
 False. Imports no jax, so it runs on a machine with torch alone:
@@ -953,3 +954,69 @@ def test_gui_render_thread_gets_a_640x480_frame_from_the_card(dev):
         sys.path.remove(stub)
         purge()
         sys.modules.update(saved)
+
+
+# ---- the lax engine (plain torch, no kernel) ----
+
+def test_threefry_bits_cuda_equal_cpu(dev):
+    """Integer hashing: the card's threefry words equal the CPU's exactly,
+    for keys, splits, folds and draws; the uniforms too."""
+    from tpu_rt_torch.core import rng
+
+    for seed in (0, 7, 2**31 - 2):
+        k_dev, k_cpu = rng.key(seed, device=dev), rng.key(seed, device="cpu")
+        for shape in ((4096,), (640, 2), (48, 64, 2)):
+            assert torch.equal(rng.bits(k_dev, shape).cpu(),
+                               rng.bits(k_cpu, shape))
+            assert torch.equal(rng.uniform(k_dev, shape).cpu(),
+                               rng.uniform(k_cpu, shape))
+        assert torch.equal(rng.split(k_dev, 5).cpu(), rng.split(k_cpu, 5))
+        ks = rng.fold_in(k_dev, torch.arange(8, device=dev))
+        assert ks.device == dev
+        assert torch.equal(ks.cpu(), rng.fold_in(k_cpu, torch.arange(8)))
+
+
+def test_lbvh_hits_cuda_equal_cpu(dev):
+    """The LBVH built and traversed on the card finds the CPU's primitives
+    at the CPU's t, for spheres and for triangles."""
+    from tpu_rt_torch.ops import bvh, triangle
+
+    s_cpu = random_spheres(2000, seed=3, device="cpu")
+    _, m_cpu = terrain_mesh(n=24, seed=1, device="cpu")
+    s_dev = random_spheres(2000, seed=3, device=dev)
+    _, m_dev = terrain_mesh(n=24, seed=1, device=dev)
+    g = np.random.default_rng(5)
+    o = g.normal(size=(20000, 3))
+    o = 25.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = g.uniform(-8.0, 8.0, (20000, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (torch.from_numpy(x.astype(np.float32)) for x in (o, d))
+    for name, hit in (("spheres", lambda s, m, o_, d_: bvh.intersect_spheres_bvh(
+            s, bvh.scene_lbvh(s), o_, d_)),
+                      ("triangles", lambda s, m, o_, d_: triangle.intersect_mesh_bvh(
+            m, triangle.mesh_lbvh(m), o_, d_))):
+        t_dev, p_dev = hit(s_dev, m_dev, o.to(dev), d.to(dev))
+        t_cpu, p_cpu = hit(s_cpu, m_cpu, o, d)
+        assert t_dev.device == dev
+        assert torch.equal(p_dev.cpu(), p_cpu), name
+        assert torch.equal(t_dev.cpu(), t_cpu), name
+        assert 0 < int((p_cpu >= 0).sum()) < 20000
+
+
+def test_render_lax_returns_a_cuda_tensor(dev, scene):
+    """render(engine="lax") renders on the card (no CPU fallback), and
+    against the CPU port at the same seed: 99.9% of values within 1e-4,
+    segments within 0.1%."""
+    from tpu_rt_torch.render.frame import render
+
+    kw = dict(width=96, height=64, spp=2, max_depth=4, engine="lax",
+              with_stats=True, use_bvh=True)
+    img, segs = render(scene, tpu_rt_torch.make_camera(aspect=1.5, device=dev),
+                       11, **kw)
+    assert img.device == dev and img.shape == (64, 96, 3)
+    ref, segs_cpu = render(tpu_rt_torch.demo_scene(device="cpu"),
+                           tpu_rt_torch.make_camera(aspect=1.5, device="cpu"),
+                           11, **kw)
+    frac = float(((img.cpu() - ref).abs() <= 1e-4).float().mean())
+    assert frac >= 0.999, frac
+    assert abs(int(segs) - int(segs_cpu)) <= 0.001 * int(segs_cpu)

@@ -48,7 +48,9 @@ def test_every_module_imports_without_jax():
             "tpu_rt_torch.app.gui", "tpu_rt_torch.app.panel_logic",
             "tpu_rt_torch.app.preview", "tpu_rt_torch.app.utils",
             "tpu_rt_torch.utils.checkpoint",
-            "tpu_rt_torch.utils.config"} <= set(SLICE_MODULES)
+            "tpu_rt_torch.utils.config", "tpu_rt_torch.core.rng",
+            "tpu_rt_torch.ops.integrator", "tpu_rt_torch.ops.bvh",
+            "tpu_rt_torch.native"} <= set(SLICE_MODULES)
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_IMPORT, *SLICE_MODULES],
         cwd=ROOT, capture_output=True, text=True, timeout=120)

@@ -242,8 +242,8 @@ def test_light_table_holds_the_scene_bucket_and_bounds():
 
 def test_render_routes_nee_and_linear_output():
     """``render(nee=True)`` reaches both engines; ``gamma=False`` renders
-    through an engine named and raises for engine="auto" (the JAX package
-    takes its lax engine there)."""
+    through an engine named, and with engine="auto" through the lax
+    engine, as in the JAX package."""
     _, ts = both_scenes(blocker_rows())
     _, tcam = both_cams(NEE_POSE)
     kw = dict(width=32, height=16, spp=1, max_depth=3)
@@ -257,8 +257,10 @@ def test_render_routes_nee_and_linear_output():
     c = frame.render(ts, tcam, 5, gamma=False, engine="pallas", **kw)
     assert torch.equal(c, mk.render_megakernel_reference(
         ts, tcam, 5, n_active=8, gamma=False, **kw))
-    with pytest.raises(NotImplementedError, match="lax integrator"):
-        frame.render(ts, tcam, 5, gamma=False, **kw)
+    d = frame.render(ts, tcam, 5, gamma=False, **kw)
+    assert torch.equal(d, frame.render(ts, tcam, 5, gamma=False,
+                                       engine="lax", **kw))
+    assert d.shape == c.shape and not torch.equal(d, c)
 
 
 def test_linear_output_is_the_mean_before_gamma():
@@ -342,8 +344,18 @@ def test_raytracer_nee_through_the_cluster_engine():
 
 
 def test_raytracer_linear_raises():
-    with pytest.raises(NotImplementedError, match="lax integrator"):
-        RayTracer(0, "v2", False, True, device=CPU)
+    """RayTracer(linear=True) renders pre-gamma batches with the lax engine
+    (through the LBVH, the scene's use_bvh flag), equal to the lax
+    reference at the batch's seed."""
+    rt = RayTracer(0, "v2", False, True, device=CPU)
+    rt.set_scene(app_run.demo_api_scene())
+    img = rt.render_device(32, 16, 2, 3)
+    assert rt._last_engine == "lax" and rt._last_use_bvh is True
+    ref = frame.render(rt._scene_arrays, rt.camera.to_params(CPU),
+                       (1 * 1000003) & 0x7FFFFFFF, width=32, height=16,
+                       spp=2, max_depth=3, gamma=False, engine="lax",
+                       use_bvh=True)
+    assert torch.equal(img, ref) and float(img.max()) > 1.0
 
 
 @pytest.mark.parametrize("enhance", [True, False])

@@ -22,6 +22,8 @@ from tpu_rt.render import frame as j_frame
 import tpu_rt_torch
 from tpu_rt_torch.api import Camera, RayTracer, Scene, Vector3
 from tpu_rt_torch.app import run as app_run
+from tpu_rt_torch.core import camera, rng, vecmath
+from tpu_rt_torch.ops import integrator
 from tpu_rt_torch.ops.megakernel import render_megakernel
 from tpu_rt_torch.ops.triangle import quad
 from tpu_rt_torch.render import display, frame
@@ -116,8 +118,9 @@ def test_display_stack_denoisers_not_ported():
 
 MASK = torch.ones(1, dtype=torch.int32)
 UNSUPPORTED = {
+    # the v1 estimator and linear output with engine="auto" are the lax
+    # engine's, as in the JAX package
     "mode_v1": dict(mode="v1"),
-    # linear output with engine="auto" is the JAX package's lax engine's
     "linear": dict(gamma=False),
     # a mesh, refraction, DOF, stratify and NEE render
     # (tests/test_torch_triangle.py, test_torch_flags_mega.py,
@@ -139,12 +142,39 @@ UNSUPPORTED = {
 }
 
 
+LAX_CASES = ("mode_v1", "linear", "engine_lax", "over_64_spheres")
+
+
+def lax_reference(scene, cam, seed, width, height, spp, max_depth,
+                  mode="v2", gamma=True, **_):
+    """The lax engine's batch composed by hand from the port's threefry
+    streams, camera and integrator: sample s from fold_in(key(seed), s),
+    split into its jitter and trace keys."""
+    key = rng.key(seed, device=CPU)
+    acc = torch.zeros((height * width, 3))
+    for s in range(spp):
+        k_jit, k_trace = rng.split(rng.fold_in(key, s), 2)
+        u, v = camera.pixel_uv(width, height,
+                               rng.uniform(k_jit, (height, width, 2)),
+                               device=CPU)
+        o, d = camera.generate_rays(cam, u.reshape(-1), v.reshape(-1))
+        acc = acc + integrator.trace(scene, o, d, k_trace,
+                                     max_depth=max_depth, mode=mode)
+    img = acc.reshape(height, width, 3) / spp
+    if gamma:
+        img = torch.clamp(vecmath.sqrt(torch.clamp_min(img, 0.0)), 0.0, 1.0)
+    return img
+
+
 @pytest.mark.parametrize("name", list(UNSUPPORTED))
 def test_render_raises_for_configurations_not_ported(name):
-    """The configurations the port does not carry raise, naming their
+    """The configurations the port did not carry raised, naming their
     ROADMAP.md item. The tile-mask cases raised until the mask was ported;
     now each renders, and with an all-ones mask equals the unmasked
-    render."""
+    render. The lax cases (v1, linear output under engine="auto", the lax
+    engine named, linear output past 64 spheres) raised until the lax
+    engine was ported; now each renders and equals the lax reference at its
+    size."""
     kw = UNSUPPORTED[name]
     n = 65 if name == "over_64_spheres" else 9
     scene = tpu_rt_torch.make_scene(
@@ -160,8 +190,12 @@ def test_render_raises_for_configurations_not_ported(name):
                              **unmasked)
         assert torch.equal(a, b) and int(sa) == int(sb) > 0
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        frame.render(scene, cam, 0, **args, **kw)
+    assert name in LAX_CASES
+    assert frame.select_engine(scene, **{k: v for k, v in kw.items()}) \
+        == "lax"
+    img = frame.render(scene, cam, 0, **args, **kw)
+    assert img.shape == (8, 16, 3) and torch.isfinite(img).all()
+    assert torch.equal(img, lax_reference(scene, cam, 0, **args, **kw))
 
 
 def test_select_engine():

@@ -3,12 +3,15 @@
 A port of ``tpu_rt`` that imports torch and never jax. It mirrors the JAX
 package's layout, module for module:
 
-  core/     SoA scene/camera tensors, vector math, pinhole camera, the
-            random-spheres, terrain and Cornell-box scenes
-  ops/      the attribute table, triangle meshes, Morton codes, and the
-            wrappers of the path-trace megakernel and the cluster engine
+  core/     SoA scene/camera tensors, vector math, pinhole camera, JAX's
+            threefry streams, the random-spheres, terrain and Cornell-box
+            scenes
+  ops/      the attribute table, triangle meshes, the LBVH, the wavefront
+            integrator (the lax engine, plain torch), and the wrappers of
+            the path-trace megakernel and the cluster engine
   csrc/     the hand-written CUDA kernels (built on first use)
   kernels/  the nvcc build and ctypes loader
+  native/   a copy of the g++ median-split BVH (an oracle for the LBVH)
   render/   engine choice, batch render, accumulation, display stack
   api/      the drop-in object surface (Vector3 ... RayTracer)
   app/      the interactive runtime (RayTracerInteraction), its previews,

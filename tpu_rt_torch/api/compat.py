@@ -6,11 +6,12 @@ Counterpart of ``tpu_rt/api/compat.py``, class for class: ``Vector3``,
 ``DebugInfo``, ``Scene`` (CRUD, ``build_bvh``, ``hit``,
 ``cast_ray_for_selection`` and ``to_arrays``) and ``RayTracer`` (scene,
 mesh, camera, flags, ``render``/``render_device``, ``select_object`` and
-the debug counters). Scene edits mutate plain Python objects; the scalar
-hit tests run on the host in Python floats, as in the JAX package;
-``set_scene`` snapshots the spheres into tensors on the tracer's device,
-and ``render_device`` drives the megakernel there, or the cluster engine
-past 64 spheres or 256 triangles.
+``trace_ray`` and the debug counters). Scene edits mutate plain Python
+objects; the scalar hit tests run on the host in Python floats, as in the
+JAX package; ``set_scene`` snapshots the spheres into tensors on the
+tracer's device, and ``render_device`` drives the megakernel there, the
+cluster engine past 64 spheres or 256 triangles, or the lax engine for
+``mode="v1"`` and ``linear=True``.
 
 ``Camera.to_params`` and ``Scene.to_arrays`` take the JAX package's
 signatures; with no ``device`` they land on the device of the RayTracer
@@ -24,10 +25,12 @@ import math
 import numpy as np
 import torch
 
+from ..core import rng
 from ..core import types as _T
 from ..core.types import CameraP
 from ..ops import cluster as _C
 from ..ops import megakernel as _MK
+from ..ops.integrator import trace
 from ..render import frame as _F
 
 
@@ -381,23 +384,22 @@ class RayTracer:
     and ior > 1 glass; ``set_stratify`` switches R2 stratified pixel
     sampling; a camera ``aperture`` > 0 switches the thin lens on; ``nee``
     (or ``set_nee``) next-event estimation, whose light cdf or table is
-    built with the cluster tables. Only ``mode="v2"`` is ported;
-    ``linear=True`` (the JAX package's lax engine always) raises.
+    built with the cluster tables. ``mode="v1"`` and ``linear=True``
+    (pre-gamma batches) render with the lax engine, as in the JAX package;
+    so does ``trace_ray``. The lax engine honours the scene's ``use_bvh``
+    flag (intersection through the LBVH).
     """
 
     def __init__(self, seed: int = 0, mode: str = "v2",
                  enable_refraction: bool = False, linear: bool = False,
                  nee: bool = False, *, device="cuda"):
-        if mode != "v2":
-            raise _F._not_ported(f"mode={mode!r}", "Queue 1, lax integrator")
-        if linear:
-            raise _F._not_ported("RayTracer(linear=True) (the JAX package "
-                                 "renders it with its lax engine)",
-                                 "Queue 1, lax integrator")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"RayTracer(device={device!r}): CUDA is not "
                                "available")
+        self._mode = mode
+        self._linear = bool(linear)
+        self._key = rng.key(seed, device=self.device)
         self._enable_refraction = bool(enable_refraction)
         self._stratify = False
         self._nee = bool(nee)
@@ -490,9 +492,9 @@ class RayTracer:
                 self._mesh, n_active=self._n_tri_active)
 
     def _engine(self) -> str:
-        return _F.select_engine(self._scene_arrays,
-                                enable_refraction=self._enable_refraction,
-                                mesh=self._mesh)
+        return _F.select_engine(self._scene_arrays, self._mode,
+                                self._enable_refraction, not self._linear,
+                                self._mesh)
 
     def set_stratify(self, enable: bool):
         """Switch stratified (R2 low-discrepancy) pixel sampling."""
@@ -575,7 +577,9 @@ class RayTracer:
                       pre_ordered=True)
         img = _F.render(
             self._scene_arrays, cam, seed, width=width, height=height,
-            spp=samples_per_pixel, max_depth=max_depth,
+            spp=samples_per_pixel, max_depth=max_depth, mode=self._mode,
+            gamma=not self._linear, engine=self._last_engine,
+            use_bvh=bool(self._scene_snapshot.use_bvh),
             n_active=self._n_active, mesh=self._mesh,
             n_tri_active=self._n_tri_active,
             enable_refraction=self._enable_refraction,
@@ -586,10 +590,22 @@ class RayTracer:
         return img
 
     def trace_ray(self, ray: Ray, depth: int, max_depth: int) -> Vector3:
-        """Single-ray radiance estimate: the JAX package's lax ``trace``,
-        not ported yet."""
-        raise _F._not_ported("RayTracer.trace_ray (the lax integrator's "
-                             "trace)", "Queue 1, lax integrator")
+        """Single-ray radiance estimate by the lax integrator's ``trace``,
+        from the key ``fold_in(key(seed), frame)`` (the frame counter
+        advances)."""
+        if self._scene_arrays is None:
+            return Vector3(0, 0, 0)
+
+        def row(v):
+            return torch.tensor([[v.x, v.y, v.z]], dtype=torch.float32,
+                                device=self.device)
+
+        key = rng.fold_in(self._key, self._frame)
+        self._frame += 1
+        c = trace(self._scene_arrays, row(ray.origin), row(ray.direction),
+                  key, max_depth=max_depth, mode=self._mode,
+                  enable_refraction=self._enable_refraction)[0].cpu()
+        return Vector3(float(c[0]), float(c[1]), float(c[2]))
 
     def select_object(self, x: float, y: float, width: int, height: int) -> int:
         """The object id under normalized screen point (x, y) through the

@@ -331,9 +331,9 @@ class RayTracerInteraction:
     progressive accumulator, worker threads, and the frame queue the GUI
     polls. Method surface matches the reference so gui.py-shaped code runs
     unchanged. Everything renders on ``device`` (the card unless the
-    caller asks for the CPU). ``linear_accumulation=True`` needs
-    ``RayTracer(linear=True)``, which raises until the lax integrator is
-    ported.
+    caller asks for the CPU). ``linear_accumulation=True`` accumulates
+    pre-gamma batches of ``RayTracer(linear=True)`` (the lax engine) and
+    applies the gamma at display time.
     """
 
     def __init__(self, width: int = 640, height: int = 480,

@@ -2,7 +2,8 @@
 
 Counterpart of ``tpu_rt/core/vecmath.py``. Sums over the three components
 are written out in the order the JAX package reduces them, so results agree
-to the last bit or two.
+to the last bit or two. ``reflect``, ``refract`` and ``schlick`` serve the
+lax integrator's metal and dielectric branches.
 """
 
 from __future__ import annotations
@@ -65,3 +66,33 @@ def normalize(a: torch.Tensor) -> torch.Tensor:
     fallback = torch.zeros_like(out)
     fallback[..., 2] = 1.0
     return torch.where(ok, out, fallback)
+
+
+def reflect(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror reflection of ``v`` about the normal ``n``."""
+    return v - n * (2.0 * dot(v, n))[..., None]
+
+
+def refract(v: torch.Tensor, n: torch.Tensor, ni_over_nt):
+    """Snell refraction of ``v`` through a surface of normal ``n`` at the
+    index ratio ``ni_over_nt`` (a tensor of the batch shape, or a float).
+    Returns ``(can_refract, refracted)``; ``refracted`` holds only where
+    ``can_refract`` is True (no total internal reflection)."""
+    uv = normalize(v)
+    dt = dot(uv, n)[..., None]
+    ni = torch.as_tensor(ni_over_nt, dtype=uv.dtype, device=uv.device)
+    if ni.dim() < dt.dim():
+        ni = ni[..., None]
+    disc = 1.0 - ni * ni * (1.0 - dt * dt)
+    refracted = (uv - n * dt) * ni - n * sqrt(torch.clamp_min(disc, 0.0))
+    return (disc > 0.0)[..., 0], refracted
+
+
+def schlick(cosine: torch.Tensor, ref_idx: torch.Tensor) -> torch.Tensor:
+    """Schlick's Fresnel reflectance; the fifth power multiplies as JAX's
+    ``** 5`` does, ``x * (x * x) * (x * x)``."""
+    r0 = (1.0 - ref_idx) / (1.0 + ref_idx)
+    r0 = r0 * r0
+    c = 1.0 - cosine
+    c2 = c * c
+    return r0 + (1.0 - r0) * (c * (c2 * c2))

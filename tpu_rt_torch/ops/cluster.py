@@ -952,9 +952,14 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
     vis = torch.zeros((n_tiles, 2, len(VISIT_COLS)), dtype=torch.int64,
                       device=dev)
 
+    # every walk's rays, counted at the end by one walk per kind (path,
+    # shadow): a ray's walk depends only on its own ray and t_edge, and
+    # the emulation's cost is in its rounds, not its rays
+    walks = ([], [])
+
     def count(kind, lanes, o, d, t_edge=None):
-        w = walk_visits_reference(cl, tri, o, d, t_edge)
-        vis[:, kind, :N_WALK_COLS].index_add_(0, lanes // TILE, w.visits)
+        walks[kind].append((lanes, *o, *d) + (() if t_edge is None
+                                               else (t_edge,)))
 
     if lights is not None:
         def occluded(o, d, t_edge):
@@ -1025,6 +1030,13 @@ def _trace_plain(cl: ClusteredScene, tri: ClusteredScene | None, cam, seed,
                     1, dtype=torch.int32)
         acc = [acc[0] + cr, acc[1] + cg, acc[2] + cb]
 
+    for kind, rays in enumerate(walks):
+        if rays:
+            lanes, *cols = (torch.cat(c) for c in zip(*rays))
+            w = walk_visits_reference(cl, tri, tuple(cols[0:3]),
+                                      tuple(cols[3:6]),
+                                      cols[6] if kind else None)
+            vis[:, kind, :N_WALK_COLS].index_add_(0, lanes // TILE, w.visits)
     img = mk._output(acc, mk._f32(1.0 / spp), gamma)
     if mask is not None:
         on = mask != 0

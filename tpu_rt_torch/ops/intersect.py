@@ -9,8 +9,8 @@ in the stable oc-form) and ``combine_hits``. The products are written out
 as broadcast multiplies and adds (the same sums, in a fixed order), so a
 run on the card gives the CPU's values whatever the global matmul
 precision; the winner's attributes are its row of the attribute table,
-which is what the JAX package's one-hot product fetches. The selection
-raycast (``closest_object_id``) is not ported yet.
+which is what the JAX package's one-hot product fetches.
+``closest_object_id`` is the selection raycast of one ray.
 """
 
 from __future__ import annotations
@@ -183,6 +183,27 @@ def intersect_brute(
         object_id=torch.where(hit, fetched[:, 13],
                               torch.full_like(t, -1.0)),
     )
+
+
+def closest_object_id(
+    scene: SphereScene,
+    origin: torch.Tensor,
+    direction: torch.Tensor,
+    t_min: float = T_MIN,
+    t_max: float = 1000.0,
+    skip_object_id: int | None = None,
+) -> torch.Tensor:
+    """Object id of the nearest sphere along one ray ((3,) origin and
+    direction), -1 on a miss, as a 0-d tensor; ``skip_object_id`` leaves
+    that object out (the selection path's ground skip)."""
+    ts = sphere_ts(scene, origin[None, :], direction[None, :], t_min,
+                   t_max)[0]
+    if skip_object_id is not None:
+        ts = torch.where(scene.object_id == skip_object_id,
+                         torch.full_like(ts, T_MAX), ts)
+    idx = torch.argmin(ts)
+    return torch.where(ts[idx] < T_MAX, scene.object_id[idx],
+                       torch.full_like(scene.object_id[idx], -1))
 
 
 def combine_hits(a: Hit, b: Hit) -> Hit:

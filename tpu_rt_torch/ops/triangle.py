@@ -2,13 +2,14 @@
 
 Counterpart of ``tpu_rt/ops/triangle.py`` for what the Pallas engines read:
 ``TriangleMesh``, the bucket sizes, ``make_mesh``, ``merge_meshes``,
-``tri_attribute_matrix``, ``quad`` and ``box``, and the dense closest-hit
-sweep the first-hit AOVs use (``triangle_ts``, ``intersect_mesh_brute``).
-The geometry is built in numpy exactly as the JAX package builds it
-(``np.cross``, ``np.linalg.norm``, the same padding fills), then moved to
-the requested device, so both packages hold bit-equal fields. The LBVH
-intersectors of that module serve the lax integrator and are not ported
-yet (ROADMAP.md Queue 1, lax integrator).
+``tri_attribute_matrix``, ``quad`` and ``box``, the dense closest-hit
+sweep the first-hit AOVs and the lax integrator use (``triangle_ts``,
+``intersect_mesh_brute``), and the LBVH intersectors of the lax
+integrator's ``use_bvh`` path (``mesh_lbvh``, ``triangle_leaf_fn``,
+``intersect_mesh_bvh``, ``intersect_mesh_bvh_hit``). The geometry is built
+in numpy exactly as the JAX package builds it (``np.cross``,
+``np.linalg.norm``, the same padding fills), then moved to the requested
+device, so both packages hold bit-equal fields.
 """
 
 from __future__ import annotations
@@ -229,6 +230,77 @@ def intersect_mesh_brute(
         emission=fetched[:, 8:11],
         ior=fetched[:, 11],
         object_id=torch.where(hit, fetched[:, 12], torch.full_like(t, -1.0)),
+    )
+
+
+def mesh_lbvh(mesh: TriangleMesh):
+    """LBVH over triangles (centroid Morton order, triangle boxes)."""
+    from .bvh import build_lbvh
+
+    p1 = mesh.v0 + mesh.e1
+    p2 = mesh.v0 + mesh.e2
+    tri_min = torch.minimum(mesh.v0, torch.minimum(p1, p2))
+    tri_max = torch.maximum(mesh.v0, torch.maximum(p1, p2))
+    centroid = (tri_min + tri_max) * 0.5
+    return build_lbvh(centroid, tri_min, tri_max, mesh.valid)
+
+
+def triangle_leaf_fn(mesh: TriangleMesh, prim_index, t_min: float = T_MIN):
+    """Scalar Moller-Trumbore test of one sorted leaf per ray, for
+    ``ops/bvh.py:traverse``."""
+
+    def leaf_t(slot, o, d, cur_t):
+        idx = prim_index[slot].long()
+        i = torch.clamp_min(idx, 0)
+        v0, e1, e2 = mesh.v0[i], mesh.e1[i], mesh.e2[i]
+        pvec = vm.cross(d, e2)
+        det = vm.dot(e1, pvec)
+        ok = (torch.abs(det) > DET_EPS) & (idx >= 0)
+        inv = 1.0 / torch.where(ok, det, torch.ones_like(det))
+        tvec = o - v0
+        u = vm.dot(tvec, pvec) * inv
+        qvec = vm.cross(tvec, e1)
+        v = vm.dot(d, qvec) * inv
+        t = vm.dot(e2, qvec) * inv
+        ok = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+              & (t >= t_min) & (t <= cur_t))
+        return torch.where(ok, t, torch.full_like(t, T_MAX))
+
+    return leaf_t
+
+
+def intersect_mesh_bvh(mesh: TriangleMesh, bvh, origins, directions):
+    """BVH closest triangle: (t, original triangle index) per ray, -1 and
+    T_MAX on a miss."""
+    from .bvh import _prim_of, traverse
+
+    t, slot = traverse(bvh, origins, directions,
+                       triangle_leaf_fn(mesh, bvh.prim_index), T_MIN, T_MAX)
+    return _prim_of(bvh, t, slot)
+
+
+def intersect_mesh_bvh_hit(mesh: TriangleMesh, bvh, origins, directions):
+    """BVH closest triangle hit as the ``Hit`` record that
+    :func:`intersect_mesh_brute` returns (the face normal flipped to oppose
+    the ray), attributes gathered by the winner's index: the lax engine's
+    mesh intersector under ``use_bvh``."""
+    t, prim = intersect_mesh_bvh(mesh, bvh, origins, directions)
+    hit = prim >= 0
+    idx = torch.clamp_min(prim, 0)
+    n = mesh.normal[idx]
+    facing = (vm.dot(n, directions) < 0.0)[:, None]
+    n = torch.where(facing, n, -n)
+    return Hit(
+        hit=hit,
+        t=t,
+        normal=n,
+        albedo=mesh.albedo[idx],
+        metallic=mesh.metallic[idx],
+        roughness=mesh.roughness[idx],
+        emission=mesh.emission[idx],
+        ior=mesh.ior[idx],
+        object_id=torch.where(hit, mesh.object_id[idx].to(torch.float32),
+                              torch.full_like(t, -1.0)),
     )
 
 

@@ -1,16 +1,16 @@
 """Frame rendering: engine choice, batch render, tone map, accumulation.
 
-Counterpart of ``tpu_rt/render/frame.py`` for the engines the port
-carries: the megakernel, engine "pallas" as in the JAX package (at most 64
-spheres, beside at most 256 triangles), and the cluster engine (larger
-sphere scenes or meshes). Every configuration the port does not carry
-raises ``NotImplementedError`` naming its ROADMAP.md item; no other engine
-is ever used in its place.
+Counterpart of ``tpu_rt/render/frame.py``, with its three engines: the
+megakernel, engine "pallas" as in the JAX package (at most 64 spheres,
+beside at most 256 triangles), the cluster engine (larger sphere scenes or
+meshes), and the lax engine (``ops/integrator.py``: the v1 estimator,
+linear output under ``engine="auto"``, the LBVH). ``select_engine``
+resolves as the JAX package does on a TPU.
 
 Outputs match the reference contract: a batch is the sample mean,
-sqrt-gamma'd and clamped to [0, 1] (or, with ``gamma=False`` and an engine
-named, the linear mean). Adaptive sampling renders with a per-tile mask
-and merges with :func:`accumulate_tiled` (megakernel tiles) or
+sqrt-gamma'd and clamped to [0, 1] (or, with ``gamma=False``, the linear
+mean). Adaptive sampling renders with a per-tile mask and merges with
+:func:`accumulate_tiled` (megakernel tiles) or
 :func:`accumulate_tiled_mapped` over :func:`cluster_tile_map` (cluster
 screen blocks).
 """
@@ -20,43 +20,46 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import camera as cammod
+from ..core import rng
+from ..core import vecmath as vm
 from ..core.types import CameraP, SphereScene
 from ..ops.cluster import ClusteredScene, render_cluster
 from ..ops.cluster import LANES, SUBLANES
+from ..ops.integrator import trace
 from ..ops.megakernel import MAX_SPHERES, MAX_TRIS, TILE, render_megakernel
 
 ENGINES = ("auto", "pallas", "lax", "cluster")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to tpu_rt_torch yet (ROADMAP.md: {item})")
+# R2 lattice steps of stratified sampling
+R2_ALPHA = (0.7548776662466927, 0.5698402909980532)
+# the fold-in datum of the lax engine's Cranley-Patterson shift
+CP_SHIFT_FOLD = 0x7FFFABCD
+# rays x primitives one lax trace call sweeps at most (samples are stacked
+# into one call up to it)
+LAX_PAIRS_PER_CALL = 1 << 26
 
 
 def select_engine(scene: SphereScene, mode="v2", enable_refraction=False,
                   gamma=True, mesh=None, engine="auto") -> str:
     """Resolve the engine ``render`` uses, as the JAX package does on a
-    TPU: "cluster" when asked for or past the megakernel's buckets (64
-    spheres, 256 triangles), else "pallas" (the megakernel, under the JAX
-    package's name). Both engines carry refraction, so
+    TPU: "pallas" (the megakernel) for v2 with gamma within its buckets (64
+    spheres, 256 triangles), "cluster" for v2 with gamma past them, "lax"
+    otherwise (the v1 estimator, linear output); a named engine is
+    returned as asked. Every engine carries refraction, so
     ``enable_refraction`` (kept for the JAX package's signature) does not
-    change the choice. With ``engine="auto"`` the JAX package renders
-    ``gamma=False`` with its lax integrator; that, and the other
-    configurations neither engine carries yet, raise NotImplementedError.
-    An engine name the JAX package does not know raises ValueError."""
+    change the choice. An engine name the JAX package does not know raises
+    ValueError."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "lax":
-        raise _not_ported("engine='lax'", "Queue 1, lax integrator")
-    if mode != "v2":
-        raise _not_ported(f"mode={mode!r}", "Queue 1, lax integrator")
-    if not gamma and engine == "auto":
-        raise _not_ported("linear (gamma=False) output with engine='auto' "
-                          "(the lax engine's)", "Queue 1, lax integrator")
-    cluster = engine == "cluster" or (
-        engine == "auto" and (scene.capacity > MAX_SPHERES or (
-            mesh is not None and mesh.capacity > MAX_TRIS)))
-    return "cluster" if cluster else "pallas"
+    if engine != "auto":
+        return engine
+    if mode == "v2" and gamma:
+        big = scene.capacity > MAX_SPHERES or (
+            mesh is not None and mesh.capacity > MAX_TRIS)
+        return "cluster" if big else "pallas"
+    return "lax"
 
 
 def quantize_count(n: int, capacity: int) -> int:
@@ -98,6 +101,8 @@ def render(
     n_tri_active: int | None = None,
     tri_prebuilt: ClusteredScene | None = None,
     lights: torch.Tensor | None = None,
+    use_bvh: bool = False,
+    diffuse_sampling: str = "ball",
 ):
     """Render one batch of ``spp`` samples; returns (height, width, 3) f32
     on the scene's device (plus the traced segment count with
@@ -109,16 +114,22 @@ def render(
     next-event estimation towards the emissive spheres (``lights``: the
     engine's light cdf or table, ``ops/megakernel.py:light_cdf`` or
     ``ops/cluster.py:light_table``, built per call when None).
-    ``gamma=False`` returns the linear mean; with ``engine="auto"`` it
-    raises, as the JAX package renders it with its lax engine.
+    ``gamma=False`` returns the linear mean (under ``engine="auto"``, from
+    the lax engine, as in the JAX package).
     ``tile_mask`` (adaptive sampling): one int32 per tile of the engine
     that resolves (the megakernel's 4096-pixel runs, the cluster engine's
     32x128 screen blocks, :func:`cluster_tile_map`); a tile with 0 is
-    skipped and returns zeros (and no segments).
+    skipped and returns zeros (and no segments). The lax engine takes no
+    mask (ValueError).
+    ``use_bvh`` makes the lax engine intersect through the LBVH of both
+    geometries; ``diffuse_sampling="cosine"`` gives it the exact cosine
+    sampler (NEE forces it). The other engines ignore both.
 
     ``seed`` is the int stream seed (the JAX package derives it from a key
-    or takes it from ``seed=``). ``jitter=False`` shoots pixel centres, the
-    deterministic mode of the golden-image tests.
+    or takes it from ``seed=``); the lax engine draws from the threefry key
+    ``rng.key(seed)``, as the JAX RayTracer's ``jax.random.key(seed)``.
+    ``jitter=False`` shoots pixel centres, the deterministic mode of the
+    golden-image tests.
     ``n_active``/``n_tri_active``: the quantized active sphere and triangle
     counts (:func:`quantize_count`); None pulls ``valid`` to the host once.
     ``prebuilt``/``tri_prebuilt``/``pre_ordered`` pass the cluster engine
@@ -128,10 +139,24 @@ def render(
     """
     resolved = select_engine(scene, mode, enable_refraction, gamma, mesh,
                              engine)
+    if tile_mask is not None and resolved == "lax":
+        raise ValueError(
+            "tile_mask (adaptive sampling) is a megakernel and cluster "
+            "engine capability (megakernel: linear 4096-pixel tiles; "
+            "cluster: 32x128 screen blocks); this configuration resolves "
+            f"to engine={resolved!r}")
     if enable_dof is None:
         # pulls one scalar from a camera on the device; RayTracer passes
         # the flag from its host-side aperture instead
         enable_dof = float(cam.aperture) > 0.0
+    if resolved == "lax":
+        return _render_lax(
+            scene, cam, rng.key(seed, device=scene.device), width=width,
+            height=height, spp=spp, max_depth=max_depth, mode=mode,
+            enable_refraction=enable_refraction, gamma=gamma, jitter=jitter,
+            with_stats=with_stats, mesh=mesh, use_bvh=use_bvh,
+            enable_dof=enable_dof, nee=nee,
+            diffuse_sampling=diffuse_sampling, stratify=stratify)
     flags = dict(enable_refraction=enable_refraction, enable_dof=enable_dof,
                  stratify=stratify, nee=nee, gamma=gamma, lights=lights,
                  tile_mask=tile_mask)
@@ -153,6 +178,64 @@ def render(
         scene, cam, seed, width=width, height=height, spp=spp,
         max_depth=max_depth, jitter=jitter, n_active=n_active,
         with_stats=with_stats, mesh=mesh, n_tri_active=n_tri_active, **flags)
+
+
+def _render_lax(scene, cam, key, *, width, height, spp, max_depth, mode,
+                enable_refraction, gamma, jitter, with_stats, mesh,
+                use_bvh=False, enable_dof=False, nee=False,
+                diffuse_sampling="ball", stratify=False):
+    """The lax engine's batch: sample s draws from ``fold_in(key, s)``,
+    split into its jitter key and its trace key (the lens from
+    ``fold_in(k_s, 7)``; with ``stratify`` the R2 lattice under a
+    per-pixel shift from ``fold_in(key, 0x7FFFABCD)``), the samples summed
+    in order, their mean sqrt-gamma'd and clamped unless ``gamma=False``.
+    Samples are traced together, each with its own key, up to
+    ``LAX_PAIRS_PER_CALL`` ray-primitive pairs a call."""
+    dev = scene.device
+    R = height * width
+    if jitter and stratify:
+        cp_shift = rng.uniform(rng.fold_in(key, CP_SHIFT_FOLD),
+                               (height, width, 2))
+        r2_alpha = torch.tensor(R2_ALPHA, dtype=torch.float32, device=dev)
+    prims = 1 if use_bvh else scene.capacity + (
+        mesh.capacity if mesh is not None else 0)
+    per_call = max(1, min(spp, LAX_PAIRS_PER_CALL // (R * prims)))
+    acc = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    for s0 in range(0, spp, per_call):
+        s_idx = torch.arange(s0, min(spp, s0 + per_call), dtype=torch.int64,
+                             device=dev)
+        S = s_idx.shape[0]
+        k_s = rng.fold_in(key, s_idx)                        # (S, 2)
+        k_jit, k_trace = rng.split(k_s, 2).unbind(-2)
+        if jitter and stratify:
+            xi = cp_shift + s_idx.to(torch.float32)[:, None, None, None] \
+                * r2_alpha
+            xi = xi - torch.floor(xi)
+        elif jitter:
+            xi = rng.uniform(k_jit, (height, width, 2))      # (S, H, W, 2)
+        else:
+            xi = None
+        u, v = cammod.pixel_uv(width, height, xi, device=dev)
+        u = torch.broadcast_to(u, (S, height, width)).reshape(S * R)
+        v = torch.broadcast_to(v, (S, height, width)).reshape(S * R)
+        lens = (rng.uniform(rng.fold_in(k_s, 7), (R, 2)).reshape(S * R, 2)
+                if enable_dof else None)
+        o, d = cammod.generate_rays(cam, u, v, lens_xi=lens)
+        color, nseg = trace(
+            scene, o, d, k_trace, max_depth=max_depth, mode=mode,
+            enable_refraction=enable_refraction, with_stats=True, mesh=mesh,
+            use_bvh=use_bvh, nee=nee, diffuse_sampling=diffuse_sampling)
+        for c in color.reshape(S, R, 3):  # in sample order, as a scan
+            acc = acc + c
+        segments = segments + nseg
+    img = acc.reshape(height, width, 3) / torch.tensor(
+        float(spp), dtype=torch.float32, device=dev)
+    if gamma:
+        img = torch.clamp(vm.sqrt(torch.clamp_min(img, 0.0)), 0.0, 1.0)
+    if with_stats:
+        return img, segments
+    return img
 
 
 def tone_map(image: torch.Tensor, exposure: float) -> torch.Tensor:
