@@ -75,6 +75,15 @@ counts, checks the 1/sqrt(N) convergence of its means, and times it:
   LBVH and against the CPU port at 160x120/2spp, the lax v2 mean against
   K1's, trace_ray and a linear-accumulation session on the card, and the
   lax frames' times with and without the LBVH.
+* the parallel layer (phase 38): render_sharded over (2, 2) meshes of four
+  cuda:0 entries with each engine (the megakernel on the demo scene at
+  1080p/4spp, the cluster engine on 10k spheres at 1920x1024/4spp, the
+  lax engine at 1080p/4spp), bit for bit the composition of the kernels'
+  and the plain versions' bands; the lax mesh against the CPU's; two gloo
+  processes on the card, two entries each, host-major and interleaved,
+  bit for bit the single-process frame; a mesh over real GPUs where the
+  machine has two; the sharded frames' times against the single-device
+  frames' and their idle shares.
 
 Each kernel must agree with its plain version bit for bit, segment counts
 included. Every megakernel bound counts what its frame's rays did (the
@@ -91,7 +100,9 @@ segment). Every phase raises on failure. The last line of standard output
 is one JSON object naming the card; the line before it holds the card's
 name and power limit, and the one before that the per-kernel JSON summary:
 there ``ms`` is the kernel's device time per frame as torch.profiler
-records it, ``event_ms`` the same time from CUDA events around each of 20
+records it (K3's: the median of the CUDA events around its launches in
+12 profiler windows, with the profiler's median as ``profiler_ms``),
+``event_ms`` the same time from CUDA events around each of 20
 launches (median), ``frame_ms`` the frame time over chained frames (CUDA
 events), and ``plain_ms`` the plain version's frame time. Without
 CUDA, or without the repository beside it, the script exits non-zero and
@@ -101,6 +112,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -211,12 +223,16 @@ def fma_sass(lib_path: Path, nvcc: str):
     return max(loops, key=lambda c: c["FFMA"])
 
 
+#: K3's timing: profiler windows, each of launches bracketed by CUDA events
+K3_WINDOWS, K3_LAUNCHES = 12, 5
+
+
 def fma_phase(lib_path: Path, nvcc: str, card: str, dev) -> tuple:
     """K3: the FMA microkernel against its plain version, the card's
     measured and theoretical f32 rates, and K3's own time and bound.
     Returns (measured FFMA/s, theoretical ops/s, the kernels-line entry)."""
     from tpu_rt_torch.utils import roofline as rl
-    from tpu_rt_torch.utils.profiling import cuda_frame_ms, device_ms_by_kernel
+    from tpu_rt_torch.utils.profiling import cuda_frame_ms, launch_ms
 
     rng = np.random.default_rng(33)
     attrs = rl.card_fp32(dev)
@@ -274,10 +290,29 @@ def fma_phase(lib_path: Path, nvcc: str, card: str, dev) -> tuple:
           f"K3: measured rate {share:.4f} of the theoretical, outside "
           "[0.5, 1.05]")
 
-    by_kernel = device_ms_by_kernel(lambda i: rl.fma_chains(grid, d2), 5,
-                                    device=dev)
-    k_ms = kernel_ms(by_kernel, "fma_chains")
-    check(k_ms > 0, "K3: torch.profiler recorded the FMA kernel")
+    # K3's time: its launches' CUDA events. K3 runs at 0.98-0.99 of its
+    # bound, and the profiler's durations of a whole window have read 1%
+    # under the events of the same launches (and 2% over), so the gate
+    # reads the card's own timer; the profiler's durations stand beside.
+    windows = [launch_ms(lambda i: rl.fma_chains(grid, d2), "fma_chains",
+                         K3_LAUNCHES, device=dev) for _ in range(K3_WINDOWS)]
+    check(all(len(t) == len(e) for t, e in windows),
+          "K3: torch.profiler recorded every launch of the FMA kernel")
+    traced = [v for t, _ in windows for v in t]
+    evented = [v for _, e in windows for v in e]
+    k_ms = statistics.median(evented)
+    prof_ms = statistics.median(traced)
+    for w, (t, e) in enumerate(windows):
+        print(f"[2b K3 launches] window {w}: profiler "
+              f"{[round(v, 4) for v in t]} ms, CUDA events "
+              f"{[round(v, 4) for v in e]} ms, ratio of medians "
+              f"{statistics.median(t) / statistics.median(e):.5f}")
+    print(f"[2b K3 launches] depth {d2}, {K3_WINDOWS} profiler windows of "
+          f"{K3_LAUNCHES} launches: medians {prof_ms:.4f} / {k_ms:.4f} ms "
+          f"(profiler / events), events {min(evented):.4f}-"
+          f"{max(evented):.4f} ms, profiler {min(traced):.4f}-"
+          f"{max(traced):.4f} ms; SM clock, max SM clock, power under K3: "
+          f"{clocks}")
     # per thread: 32 seeds, 32 x depth FFMAs, 31 adds of the sum
     ops = n * (rl.CARRIES * d2 + 2 * rl.CARRIES - 1)
     b_ms, b_by = rl.bound_ms(ops, 8 * n, peak)
@@ -288,7 +323,8 @@ def fma_phase(lib_path: Path, nvcc: str, card: str, dev) -> tuple:
     small_ms = statistics.median(cuda_frame_ms(
         lambda i: rl.fma_chains(grid, plain_depth), 7, device=dev))
     print(f"[2b K3 timing] depth {d2}, {n} threads: kernel {k_ms:.4f} ms "
-          f"(profiler; CUDA events {slope.ms[1]:.4f} ms); bound "
+          f"(CUDA events; profiler {prof_ms:.4f} ms; the rate's launches "
+          f"{slope.ms[1]:.4f} ms); bound "
           f"{b_ms:.4f} ms ({b_by}, {ops / 1e9:.3f} G f32 ops at the "
           f"theoretical rate; {b_meas:.4f} ms at the measured), "
           f"{b_ms / k_ms:.4f} of the bound's rate; at depth {plain_depth}: "
@@ -298,7 +334,8 @@ def fma_phase(lib_path: Path, nvcc: str, card: str, dev) -> tuple:
              "source": "tpu_rt_torch/csrc/fma.cu",
              "replaces": "tpu_rt/utils/roofline.py:73",
              "launches": launches, "max_abs_err": 0.0,
-             "ms": k_ms, "event_ms": slope.ms[1], "plain_ms": plain_ms,
+             "ms": k_ms, "profiler_ms": prof_ms, "event_ms": slope.ms[1],
+             "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "bound_ms_measured": b_meas,
              "library_ms": None,
              "shape": f"{n} threads x {rl.CARRIES} chains, depth {d2}",
@@ -814,6 +851,290 @@ def lax_phase(dev, card: str) -> dict:
     print(f"[37 lax timing] {card}: linear-accumulation session batch "
           f"{times['batch_ms']:.4f} ms (median render_time of its 4 "
           f"frames); phase {times['seconds']:.1f} s")
+    return times
+
+
+#: phase 38's frames: the JAX bench's 1080p/4spp/d4, and for the cluster
+#: engine 1920x1024, whose 512-row bands lie on K2's 32-row grid
+PAR_K2 = dict(width=1920, height=1024, spp=4, max_depth=4)
+PAR_PLAIN = dict(width=256, height=128, spp=4, max_depth=4)
+PAR_CPU = dict(width=64, height=32, spp=4, max_depth=4)
+PAR_SEED = 11
+
+#: phase 38 (d): one process of a two-process gloo group on the card, with
+#: two entries of cuda:0; renders the host-major and the interleaved (2, 2)
+#: meshes and saves each gathered frame and the shards it rendered
+PAR_WORKER = """
+import datetime, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=120))
+from tpu_rt_torch.core import rng
+from tpu_rt_torch.core.types import demo_scene, make_camera
+from tpu_rt_torch.parallel import (group_devices_by_host, make_mesh,
+                                   make_multihost_mesh, render_sharded)
+
+dev = torch.device("cuda", 0)
+mine = [dev] * 2
+hosts = group_devices_by_host(mine)
+meshes = {"host-major": make_multihost_mesh(devices=mine, sample_per_host=2),
+          "interleaved": make_mesh(2, 2, devices=[d for pair in zip(*hosts)
+                                                  for d in pair])}
+scene = demo_scene(device=dev)
+cam = make_camera(aspect=%(w)d / %(h)d, device=dev)
+res = {}
+for name, mesh in meshes.items():
+    for engine, extra in (("pallas", dict(n_active=%(n_active)d)),
+                          ("lax", {})):
+        img = render_sharded(scene, cam, rng.key(%(seed)d, device=dev), mesh,
+                             engine=engine, **%(bench)r, **extra)
+        res[f"{name} {engine}"] = img.gather(torch.device("cpu")).numpy()
+        res[f"{name} {engine} shards"] = np.asarray(img.shards)
+np.savez(out, **res)
+dist.destroy_process_group()
+"""
+
+
+def parallel_phase(dev, card: str) -> dict:
+    """[38 parallel]: tpu_rt_torch.parallel.render_sharded on the card,
+    over (2, 2) meshes of four cuda:0 entries (one card: the shards run one
+    after another on its stream). (a) engine="pallas", the demo scene at
+    1920x1080/4spp/d4: K1 launched once a shard, the frame bit for bit the
+    composition of render_megakernel's bands (each shard's seed, summed in
+    sample order, averaged, gamma'd), and at 256x128 the composition of the
+    plain version's bands; (b) engine="cluster", 10k random spheres at
+    1920x1024/4spp/d4, the same with render_cluster; (c) engine="lax" (the
+    default) at 1920x1080/4spp/d4, and the card against the CPU port at
+    64x32/4spp (99.9% of values within 1e-4, segments within 0.1%); (d) two
+    gloo processes on the card, two cuda:0 entries each, host-major and
+    interleaved, every gathered frame bit for bit the single-process
+    frame; (e) with two or more GPUs, a mesh over the real GPUs bit for bit
+    the virtual mesh of the same shape. For (a)-(c): the sharded frame's ms
+    against the single-device frame's (CUDA events over chained frames,
+    median) and the device's idle share (torch.profiler). Returns the
+    phase's times."""
+    import socket
+
+    from tpu_rt_torch.core import rng
+    from tpu_rt_torch.core import vecmath as vm
+    from tpu_rt_torch.core.scenes import random_spheres
+    from tpu_rt_torch.core.types import demo_scene, make_camera
+    from tpu_rt_torch.ops.cluster import (
+        render_cluster, render_cluster_reference)
+    from tpu_rt_torch.ops.megakernel import (
+        render_megakernel, render_megakernel_reference)
+    from tpu_rt_torch.parallel import make_mesh, render_sharded
+    from tpu_rt_torch.parallel.mesh import shard_keys, shard_seed
+    from tpu_rt_torch.render.frame import render
+    from tpu_rt_torch.utils.profiling import cuda_frame_ms, device_work
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    times = {}
+    mesh4 = make_mesh(2, 2, devices=[dev] * 4)
+    demo = demo_scene(device=dev)
+    big = random_spheres(**BIG, device=dev)
+
+    def key(device=dev):
+        return rng.key(PAR_SEED, device=device)
+
+    def composition(render_band, scene, cam, shape, **kw):
+        """The sharded frame by hand: each shard's band at its seed, the
+        bands of a mesh row summed in sample order, averaged, gamma'd."""
+        keys = shard_keys(key(cpu), 2, 2)
+        rows = shape["height"] // 2
+        out = []
+        for ti in range(2):
+            acc = None
+            for si in range(2):
+                band = render_band(
+                    scene, cam, shard_seed(keys[ti, si]), gamma=False,
+                    rows=rows, row_offset=ti * rows,
+                    **dict(shape, spp=shape["spp"] // 2), **kw)
+                acc = band if acc is None else acc + band
+            out.append(acc / torch.tensor(2.0, device=dev))
+        img = torch.cat(out)
+        return torch.clamp(vm.sqrt(torch.clamp_min(img, 0.0)), 0.0, 1.0)
+
+    def timing(label, sharded, single, frames):
+        """Sharded and single-device frame ms, and each one's idle share."""
+        row = {}
+        for what, fn in (("sharded", sharded), ("single", single)):
+            ms = statistics.median(cuda_frame_ms(fn, frames, device=dev))
+            busy = device_work(fn, max(2, frames // 2), device=dev)[0]
+            row[what] = (ms, busy, 1 - busy / ms)
+        (s_ms, s_busy, s_idle), (d_ms, d_busy, d_idle) = (row["sharded"],
+                                                          row["single"])
+        print(f"[38 parallel timing] {card}: {label}: sharded (2, 2) frame "
+              f"{s_ms:.4f} ms (device busy {s_busy:.4f}, idle share "
+              f"{s_idle:.3f}), single-device frame {d_ms:.4f} ms (busy "
+              f"{d_busy:.4f}, idle {d_idle:.3f}), ratio {s_ms / d_ms:.4f} "
+              f"(median of {frames} chained frames); "
+              f"{time.perf_counter() - t0:.1f} s into the phase")
+        times[label] = row
+
+    # (a) K1 bands
+    cam_b = make_camera(aspect=BENCH["width"] / BENCH["height"], device=dev)
+    k1_kw = dict(engine="pallas", n_active=N_ACTIVE)
+    render_megakernel.launches = 0
+    out = render_sharded(demo, cam_b, key(), mesh4, **BENCH, **k1_kw)
+    frame_a = out.gather()
+    launches = render_megakernel.launches
+    ref = composition(render_megakernel, demo, cam_b, BENCH,
+                      n_active=N_ACTIVE)
+    stats = compare(frame_a, ref)
+    print(f"[38 parallel pallas] render_sharded(engine='pallas') demo "
+          f"1920x1080/4spp/d4 on (2, 2) x cuda:0: K1 launches {launches}, "
+          f"shards {out.shards}, segments {out.segments}; vs "
+          f"render_megakernel's bands {stats}")
+    check(launches == 4, "pallas: K1 launched once a shard")
+    check_exact(stats, "pallas: the sharded frame vs its K1 bands")
+    cam_p = make_camera(aspect=2.0, device=dev)
+    small = render_sharded(demo, cam_p, key(), mesh4, **PAR_PLAIN,
+                           **k1_kw).gather()
+    stats = compare(small, composition(render_megakernel_reference, demo,
+                                       cam_p, PAR_PLAIN, n_active=N_ACTIVE))
+    print(f"[38 parallel pallas] 256x128/4spp/d4: vs the plain version's "
+          f"bands {stats}")
+    check_exact(stats, "pallas: the sharded frame vs its plain bands")
+    timing("pallas, demo 1920x1080/4spp/d4",
+           lambda i: render_sharded(demo, cam_b, key(), mesh4, **BENCH,
+                                    **k1_kw),
+           lambda i: render_megakernel(demo, cam_b, 2**31 - 2, **BENCH,
+                                       n_active=N_ACTIVE), 7)
+
+    # (b) K2 bands
+    cam_k = make_camera(aspect=PAR_K2["width"] / PAR_K2["height"],
+                        device=dev, **BIG_CAM)
+    render_cluster.launches = 0
+    out = render_sharded(big, cam_k, key(), mesh4, **PAR_K2,
+                         engine="cluster")
+    frame_b = out.gather()
+    launches = render_cluster.launches
+    stats = compare(frame_b, composition(render_cluster, big, cam_k,
+                                         PAR_K2))
+    print(f"[38 parallel cluster] render_sharded(engine='cluster') 10k "
+          f"spheres 1920x1024/4spp/d4 on (2, 2) x cuda:0: K2 launches "
+          f"{launches}, segments {out.segments}; vs render_cluster's bands "
+          f"{stats}")
+    check(launches >= 4, "cluster: K2 launched for every shard")
+    check_exact(stats, "cluster: the sharded frame vs its K2 bands")
+    cam_q = make_camera(aspect=2.0, device=dev, **BIG_CAM)
+    small = render_sharded(big, cam_q, key(), mesh4, **PAR_PLAIN,
+                           engine="cluster").gather()
+    stats = compare(small, composition(render_cluster_reference, big, cam_q,
+                                       PAR_PLAIN))
+    print(f"[38 parallel cluster] 256x128/4spp/d4: vs the plain version's "
+          f"bands {stats}")
+    check_exact(stats, "cluster: the sharded frame vs its plain bands")
+    timing("cluster, 10k spheres 1920x1024/4spp/d4",
+           lambda i: render_sharded(big, cam_k, key(), mesh4, **PAR_K2,
+                                    engine="cluster"),
+           lambda i: render_cluster(big, cam_k, 2**31 - 2, **PAR_K2), 5)
+
+    # (c) the lax engine
+    render_megakernel.launches = render_cluster.launches = 0
+    out = render_sharded(demo, cam_b, key(), mesh4, **BENCH)
+    frame_c = out.gather()
+    peak = float(frame_c.max())
+    ok = (frame_c.device == dev
+          and frame_c.shape == (BENCH["height"], BENCH["width"], 3)
+          and bool(torch.isfinite(frame_c).all()) and 0.0 < peak <= 1.0)
+    print(f"[38 parallel lax] render_sharded (engine 'lax') demo "
+          f"1920x1080/4spp/d4 on (2, 2) x cuda:0: on the card, finite, in "
+          f"[0, 1] (peak {peak:.4f}): {ok}; segments {out.segments}; K1/K2 "
+          f"launches {render_megakernel.launches}/{render_cluster.launches}")
+    check(ok and render_megakernel.launches == 0
+          and render_cluster.launches == 0, "lax: the sharded frame")
+    fracs, segs = [], []
+    for flags in ({}, dict(nee=True, stratify=True, enable_dof=True,
+                           use_bvh=True)):
+        outs = []
+        for d_ in (dev, cpu):
+            img = render_sharded(
+                demo_scene(device=d_),
+                make_camera(aspect=2.0, aperture=0.05, focus_dist=8.0,
+                            device=d_),
+                key(d_), make_mesh(2, 2, devices=[d_] * 4), **PAR_CPU,
+                **flags)
+            outs.append((img.gather(cpu), img.segments))
+        diff = (outs[0][0] - outs[1][0]).abs()
+        fracs.append(float((diff <= 1e-4).float().mean()))
+        segs.append((outs[0][1], outs[1][1]))
+    print(f"[38 parallel lax vs CPU] 64x32/4spp/d4 on (2, 2), no flags and "
+          f"NEE + stratify + DOF + LBVH: values within 1e-4 {fracs}, "
+          f"segments (card, CPU) {segs}")
+    check(min(fracs) >= 0.999, "lax: card vs CPU values")
+    check(all(abs(x - y) <= 0.001 * y for x, y in segs),
+          "lax: card vs CPU segments")
+    timing("lax, demo 1920x1080/4spp/d4",
+           lambda i: render_sharded(demo, cam_b, key(), mesh4, **BENCH),
+           lambda i: render(demo, cam_b, PAR_SEED, engine="lax", **BENCH), 3)
+
+    # (d) two gloo processes on the card
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    script = PAR_WORKER % dict(w=BENCH["width"], h=BENCH["height"],
+                               n_active=N_ACTIVE, seed=PAR_SEED, bench=BENCH)
+    t_d = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", script, str(r), str(port),
+             str(Path(tmp) / f"out{r}.npz")], cwd=tmp, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"gloo process {r}: {err[-2000:]}")
+        res = [dict(np.load(Path(tmp) / f"out{r}.npz")) for r in range(2)]
+    want = {"pallas": frame_a.cpu().numpy(), "lax": frame_c.cpu().numpy()}
+    for name in ("host-major", "interleaved"):
+        for engine, frame in want.items():
+            n_off = [int((x[f"{name} {engine}"] != frame).sum()) for x in res]
+            shards = [[tuple(int(v) for v in s)
+                       for s in x[f"{name} {engine} shards"]] for x in res]
+            print(f"[38 parallel gloo] two processes x two cuda:0 entries, "
+                  f"{name} (2, 2), {engine}: shards per process {shards}; "
+                  f"values differing from the single-process frame "
+                  f"{n_off}")
+            check(n_off == [0, 0], f"gloo {name} {engine}: bit for bit")
+            check(sorted(shards[0] + shards[1]) == [(0, 0), (0, 1), (1, 0),
+                                                    (1, 1)]
+                  and len(shards[0]) == 2,
+                  f"gloo {name} {engine}: each process renders its own 2")
+    times["gloo_s"] = time.perf_counter() - t_d
+
+    # (e) the real GPUs of this machine
+    n_gpu = torch.cuda.device_count()
+    if n_gpu >= 2:
+        real = make_mesh(n_gpu, 1)
+        virtual = make_mesh(n_gpu, 1, devices=[dev] * n_gpu)
+        h = 32 * n_gpu
+        a, b = (render_sharded(demo, cam_p, key(), m, width=256, height=h,
+                               spp=4, max_depth=4, **k1_kw).gather(cpu)
+                for m in (real, virtual))
+        check(torch.equal(a, b), "real GPUs vs the virtual mesh")
+        print(f"[38 parallel GPUs] ({n_gpu}, 1) over the real GPUs equals "
+              "the virtual mesh bit for bit")
+    else:
+        print(f"[38 parallel GPUs] one GPU here ({n_gpu}): a mesh over real "
+              "GPUs did not run")
+    times["seconds"] = time.perf_counter() - t0
+    print(f"[38 parallel] phase {times['seconds']:.1f} s (gloo processes "
+          f"{times['gloo_s']:.1f} s)")
     return times
 
 
@@ -3211,8 +3532,11 @@ def main() -> int:
     # ---- 37. the lax engine on the card ----
     lax_phase(dev, card)
 
+    # ---- 38. the parallel layer on the card ----
+    parallel_phase(dev, card)
+
     mega["name"] = "megakernel-spheres"
-    print(f"[38 done] all phases passed in {time.perf_counter() - t_start:.1f}"
+    print(f"[39 done] all phases passed in {time.perf_counter() - t_start:.1f}"
           " s")
     kernels = [mega, mega_tri, cluster, cluster_tri, mega_flags,
                cluster_flags, mega_nee, cluster_nee, mega_mask, cluster_mask,

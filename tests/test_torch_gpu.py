@@ -10,7 +10,9 @@ and do not divide a warp, and its counting instantiation against the plain
 version's counts; the interactive runtime's session on the card against
 its hand-driven chain, and the Qt GUI (against tests/pyqt5_stub/) receiving
 a real 640x480 frame from the card; the lax engine's threefry bits, LBVH
-hits and renders on the card against the CPU's.
+hits and renders on the card against the CPU's; render_sharded over a mesh
+of cuda:0 entries against its kernels' and plain versions' bands, and its
+lax engine against the CPU's.
 
 Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is
 False. Imports no jax, so it runs on a machine with torch alone:
@@ -1020,3 +1022,69 @@ def test_render_lax_returns_a_cuda_tensor(dev, scene):
     frac = float(((img.cpu() - ref).abs() <= 1e-4).float().mean())
     assert frac >= 0.999, frac
     assert abs(int(segs) - int(segs_cpu)) <= 0.001 * int(segs_cpu)
+
+
+@pytest.mark.parametrize("engine", ["pallas", "cluster"])
+def test_render_sharded_kernel_engines_equal_their_bands(dev, engine):
+    """render_sharded over a (2, 2) mesh of four cuda:0 entries: one
+    kernel launch a shard (one chunk each), and the frame bit for bit the
+    composition of the kernel's bands at each shard's seed (summed in
+    sample order, averaged, gamma'd) and of the plain version's bands."""
+    from tpu_rt_torch.core import rng
+    from tpu_rt_torch.core import vecmath as vm
+    from tpu_rt_torch.parallel import make_mesh, render_sharded
+    from tpu_rt_torch.parallel.mesh import shard_keys, shard_seed
+
+    if engine == "pallas":
+        scene = tpu_rt_torch.demo_scene(device=dev)
+        pose, extra = {}, dict(n_active=N_ACTIVE)
+        kernel, plain = render_megakernel, render_megakernel_reference
+    else:
+        scene = random_spheres(2000, seed=1, spread=20.0, device=dev)
+        pose, extra = dict(position=(0, 6, 40), target=(0, 0, -18)), {}
+        kernel, plain = render_cluster, render_cluster_reference
+    cam = tpu_rt_torch.make_camera(aspect=2.0, device=dev, **pose)
+    shape = dict(width=256, height=128, spp=4, max_depth=4)
+    counter = kernel.launches
+    out = render_sharded(scene, cam, rng.key(11, device=dev),
+                         make_mesh(2, 2, devices=[dev] * 4), engine=engine,
+                         **shape, **extra)
+    img = out.gather()
+    assert kernel.launches == counter + 4
+    assert img.device == dev and img.shape == (128, 256, 3)
+    keys = shard_keys(rng.key(11, device="cpu"), 2, 2)
+    for fn in (kernel, plain):
+        bands = []
+        for ti in range(2):
+            acc = None
+            for si in range(2):
+                band = fn(scene, cam, shard_seed(keys[ti, si]), gamma=False,
+                          rows=64, row_offset=64 * ti,
+                          **dict(shape, spp=2), **extra)
+                acc = band if acc is None else acc + band
+            bands.append(acc / torch.tensor(2.0, device=dev))
+        ref = torch.clamp(vm.sqrt(torch.clamp_min(torch.cat(bands), 0.0)),
+                          0.0, 1.0)
+        assert torch.equal(img, ref), (fn.__name__, int((img != ref).sum()))
+
+
+def test_render_sharded_lax_cuda_vs_cpu(dev):
+    """The default (lax) engine over a (2, 2) mesh of cuda:0 entries
+    against the same mesh of CPU entries: 99.9% of values within 1e-4,
+    segments within 0.1%."""
+    from tpu_rt_torch.core import rng
+    from tpu_rt_torch.parallel import make_mesh, render_sharded
+
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        img = render_sharded(
+            tpu_rt_torch.demo_scene(device=d),
+            tpu_rt_torch.make_camera(aspect=2.0, device=d), rng.key(11,
+                                                                    device=d),
+            make_mesh(2, 2, devices=[d] * 4), width=64, height=32, spp=4,
+            max_depth=4, nee=True, stratify=True)
+        assert all(b.device == d for b in img.bands.values())
+        outs.append((img.gather(torch.device("cpu")), img.segments))
+    frac = float(((outs[0][0] - outs[1][0]).abs() <= 1e-4).float().mean())
+    assert frac >= 0.999, frac
+    assert abs(outs[0][1] - outs[1][1]) <= 0.001 * outs[1][1]

@@ -50,7 +50,9 @@ def test_every_module_imports_without_jax():
             "tpu_rt_torch.utils.checkpoint",
             "tpu_rt_torch.utils.config", "tpu_rt_torch.core.rng",
             "tpu_rt_torch.ops.integrator", "tpu_rt_torch.ops.bvh",
-            "tpu_rt_torch.native"} <= set(SLICE_MODULES)
+            "tpu_rt_torch.native", "tpu_rt_torch.parallel",
+            "tpu_rt_torch.parallel.mesh",
+            "tpu_rt_torch.parallel.multihost"} <= set(SLICE_MODULES)
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_IMPORT, *SLICE_MODULES],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -81,6 +83,8 @@ def test_cuda_timer_refuses_cpu():
         profiling.device_ms_by_kernel(lambda i: None, 3, device="cpu")
     with pytest.raises(RuntimeError):
         profiling.device_work(lambda i: None, 3, device="cpu")
+    with pytest.raises(RuntimeError):
+        profiling.launch_ms(lambda i: None, "k", 3, device="cpu")
     assert profiling.traced_mrays_per_s(2_000_000, 2.0) == 1000.0
 
 

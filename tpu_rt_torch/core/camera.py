@@ -75,16 +75,18 @@ def generate_rays(cam: CameraP, u: torch.Tensor, v: torch.Tensor,
 
 
 def pixel_uv(width: int, height: int, jitter: torch.Tensor | None = None, *,
-             device):
-    """Screen-space (u, v) for every pixel, shape (height, width).
+             device, rows: int | None = None, row_offset: int = 0):
+    """Screen-space (u, v) for every pixel, shape (height, width), or for
+    the band of ``rows`` rows from frame row ``row_offset``, (rows, width).
 
-    ``jitter`` is an optional (height, width, 2) tensor in [0, 1); None
+    ``jitter`` is an optional (rows, width, 2) tensor in [0, 1); None
     shoots pixel centers (0.5). The sizes divide as tensors on ``device``:
     PyTorch's CUDA kernels divide by a Python scalar as a multiply by its
     reciprocal, which rounds a fifth of the coordinates apart from the
     CPU's (and JAX's) true division."""
+    rows = height if rows is None else rows
     jj, ii = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=device),
+        torch.arange(rows, dtype=torch.float32, device=device) + row_offset,
         torch.arange(width, dtype=torch.float32, device=device),
         indexing="ij",
     )

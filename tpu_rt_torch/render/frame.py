@@ -184,18 +184,43 @@ def _render_lax(scene, cam, key, *, width, height, spp, max_depth, mode,
                 enable_refraction, gamma, jitter, with_stats, mesh,
                 use_bvh=False, enable_dof=False, nee=False,
                 diffuse_sampling="ball", stratify=False):
-    """The lax engine's batch: sample s draws from ``fold_in(key, s)``,
-    split into its jitter key and its trace key (the lens from
-    ``fold_in(k_s, 7)``; with ``stratify`` the R2 lattice under a
-    per-pixel shift from ``fold_in(key, 0x7FFFABCD)``), the samples summed
-    in order, their mean sqrt-gamma'd and clamped unless ``gamma=False``.
-    Samples are traced together, each with its own key, up to
-    ``LAX_PAIRS_PER_CALL`` ray-primitive pairs a call."""
+    """The lax engine's batch: :func:`lax_band_sum` over the whole frame,
+    the mean sqrt-gamma'd and clamped unless ``gamma=False``."""
+    acc, segments = lax_band_sum(
+        scene, cam, key, width=width, height=height, spp=spp,
+        max_depth=max_depth, mode=mode, enable_refraction=enable_refraction,
+        jitter=jitter, mesh=mesh, use_bvh=use_bvh, enable_dof=enable_dof,
+        nee=nee, diffuse_sampling=diffuse_sampling, stratify=stratify)
+    img = acc / torch.tensor(float(spp), dtype=torch.float32,
+                             device=scene.device)
+    if gamma:
+        img = torch.clamp(vm.sqrt(torch.clamp_min(img, 0.0)), 0.0, 1.0)
+    if with_stats:
+        return img, segments
+    return img
+
+
+def lax_band_sum(scene, cam, key, *, width, height, spp, max_depth,
+                 mode="v2", enable_refraction=False, jitter=True, mesh=None,
+                 use_bvh=False, enable_dof=False, nee=False,
+                 diffuse_sampling="ball", stratify=False, rows=None,
+                 row_offset=0, shift_key=None, lattice_offset=0):
+    """The lax engine's sum of ``spp`` samples over the band of ``rows``
+    rows from frame row ``row_offset`` (the whole frame by default): sample
+    s draws from ``fold_in(key, s)``, split into its jitter key and its
+    trace key (the lens from ``fold_in(k_s, 7)``; with ``stratify`` the R2
+    lattice point ``lattice_offset + s`` under a per-pixel shift drawn from
+    ``shift_key``, by default ``fold_in(key, 0x7FFFABCD)``), the samples'
+    colours summed in order from zero. Samples are traced together, each
+    with its own key, up to ``LAX_PAIRS_PER_CALL`` ray-primitive pairs a
+    call. Returns the (rows, width, 3) sum and the traced segments."""
     dev = scene.device
-    R = height * width
+    rows = height if rows is None else rows
+    R = rows * width
     if jitter and stratify:
-        cp_shift = rng.uniform(rng.fold_in(key, CP_SHIFT_FOLD),
-                               (height, width, 2))
+        if shift_key is None:
+            shift_key = rng.fold_in(key, CP_SHIFT_FOLD)
+        cp_shift = rng.uniform(shift_key, (rows, width, 2))
         r2_alpha = torch.tensor(R2_ALPHA, dtype=torch.float32, device=dev)
     prims = 1 if use_bvh else scene.capacity + (
         mesh.capacity if mesh is not None else 0)
@@ -209,16 +234,17 @@ def _render_lax(scene, cam, key, *, width, height, spp, max_depth, mode,
         k_s = rng.fold_in(key, s_idx)                        # (S, 2)
         k_jit, k_trace = rng.split(k_s, 2).unbind(-2)
         if jitter and stratify:
-            xi = cp_shift + s_idx.to(torch.float32)[:, None, None, None] \
-                * r2_alpha
+            s_g = (s_idx + lattice_offset).to(torch.float32)
+            xi = cp_shift + s_g[:, None, None, None] * r2_alpha
             xi = xi - torch.floor(xi)
         elif jitter:
-            xi = rng.uniform(k_jit, (height, width, 2))      # (S, H, W, 2)
+            xi = rng.uniform(k_jit, (rows, width, 2))        # (S, rows, W, 2)
         else:
             xi = None
-        u, v = cammod.pixel_uv(width, height, xi, device=dev)
-        u = torch.broadcast_to(u, (S, height, width)).reshape(S * R)
-        v = torch.broadcast_to(v, (S, height, width)).reshape(S * R)
+        u, v = cammod.pixel_uv(width, height, xi, device=dev, rows=rows,
+                               row_offset=row_offset)
+        u = torch.broadcast_to(u, (S, rows, width)).reshape(S * R)
+        v = torch.broadcast_to(v, (S, rows, width)).reshape(S * R)
         lens = (rng.uniform(rng.fold_in(k_s, 7), (R, 2)).reshape(S * R, 2)
                 if enable_dof else None)
         o, d = cammod.generate_rays(cam, u, v, lens_xi=lens)
@@ -229,13 +255,7 @@ def _render_lax(scene, cam, key, *, width, height, spp, max_depth, mode,
         for c in color.reshape(S, R, 3):  # in sample order, as a scan
             acc = acc + c
         segments = segments + nseg
-    img = acc.reshape(height, width, 3) / torch.tensor(
-        float(spp), dtype=torch.float32, device=dev)
-    if gamma:
-        img = torch.clamp(vm.sqrt(torch.clamp_min(img, 0.0)), 0.0, 1.0)
-    if with_stats:
-        return img, segments
-    return img
+    return acc.reshape(rows, width, 3), segments
 
 
 def tone_map(image: torch.Tensor, exposure: float) -> torch.Tensor:

@@ -159,6 +159,43 @@ def device_ms_by_kernel(fn: Callable[[int], object], frames: int = 5, *,
     return {k: v / frames for k, v in out.items()}
 
 
+def launch_ms(fn: Callable[[int], object], name: str, launches: int = 10,
+              *, device) -> tuple[List[float], List[float]]:
+    """Each of ``launches`` calls ``fn(i)`` (one launch of the kernel
+    ``name`` each), timed twice in one ``torch.profiler`` window: the
+    profiler's duration of the kernel and the CUDA events recorded on the
+    stream just before and just after the call, in ms. The calls queue
+    behind a spin of about 50 ms, so no launch gap falls inside a pair.
+
+    The events read the card's own timer; the profiler's durations pass
+    through its conversion to the host's clock, which has read a whole
+    window 1-2% fast or slow on an H100. Returns (profiler, events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError(f"launch_ms times a CUDA device, not {device}")
+    with torch.cuda.device(device):
+        fn(-1)
+        torch.cuda.synchronize(device)
+        pairs = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100_000_000)
+            for i in range(launches):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(i)
+                end.record()
+                pairs.append((start, end))
+            torch.cuda.synchronize(device)
+    traced = [ev.device_time_total / 1e3 for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA and name in ev.name]
+    return traced, [a.elapsed_time(b) for a, b in pairs]
+
+
 def device_work(fn: Callable[[int], object], frames: int = 5, *,
                 device) -> tuple[float, float]:
     """(device ms, device activities) per frame of ``fn``, summed over
