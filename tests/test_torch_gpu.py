@@ -12,7 +12,8 @@ its hand-driven chain, and the Qt GUI (against tests/pyqt5_stub/) receiving
 a real 640x480 frame from the card; the lax engine's threefry bits, LBVH
 hits and renders on the card against the CPU's; render_sharded over a mesh
 of cuda:0 entries against its kernels' and plain versions' bands, and its
-lax engine against the CPU's.
+lax engine against the CPU's; the port's spans and upload counter under
+a profiler.
 
 Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is
 False. Imports no jax, so it runs on a machine with torch alone:
@@ -1088,3 +1089,65 @@ def test_render_sharded_lax_cuda_vs_cpu(dev):
     frac = float(((outs[0][0] - outs[1][0]).abs() <= 1e-4).float().mean())
     assert frac >= 0.999, frac
     assert abs(outs[0][1] - outs[1][1]) <= 0.001 * outs[1][1]
+
+
+def _api_field(n):
+    """An api Scene of ``n`` random spheres (the cluster engine past 64)."""
+    from tpu_rt_torch.api import Material, Scene, Sphere, Vector3
+
+    arrays = random_spheres(n, seed=3, spread=10.0, device="cpu")
+    scene = Scene()
+    for i in range(n):
+        s = Sphere()
+        s.center = Vector3(*map(float, arrays.center[i]))
+        s.radius = float(arrays.radius[i])
+        m = Material()
+        m.albedo = Vector3(*map(float, arrays.albedo[i]))
+        m.metallic = float(arrays.metallic[i])
+        m.roughness = float(arrays.roughness[i])
+        m.emission = Vector3(*map(float, arrays.emission[i]))
+        s.material = m
+        s.object_id = i
+        scene.add_sphere(s)
+    return scene
+
+
+@pytest.mark.parametrize("engine", ["pallas", "cluster"])
+def test_port_spans_are_flat_siblings_and_uploads_repeat(dev, engine):
+    """Under a profiler, each RayTracer batch on the card runs the port's
+    spans camera, (order on a camera move,) prepare and launch, in that
+    order, none inside another, all with the batch's number; every batch
+    counts the same 9 uploads (make_camera's 7, basis's 2), as on the
+    CPU."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_rt_torch.api import RayTracer
+    from tpu_rt_torch.app import SceneManager
+    from tpu_rt_torch.utils import profiling
+
+    rt = RayTracer(seed=5, device=dev)
+    rt.set_scene(SceneManager.create_interactive_scene()
+                 if engine == "pallas" else _api_field(1000))
+    uploads = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(3):
+            before = profiling.counts()["uploads"]
+            rt.render_device(256, 128, 2, 3)
+            uploads.append(profiling.counts()["uploads"] - before)
+        torch.cuda.synchronize(dev)
+    assert rt._last_engine == engine and uploads == [9, 9, 9]
+    spans = sorted(((ev.start_ns(), ev.end_ns(), ev.name(),
+                     ev.kwinputs().get("batch"))
+                    for ev in prof.profiler.kineto_results.events()
+                    if ev.device_type() == DeviceType.CPU
+                    and ev.name().startswith(profiling.SPAN_PREFIX)))
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    phases = [(name[len(profiling.SPAN_PREFIX):], batch)
+              for _, _, name, batch in spans]
+    first = ["camera", "order", "prepare", "launch"] if engine == "cluster" \
+        else ["camera", "prepare", "launch"]
+    assert phases == ([(p, 0) for p in first]
+                      + [(p, b) for b in (1, 2)
+                         for p in ("camera", "prepare", "launch")])

@@ -17,7 +17,8 @@ package's layout, module for module:
   app/      the interactive runtime (RayTracerInteraction), its previews,
             panel logic, denoiser bank, Qt GUI and launcher
   utils/    numpy converters, OBJ import/export, settings, session
-            checkpoints, CUDA-event timing and frame counters
+            checkpoints, CUDA-event timing and frame counters, the
+            port's own profiler spans and upload counter
 
 Every function takes an explicit ``device``; tensors on the CPU run the
 plain PyTorch version of each kernel, tensors on a CUDA device run the

@@ -32,6 +32,7 @@ from ..ops import cluster as _C
 from ..ops import megakernel as _MK
 from ..ops.integrator import trace
 from ..render import frame as _F
+from ..utils import profiling
 
 
 class Vector3:
@@ -552,7 +553,8 @@ class RayTracer:
         self.camera.aspect_ratio = width / height
         if self._scene_arrays is None or not self._scene_snapshot.spheres:
             return None
-        seed = batch_seed(self._seed_base, self._frame)
+        batch = self._frame
+        seed = batch_seed(self._seed_base, batch)
         self._frame += 1
         self._last_engine = self._engine()
         self._last_use_bvh = (bool(self._scene_snapshot.use_bvh)
@@ -561,17 +563,19 @@ class RayTracer:
                                and self._last_engine == "pallas")
         if not self._last_adaptive:
             tile_mask = None
-        cam = self.camera.to_params(self.device)
+        with profiling.span("camera", batch):
+            cam = self.camera.to_params(self.device)
         kw = {}
         if self._last_engine == "cluster":
             pos = self.camera.position
             at = (pos.x, pos.y, pos.z)
             if at != self._ordered_at:
-                self._ordered = _C.order_clusters(self._clustered,
-                                                  cam.position)
-                if self._tri_clustered is not None:
-                    self._tri_ordered = _C.order_clusters(
-                        self._tri_clustered, cam.position)
+                with profiling.span("order"):
+                    self._ordered = _C.order_clusters(self._clustered,
+                                                      cam.position)
+                    if self._tri_clustered is not None:
+                        self._tri_ordered = _C.order_clusters(
+                            self._tri_clustered, cam.position)
                 self._ordered_at = at
             kw = dict(prebuilt=self._ordered, tri_prebuilt=self._tri_ordered,
                       pre_ordered=True)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import vecmath as vm
 from .types import CameraP
 
@@ -24,6 +25,7 @@ def basis(cam: CameraP):
     """Forward/right/up orthonormal basis; right falls back to +X when
     forward is parallel to world-up."""
     forward = vm.normalize(cam.target - cam.position)
+    profiling.count("uploads", 2)
     world_up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
                             device=forward.device)
     right_raw = vm.cross(forward, world_up)
@@ -95,5 +97,6 @@ def pixel_uv(width: int, height: int, jitter: torch.Tensor | None = None, *,
     else:
         xu = jitter[..., 0]
         xv = jitter[..., 1]
+    profiling.count("uploads", 2)
     w, h = (torch.tensor(float(n), device=device) for n in (width, height))
     return (ii + xu) / w, (jj + xv) / h

@@ -32,6 +32,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import vecmath as vm
 
 _M32 = 0xFFFFFFFF
@@ -56,6 +57,7 @@ def key(seed: int, *, device="cuda") -> torch.Tensor:
     ``[0, seed]`` for the 0 <= seed < 2^31 seeds the API uses, as
     ``jax.random.key(seed)``."""
     seed = int(seed)
+    profiling.count("uploads")
     return torch.tensor([(seed >> 32) & _M32, seed & _M32], dtype=torch.int64,
                         device=device)
 

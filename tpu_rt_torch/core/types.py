@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 MIN_SPHERE_BUCKET = 16
 
 # Ray epsilon / infinity used by the intersectors (the reference's
@@ -64,7 +66,9 @@ class CameraP(NamedTuple):
 
 def host_tensor(x, dtype, device) -> torch.Tensor:
     """numpy data -> tensor on ``device`` without a stream sync (the copy
-    from pageable host memory is staged before this returns)."""
+    from pageable host memory is staged before this returns); counted as
+    one of the ``uploads``."""
+    profiling.count("uploads")
     t = torch.from_numpy(np.array(x)).to(dtype)
     return t.to(device, non_blocking=True)
 

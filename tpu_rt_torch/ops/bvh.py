@@ -30,6 +30,7 @@ import torch
 
 from ..core import vecmath as vm
 from ..core.types import T_MAX, T_MIN
+from ..utils import profiling
 
 _M32 = 0xFFFFFFFF
 # the traversal tests for its end once per this many steps
@@ -138,6 +139,7 @@ def morton_codes(centroids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     sort pushes them to the tail. The bbox ignores invalid rows by masking
     them with +-inf (the JAX package's nanmin/nanmax over NaN-masked rows).
     """
+    profiling.count("uploads")
     inf = torch.tensor(float("inf"), dtype=centroids.dtype,
                        device=centroids.device)
     lo = torch.where(valid[:, None], centroids, inf).amin(dim=0)

@@ -45,6 +45,7 @@ import torch
 from ..core import vecmath as vm
 from ..core.types import CameraP, SphereScene, T_MAX
 from ..kernels import build
+from ..utils import profiling
 from . import megakernel as mk
 from .bvh import morton_codes
 from .intersect import attribute_matrix
@@ -1183,46 +1184,49 @@ def render_cluster(
     if dev.type != "cuda":
         raise ValueError(f"render_cluster runs on cpu or cuda, not {dev}")
 
-    (cl, tri, lights, cam_packed, blocks_x, blocks_y, out_rows, row0,
-     mask) = _prepare(scene, cam, **kw)
-    lib = build.load()
-    n_tiles = blocks_x * blocks_y
-    groups = group_boxes(cl, False)
-    if tri is None:  # no mesh: no triangle tables (n_tri_ss = 0)
-        t_args = (0, 0, 0, 0, 0, 0, 8, 0)
-    else:
-        t_groups = group_boxes(tri, True)
-        t_args = (tri.glob_attr.data_ptr(), tri.n_global,
-                  tri.ss_boxes.data_ptr(), tri.n_ss,
-                  tri.super_boxes.data_ptr(), tri.attr.data_ptr(),
-                  tri.cluster_size, t_groups.data_ptr())
     with torch.cuda.device(dev):
-        out = torch.empty((out_rows, width, 3), dtype=torch.float32,
-                          device=dev)
-        # each (pixel, sample) thread's radiance, summed by the mean pass,
-        # for one chunk of samples at a time
-        chunk = max(1, min(spp, SCRATCH_LANES // (n_tiles * TILE)))
-        scratch = torch.empty((chunk, 3, n_tiles * TILE),
-                              dtype=torch.float32, device=dev)
-        segs = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
-        vis = (torch.zeros((n_tiles, 2, len(VISIT_COLS)), dtype=torch.int64,
-                           device=dev) if with_visits else None)
-        err = lib.tpurt_cluster_launch(
-            cl.glob_attr.data_ptr(), cl.n_global, cl.ss_boxes.data_ptr(),
-            cl.n_ss, cl.super_boxes.data_ptr(), cl.attr.data_ptr(),
-            cl.cluster_size, groups.data_ptr(), *t_args,
-            cam_packed.data_ptr(),
-            cl.background.data_ptr(),
-            0 if lights is None else lights.data_ptr(),
-            0 if lights is None else (lights.numel() - 1) // 8,
-            mk._signed32(seed), row0, out_rows, width, height, spp, chunk,
-            max_depth, int(bool(jitter)), int(bool(enable_refraction)),
-            int(bool(enable_dof)), int(bool(stratify)),
-            int(lights is not None), int(bool(gamma)),
-            0 if mask is None else mask.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), segs.data_ptr(),
-            0 if vis is None else vis.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        with profiling.span("prepare"):
+            (cl, tri, lights, cam_packed, blocks_x, blocks_y, out_rows, row0,
+             mask) = _prepare(scene, cam, **kw)
+            lib = build.load()
+            n_tiles = blocks_x * blocks_y
+            groups = group_boxes(cl, False)
+            if tri is None:  # no mesh: no triangle tables (n_tri_ss = 0)
+                t_args = (0, 0, 0, 0, 0, 0, 8, 0)
+            else:
+                t_groups = group_boxes(tri, True)
+                t_args = (tri.glob_attr.data_ptr(), tri.n_global,
+                          tri.ss_boxes.data_ptr(), tri.n_ss,
+                          tri.super_boxes.data_ptr(), tri.attr.data_ptr(),
+                          tri.cluster_size, t_groups.data_ptr())
+            out = torch.empty((out_rows, width, 3), dtype=torch.float32,
+                              device=dev)
+            # each (pixel, sample) thread's radiance, summed by the mean
+            # pass, for one chunk of samples at a time
+            chunk = max(1, min(spp, SCRATCH_LANES // (n_tiles * TILE)))
+            scratch = torch.empty((chunk, 3, n_tiles * TILE),
+                                  dtype=torch.float32, device=dev)
+            segs = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
+            vis = (torch.zeros((n_tiles, 2, len(VISIT_COLS)),
+                               dtype=torch.int64, device=dev)
+                   if with_visits else None)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+        with profiling.span("launch"):
+            err = lib.tpurt_cluster_launch(
+                cl.glob_attr.data_ptr(), cl.n_global, cl.ss_boxes.data_ptr(),
+                cl.n_ss, cl.super_boxes.data_ptr(), cl.attr.data_ptr(),
+                cl.cluster_size, groups.data_ptr(), *t_args,
+                cam_packed.data_ptr(),
+                cl.background.data_ptr(),
+                0 if lights is None else lights.data_ptr(),
+                0 if lights is None else (lights.numel() - 1) // 8,
+                mk._signed32(seed), row0, out_rows, width, height, spp, chunk,
+                max_depth, int(bool(jitter)), int(bool(enable_refraction)),
+                int(bool(enable_dof)), int(bool(stratify)),
+                int(lights is not None), int(bool(gamma)),
+                0 if mask is None else mask.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), segs.data_ptr(),
+                0 if vis is None else vis.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"cluster kernel launch failed: CUDA error {err}")
     render_cluster.launches += -(-spp // chunk)

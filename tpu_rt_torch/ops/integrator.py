@@ -36,6 +36,7 @@ from ..core import rng as rngmod
 from ..core import vecmath as vm
 from ..core.camera import TWO_PI
 from ..core.types import SphereScene
+from ..utils import profiling
 from .intersect import attribute_matrix, combine_hits, intersect_brute, _fetch
 
 # Roulette starts strictly after this many bounces.
@@ -104,6 +105,7 @@ def _sample_light_cone(k_light, k_cone, attr, light_cdf, hp):
 
     w = to_l * vm.rsqrt(d2)[:, None]
     # orthonormal basis around w (branchless pick of the less-aligned axis)
+    profiling.count("uploads", 2)
     ey = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=hp.device)
     ex = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32, device=hp.device)
     a = torch.where((torch.abs(w[:, 0]) > 0.9)[:, None], ey[None, :],

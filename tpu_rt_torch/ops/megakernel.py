@@ -37,6 +37,7 @@ from ..core import camera as cammod
 from ..core import vecmath as vm
 from ..core.types import CameraP, SphereScene, T_MAX
 from ..kernels import build
+from ..utils import profiling
 from .intersect import attribute_matrix
 
 TILE = 4096          # rays per TPU tile (32 sublanes x 128 lanes)
@@ -166,6 +167,8 @@ def tile_mask_on(tile_mask, n_tiles, device):
     elements."""
     if tile_mask is None:
         return None
+    if not torch.is_tensor(tile_mask) or tile_mask.device.type == "cpu":
+        profiling.count("uploads")
     mask = torch.as_tensor(tile_mask, dtype=torch.int32, device=device)
     if mask.numel() != n_tiles:
         raise ValueError(f"tile_mask has {mask.numel()} elements; this "
@@ -873,31 +876,36 @@ def render_megakernel(
     if dev.type != "cuda":
         raise ValueError(f"render_megakernel runs on cpu or cuda, not {dev}")
 
-    attr, cam_packed, bg, out_rows, row_offset, n_tiles, mask = _prepare(
-        scene, cam, n_active, width, height, spp, max_depth, rows, row_offset,
-        nee, lights, tile_mask)
-    tris = _pack_tris(mesh, n_tri_active)
-    if tris is not None and tris.device != dev:
-        raise ValueError(f"the mesh lies on {tris.device}, the scene on {dev}")
-    lib = build.load()
-    n_pix = width * out_rows
     with torch.cuda.device(dev):
-        out = torch.empty((out_rows, width, 3), dtype=torch.float32,
-                          device=dev)
-        segs = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
-        vis = (torch.zeros((n_tiles, 2, len(VISIT_COLS)), dtype=torch.int64,
-                           device=dev) if with_visits else None)
-        err = lib.tpurt_megakernel_launch(
-            attr.data_ptr(), attr.shape[0],
-            0 if tris is None else tris.data_ptr(),
-            0 if tris is None else tris.shape[0], cam_packed.data_ptr(),
-            bg.data_ptr(), _signed32(seed), row_offset * width, width, height,
-            spp, max_depth, int(bool(jitter)), int(bool(enable_refraction)),
-            int(bool(enable_dof)), int(bool(stratify)), int(bool(nee)),
-            int(bool(gamma)), n_tiles, 0 if mask is None else mask.data_ptr(),
-            out.data_ptr(), n_pix, segs.data_ptr(),
-            0 if vis is None else vis.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        with profiling.span("prepare"):
+            attr, cam_packed, bg, out_rows, row_offset, n_tiles, mask = (
+                _prepare(scene, cam, n_active, width, height, spp, max_depth,
+                         rows, row_offset, nee, lights, tile_mask))
+            tris = _pack_tris(mesh, n_tri_active)
+            if tris is not None and tris.device != dev:
+                raise ValueError(f"the mesh lies on {tris.device}, the scene "
+                                 f"on {dev}")
+            lib = build.load()
+            n_pix = width * out_rows
+            out = torch.empty((out_rows, width, 3), dtype=torch.float32,
+                              device=dev)
+            segs = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
+            vis = (torch.zeros((n_tiles, 2, len(VISIT_COLS)),
+                               dtype=torch.int64, device=dev)
+                   if with_visits else None)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+        with profiling.span("launch"):
+            err = lib.tpurt_megakernel_launch(
+                attr.data_ptr(), attr.shape[0],
+                0 if tris is None else tris.data_ptr(),
+                0 if tris is None else tris.shape[0], cam_packed.data_ptr(),
+                bg.data_ptr(), _signed32(seed), row_offset * width, width,
+                height, spp, max_depth, int(bool(jitter)),
+                int(bool(enable_refraction)), int(bool(enable_dof)),
+                int(bool(stratify)), int(bool(nee)), int(bool(gamma)),
+                n_tiles, 0 if mask is None else mask.data_ptr(),
+                out.data_ptr(), n_pix, segs.data_ptr(),
+                0 if vis is None else vis.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     render_megakernel.launches += 1

@@ -28,6 +28,7 @@ from ..ops.cluster import ClusteredScene, render_cluster
 from ..ops.cluster import LANES, SUBLANES
 from ..ops.integrator import trace
 from ..ops.megakernel import MAX_SPHERES, MAX_TRIS, TILE, render_megakernel
+from ..utils import profiling
 
 ENGINES = ("auto", "pallas", "lax", "cluster")
 
@@ -191,6 +192,7 @@ def _render_lax(scene, cam, key, *, width, height, spp, max_depth, mode,
         max_depth=max_depth, mode=mode, enable_refraction=enable_refraction,
         jitter=jitter, mesh=mesh, use_bvh=use_bvh, enable_dof=enable_dof,
         nee=nee, diffuse_sampling=diffuse_sampling, stratify=stratify)
+    profiling.count("uploads")
     img = acc / torch.tensor(float(spp), dtype=torch.float32,
                              device=scene.device)
     if gamma:
@@ -221,6 +223,7 @@ def lax_band_sum(scene, cam, key, *, width, height, spp, max_depth,
         if shift_key is None:
             shift_key = rng.fold_in(key, CP_SHIFT_FOLD)
         cp_shift = rng.uniform(shift_key, (rows, width, 2))
+        profiling.count("uploads")
         r2_alpha = torch.tensor(R2_ALPHA, dtype=torch.float32, device=dev)
     prims = 1 if use_bvh else scene.capacity + (
         mesh.capacity if mesh is not None else 0)

@@ -6,4 +6,4 @@ from .checkpoint import (  # noqa: F401
     save_checkpoint,
 )
 from .config import RenderSettings  # noqa: F401
-from .profiling import FrameStats, frame_timer, sync, torch_trace  # noqa: F401
+from .profiling import FrameStats, sync, torch_trace  # noqa: F401

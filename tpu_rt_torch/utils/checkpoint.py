@@ -12,12 +12,13 @@ from __future__ import annotations
 
 import json
 import warnings
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..api import Camera, Material, Scene, Sphere, Vector3
+if TYPE_CHECKING:
+    from ..api import Camera, Scene
 
 FORMAT_VERSION = 1
 
@@ -56,6 +57,10 @@ def _scene_to_arrays(scene: Scene) -> dict:
 
 
 def _scene_from_arrays(data) -> Scene:
+    # the api layer is imported when a session loads: it imports the core
+    # modules, which count through utils.profiling
+    from ..api import Material, Scene, Sphere, Vector3
+
     scene = Scene()
     scene.background_color = Vector3.from_array(data["scene_background"])
     scene.use_bvh = bool(data["scene_use_bvh"])
@@ -149,6 +154,8 @@ def _load(path: str):
     data = np.load(path, allow_pickle=False)
     if int(data["format_version"]) > FORMAT_VERSION:
         raise ValueError("checkpoint from a newer format version")
+    from ..api import Camera, Vector3
+
     scene = _scene_from_arrays(data)
     c = data["camera"]
     camera = Camera()

@@ -1,19 +1,23 @@
-"""Frame timing on the card, traced-ray throughput, and the app's frame
-counters.
+"""Frame timing on the card, traced-ray throughput, the app's frame
+counters, and the port's own spans and counters.
 
 Counterpart of ``tpu_rt/utils/profiling.py``: :func:`sync` stands in for
-its ``block_until_ready`` fence, :class:`FrameStats` and
-:func:`frame_timer` are its rolling counters, and :func:`torch_trace` a
-``torch.profiler`` trace where it has ``xla_trace``. CUDA events time the
-card's frames (:func:`cuda_frame_ms`); those device measurements raise on
-anything but a CUDA device instead of timing a CPU run.
+its ``block_until_ready`` fence, :class:`FrameStats` is its rolling
+counter, and :func:`torch_trace` a ``torch.profiler`` trace where it has
+``xla_trace``. CUDA events time the card's frames (:func:`cuda_frame_ms`);
+those device measurements raise on anything but a CUDA device instead of
+timing a CPU run.
+
+:func:`span` and :func:`count` are the one place the port traces itself:
+a span is a range named ``tpu_rt_torch.<phase>`` on the profiler's host
+clock, entered only while a ``torch.profiler`` records, and :func:`counts`
+snapshots the counters (``uploads``: host data copied to a device).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Callable, List
 
@@ -73,33 +77,78 @@ class FrameStats:
         return f"{self.frame_ms:.1f} ms/frame, {self.mrays_per_s:.1f} Mrays/s"
 
 
-@contextlib.contextmanager
-def frame_timer(stats: FrameStats | None = None, ray_segments: int = 0):
-    """Time a render call up to the end of its device work: the body puts
-    its output in ``holder["result"]``, which :func:`sync` waits for; the
-    seconds land in ``holder["seconds"]`` and, optionally, in ``stats``."""
-    t0 = time.perf_counter()
-    holder = {}
-    yield holder
-    sync(holder.get("result"))
-    dt = time.perf_counter() - t0
-    holder["seconds"] = dt
-    if stats is not None:
-        stats.record(dt, ray_segments)
+SPAN_PREFIX = "tpu_rt_torch."
+_NULL = contextlib.nullcontext()
+# name -> count since the process started, and the counts made since the
+# profiler that records now started
+_counts: dict = {}
+_traced: dict = {}
+_was_recording = False
+_batch = None  # the batch number the last span was given
+
+
+def _recording() -> bool:
+    """Whether a profiler records now; the first call that sees one start
+    clears the traced counts, so they are of its window alone (a profiler
+    started right after another, with no span, count or snapshot between
+    them, adds to the last one's)."""
+    global _was_recording
+    on = torch.autograd._profiler_enabled()
+    if on and not _was_recording:
+        _traced.clear()
+    _was_recording = on
+    return on
+
+
+def span(phase: str, batch: int | None = None):
+    """The range ``tpu_rt_torch.<phase>`` while a profiler records, else a
+    shared null context that enters nothing.
+
+    It carries a batch number as its keyword ``batch``: ``batch``, or the
+    one the last span was given, so the spans of a RayTracer batch share
+    the batch number its first span names. A trace that records shapes
+    (:func:`torch_trace`) writes it into the event's args. The range is a
+    RecordFunction entered through torch's ``_RecordFunctionFast``, whose
+    keyword values reach such a trace; ``record_function`` writes its
+    ``args`` string nowhere."""
+    global _batch
+    if not _recording():
+        return _NULL
+    if batch is not None:
+        _batch = batch
+    return torch._C._profiler._RecordFunctionFast(
+        SPAN_PREFIX + phase, (), {} if _batch is None else {"batch": _batch})
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` (and to its traced count while a
+    profiler records)."""
+    _counts[name] = _counts.get(name, 0) + n
+    if _recording():
+        _traced[name] = _traced.get(name, 0) + n
+
+
+def counts(traced: bool = False) -> dict:
+    """A snapshot of the counters: since the process started, or with
+    ``traced`` those made since the profiler that records now (or last
+    recorded) started."""
+    _recording()
+    return dict(_traced if traced else _counts)
 
 
 @contextlib.contextmanager
 def torch_trace(logdir: str):
     """A ``torch.profiler`` trace of the body (host ops, and CUDA kernels
     and copies when CUDA is available), written as a Chrome trace to
-    ``logdir/trace.json`` (open it in chrome://tracing or Perfetto)."""
+    ``logdir/trace.json`` (open it in chrome://tracing or Perfetto). It
+    records shapes, so the port's spans carry their batch numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, record_shapes=True) as prof:
         yield prof
         sync()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
