@@ -13,7 +13,9 @@ a real 640x480 frame from the card; the lax engine's threefry bits, LBVH
 hits and renders on the card against the CPU's; render_sharded over a mesh
 of cuda:0 entries against its kernels' and plain versions' bands, and its
 lax engine against the CPU's; the port's spans and upload counter under
-a profiler.
+a profiler; a RayTracer's kernel inputs, built once per scene and pose,
+against the per-call path, and its batches enqueued without waiting for
+the card.
 
 Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is
 False. Imports no jax, so it runs on a machine with torch alone:
@@ -1116,13 +1118,14 @@ def _api_field(n):
 def test_port_spans_are_flat_siblings_and_uploads_repeat(dev, engine):
     """Under a profiler, each RayTracer batch on the card runs the port's
     spans camera, (order on a camera move,) prepare and launch, in that
-    order, none inside another, all with the batch's number; every batch
-    counts the same 9 uploads (make_camera's 7, basis's 2), as on the
+    order, none inside another, all with the batch's number; the first
+    batch of a pose counts 9 uploads (make_camera's 7, basis's 2), a batch
+    that repeats it none, and the first after a move 9 again, as on the
     CPU."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_rt_torch.api import RayTracer
+    from tpu_rt_torch.api import RayTracer, Vector3
     from tpu_rt_torch.app import SceneManager
     from tpu_rt_torch.utils import profiling
 
@@ -1132,12 +1135,14 @@ def test_port_spans_are_flat_siblings_and_uploads_repeat(dev, engine):
     uploads = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        for _ in range(3):
+        for moved in (False, False, False, True):
+            if moved:
+                rt.move_camera(Vector3(0.25, 0.0, 0.0))
             before = profiling.counts()["uploads"]
             rt.render_device(256, 128, 2, 3)
             uploads.append(profiling.counts()["uploads"] - before)
         torch.cuda.synchronize(dev)
-    assert rt._last_engine == engine and uploads == [9, 9, 9]
+    assert rt._last_engine == engine and uploads == [9, 0, 0, 9]
     spans = sorted(((ev.start_ns(), ev.end_ns(), ev.name(),
                      ev.kwinputs().get("batch"))
                     for ev in prof.profiler.kineto_results.events()
@@ -1150,4 +1155,86 @@ def test_port_spans_are_flat_siblings_and_uploads_repeat(dev, engine):
         else ["camera", "prepare", "launch"]
     assert phases == ([(p, 0) for p in first]
                       + [(p, b) for b in (1, 2)
-                         for p in ("camera", "prepare", "launch")])
+                         for p in ("camera", "prepare", "launch")]
+                      + [(p, 3) for p in first])
+
+
+def _fresh_render(rt, scene, batch, shape, **kw):
+    """RayTracer batch ``batch`` as a fresh ``frame.render`` on the card
+    draws it: a new camera with the tracer's camera values and the scene
+    snapshotted anew, every kernel input built inside the call."""
+    from tpu_rt_torch.api import Camera
+    from tpu_rt_torch.api.compat import batch_seed
+    from tpu_rt_torch.render import frame
+
+    width, height, spp, depth = shape
+    c = Camera()
+    for name in ("position", "target", "up", "fov"):
+        setattr(c, name, getattr(rt.camera, name))
+    c.aspect_ratio = width / height
+    arrays = scene.to_arrays(device=rt.device)
+    return frame.render(
+        arrays, c.to_params(rt.device), batch_seed(rt._seed_base, batch),
+        width=width, height=height, spp=spp, max_depth=depth,
+        n_active=frame.quantize_count(len(scene.spheres), arrays.capacity),
+        nee=rt._nee, enable_dof=False, **kw)
+
+
+@pytest.mark.parametrize("case", ["pallas", "pallas_nee", "cluster"])
+def test_raytracer_inputs_built_once_equal_the_per_call_path(dev, case):
+    """A RayTracer's batches on the card, whose kernel inputs are built
+    once per scene and pose, equal fresh per-call renders bit for bit,
+    image and segments, across a camera move and a repeated pose."""
+    from tpu_rt_torch.api import RayTracer, Vector3
+    from tpu_rt_torch.app import SceneManager
+    from tpu_rt_torch.api.compat import batch_seed
+    from tpu_rt_torch.render import frame
+
+    engine = case.split("_")[0]
+    scene = (SceneManager.create_interactive_scene() if engine == "pallas"
+             else _api_field(1000))
+    rt = RayTracer(seed=11, nee=case.endswith("nee"), device=dev)
+    rt.set_scene(scene)
+    shape = (640, 480, 8, 4)
+    for moved in (False, False, True, False):
+        if moved:
+            rt.move_camera(Vector3(0.3, -0.1, 0.2))
+        batch = rt._frame
+        img = rt.render_device(*shape)
+        assert rt._last_engine == engine
+        ref, ref_segs = _fresh_render(rt, scene, batch, shape,
+                                      with_stats=True)
+        cam, packed = rt._pose
+        cached, segs = frame.render(
+            rt._scene_arrays, cam, batch_seed(rt._seed_base, batch),
+            width=640, height=480, spp=8, max_depth=4, n_active=rt._n_active,
+            nee=rt._nee, enable_dof=False, lights=rt._lights,
+            tables=rt._tables, packed_camera=packed, with_stats=True)
+        torch.cuda.synchronize(dev)
+        assert torch.equal(img, ref) and torch.equal(cached, ref)
+        assert int(segs) == int(ref_segs)
+
+
+def test_render_device_does_not_wait_for_the_running_batch(dev):
+    """With a long K1 batch (1080p, 256 spp) queued and no pull, the next
+    batch of the same pose returns to the host in under 1 ms (median of
+    5), and the stream is still busy after it: nothing in the call waited
+    for the card."""
+    from tpu_rt_torch.api import RayTracer
+    from tpu_rt_torch.app import SceneManager
+
+    rt = RayTracer(seed=3, device=dev)
+    rt.set_scene(SceneManager.create_interactive_scene())
+    shape = (1920, 1080, 256, 4)
+    rt.render_device(*shape)  # the pose's inputs, the kernels' build
+    stream = torch.cuda.current_stream(dev)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize(dev)
+        rt.render_device(*shape)
+        t0 = time.perf_counter()
+        rt.render_device(*shape)
+        times.append(time.perf_counter() - t0)
+        assert not stream.query()
+    torch.cuda.synchronize(dev)
+    assert sorted(times)[2] < 1e-3, times

@@ -50,13 +50,14 @@ def cornell_bulb():
 
 def plain_tile_segments(scene, cam, seed, **kw):
     """The plain version's per-tile segment counts (n_tiles,)."""
-    attr, cam_p, bg, out_rows, row_offset, n_tiles, mask = mk._prepare(
+    tables, cam_p, out_rows, row_offset, n_tiles, mask = mk._prepare(
         scene, cam, kw.get("n_active"), kw["width"], kw["height"], kw["spp"],
         kw["max_depth"], kw.get("rows"), kw.get("row_offset", 0),
-        kw.get("nee", False), None, kw.get("tile_mask"))
-    tris = mk._pack_tris(kw.get("mesh"), kw.get("n_tri_active"))
+        kw.get("nee", False), None, kw.get("tile_mask"), kw.get("mesh"),
+        kw.get("n_tri_active"))
     _, segs, _ = mk._trace_plain(
-        attr, tris, cam_p, bg, seed, kw["width"], kw["height"], kw["spp"],
+        tables.attr, tables.tris, cam_p, tables.background, seed,
+        kw["width"], kw["height"], kw["spp"],
         kw["max_depth"], True, n_tiles,
         refract=kw.get("enable_refraction", False),
         stratify=kw.get("stratify", False), nee=kw.get("nee", False),

@@ -5,9 +5,10 @@ profiling.py``) on the CPU, and the benchmark's readers of them
 A span is entered only while a profiler records; under one, the camera
 upload of ``RayTracer.render_device`` lies directly under the benchmark's
 ``rtbench.render_device`` range with its batch number, the cluster tables'
-order only on a camera move, and every batch copies the same number of
-host arrays to the device. The wrappers' ``prepare`` and ``launch`` spans
-run on the card only (``tests/test_torch_gpu.py``).
+order only on a camera move, and the first batch of every camera pose
+copies the same number of host arrays to the device, a batch that repeats
+its pose none. The wrappers' ``prepare`` and ``launch`` spans run on the
+card only (``tests/test_torch_gpu.py``).
 """
 
 import json
@@ -25,8 +26,9 @@ from tpu_rt_torch.utils import profiling
 CPU = torch.device("cpu")
 torch.set_num_threads(1)
 SHAPE = (32, 32, 1, 2)  # width, height, spp, depth
-# a batch's uploads: make_camera's seven host_tensor copies and basis's two
-# constants (the same for both engines, with NEE or without)
+# the uploads of a pose's first batch: make_camera's seven host_tensor
+# copies and basis's two constants (the same for both engines, with NEE or
+# without); a batch that repeats its pose uploads nothing
 UPLOADS_PER_BATCH = 9
 
 
@@ -133,11 +135,13 @@ def test_order_span_on_the_first_batch_of_a_camera_position_only():
 def test_uploads_per_batch_are_equal_and_pinned(engine, nee):
     rt = _tracer(engine, nee)
     per_batch = []
-    for _ in range(3):
+    for moved in (False, False, False, True, False):
+        if moved:
+            rt.move_camera(Vector3(0.25, 0.0, 0.0))
         before = profiling.counts().get("uploads", 0)
         rt.render_device(*SHAPE)
         per_batch.append(profiling.counts()["uploads"] - before)
-    assert per_batch == [UPLOADS_PER_BATCH] * 3
+    assert per_batch == [UPLOADS_PER_BATCH, 0, 0, UPLOADS_PER_BATCH, 0]
 
 
 def test_traced_counts_are_kept_apart_and_cleared_by_the_next_profiler():

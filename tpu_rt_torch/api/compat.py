@@ -360,6 +360,14 @@ class Scene:
         )
 
 
+def _pose_key(cam: Camera) -> bytes:
+    """The values ``Camera.to_params`` reads, as the f32 bytes it uploads."""
+    return np.array([cam.position.x, cam.position.y, cam.position.z,
+                     cam.target.x, cam.target.y, cam.target.z,
+                     cam.up.x, cam.up.y, cam.up.z, cam.fov, cam.aspect_ratio,
+                     *_lens(cam)], np.float32).tobytes()
+
+
 def batch_seed(seed_base: int, frame: int) -> int:
     """The stream seed of progressive batch ``frame``: the JAX package's
     host-side arithmetic, unchanged (``seed_base`` is the tracer's seed
@@ -377,9 +385,15 @@ class RayTracer:
     here rather than rendering somewhere else.
 
     A scene that resolves to the cluster engine has its tables (and its
-    mesh's) built once at ``set_scene``/``set_mesh`` and ordered once per
-    camera position (keyed by the position's Python floats), so no frame
-    rebuilds or reorders them.
+    mesh's) built once at ``set_scene``/``set_mesh`` and ordered and
+    checked once per camera position (keyed by the position's Python
+    floats), so no frame rebuilds or reorders them. The megakernel's
+    scene tables are built once per scene, mesh and NEE flag, and the
+    camera is uploaded and packed once per pose (keyed by the f32 values
+    that ``Camera.to_params`` reads, since the app moves ``camera`` in
+    place); each build counts one ``input_builds``
+    (``utils/profiling.py``), and a batch of a repeated pose uploads
+    nothing.
 
     ``enable_refraction`` makes materials with metallic <= 0, roughness <= 0
     and ior > 1 glass; ``set_stratify`` switches R2 stratified pixel
@@ -422,17 +436,22 @@ class RayTracer:
         # whether the last batch rendered with its tile mask (megakernel)
         self._last_adaptive: bool = False
         # cluster engine tables: built per snapshot, ordered per position
+        # (the position they were ordered at)
         self._clustered: _C.ClusteredScene | None = None
-        self._ordered: _C.ClusteredScene | None = None
         self._ordered_at: tuple | None = None
         # an optional TriangleMesh rendered beside the spheres, its quantized
-        # active count, and its cluster tables (built, ordered)
+        # active count, and its cluster tables
         self._mesh = None
         self._n_tri_active: int | None = None
         self._tri_clustered: _C.ClusteredScene | None = None
-        self._tri_ordered: _C.ClusteredScene | None = None
         # the engine's NEE light cdf (megakernel) or table (cluster)
         self._lights: torch.Tensor | None = None
+        # the kernel's inputs: the engine's tables (megakernel: per scene,
+        # mesh and NEE flag; cluster: ordered and checked per camera
+        # position), and the pose's CameraP and packed camera under their key
+        self._tables = None
+        self._pose_key: bytes | None = None
+        self._pose: tuple | None = None
 
     def set_scene(self, scene: Scene):
         snap = Scene()
@@ -480,17 +499,18 @@ class RayTracer:
         """Build the cluster tables of the scene (and mesh) once, when they
         resolve to the cluster engine (they are ordered at the next
         render), and with NEE on the engine's light cdf or table."""
-        self._clustered = self._ordered = self._ordered_at = None
-        self._tri_clustered = self._tri_ordered = None
+        self._clustered = self._tri_clustered = self._ordered_at = None
+        if self._has_spheres() and self._engine() == "cluster":
+            self._clustered = _C.build_clusters(self._scene_arrays,
+                                                n_active=self._n_active)
+            if self._mesh is not None:
+                self._tri_clustered = _C.build_tri_clusters(
+                    self._mesh, n_active=self._n_tri_active)
         self._build_lights()
-        if (self._scene_arrays is None or not self._scene_snapshot.spheres
-                or self._engine() != "cluster"):
-            return
-        self._clustered = _C.build_clusters(self._scene_arrays,
-                                            n_active=self._n_active)
-        if self._mesh is not None:
-            self._tri_clustered = _C.build_tri_clusters(
-                self._mesh, n_active=self._n_tri_active)
+
+    def _has_spheres(self) -> bool:
+        return (self._scene_arrays is not None
+                and bool(self._scene_snapshot.spheres))
 
     def _engine(self) -> str:
         return _F.select_engine(self._scene_arrays, self._mode,
@@ -503,13 +523,36 @@ class RayTracer:
 
     def _build_lights(self):
         """With NEE on, build the engine's light cdf (megakernel) or light
-        table (cluster) of the scene once."""
+        table (cluster) of the scene once; then the kernel's tables."""
         self._lights = None
-        if (self._nee and self._scene_arrays is not None
-                and self._scene_snapshot.spheres):
+        if self._nee and self._has_spheres():
             self._lights = (_C.light_table(self._scene_arrays)
                             if self._engine() == "cluster"
                             else _MK.light_cdf(self._scene_arrays))
+        self._build_inputs()
+
+    def _build_inputs(self):
+        """The kernel's tables of the scene, mesh and NEE flag, counted as
+        one ``input_builds``: the megakernel's :func:`scene_tables`; the
+        cluster engine's tables, built at ``_build_tables``, are checked
+        with the light table where they are ordered, and here again if
+        they already are (a switch of NEE)."""
+        tables, self._tables = self._tables, None
+        if not self._has_spheres():
+            return
+        engine = self._engine()
+        if engine == "pallas":
+            self._tables = _MK.scene_tables(
+                self._scene_arrays, self._n_active, nee=self._nee,
+                lights=self._lights, mesh=self._mesh,
+                n_tri_active=self._n_tri_active)
+        elif engine == "cluster":
+            if self._ordered_at is not None:
+                self._tables = _C.check_tables(tables.spheres, tables.tris,
+                                               self._lights)
+        else:
+            return
+        profiling.count("input_builds")
 
     def set_nee(self, enable: bool):
         """Switch next-event estimation (direct light by shadow rays to the
@@ -564,21 +607,19 @@ class RayTracer:
         if not self._last_adaptive:
             tile_mask = None
         with profiling.span("camera", batch):
-            cam = self.camera.to_params(self.device)
-        kw = {}
+            cam, packed = self._camera_inputs()
         if self._last_engine == "cluster":
             pos = self.camera.position
             at = (pos.x, pos.y, pos.z)
             if at != self._ordered_at:
                 with profiling.span("order"):
-                    self._ordered = _C.order_clusters(self._clustered,
-                                                      cam.position)
-                    if self._tri_clustered is not None:
-                        self._tri_ordered = _C.order_clusters(
-                            self._tri_clustered, cam.position)
+                    tri = self._tri_clustered
+                    self._tables = _C.check_tables(
+                        _C.order_clusters(self._clustered, cam.position),
+                        None if tri is None
+                        else _C.order_clusters(tri, cam.position),
+                        self._lights)
                 self._ordered_at = at
-            kw = dict(prebuilt=self._ordered, tri_prebuilt=self._tri_ordered,
-                      pre_ordered=True)
         img = _F.render(
             self._scene_arrays, cam, seed, width=width, height=height,
             spp=samples_per_pixel, max_depth=max_depth, mode=self._mode,
@@ -587,11 +628,29 @@ class RayTracer:
             n_active=self._n_active, mesh=self._mesh,
             n_tri_active=self._n_tri_active,
             enable_refraction=self._enable_refraction,
-            stratify=self._stratify, nee=self._nee, lights=self._lights,
+            stratify=self._stratify, nee=self._nee,
             enable_dof=_lens(self.camera)[0] > 0.0,
-            tile_mask=tile_mask, **kw)
+            tile_mask=tile_mask, tables=self._tables, packed_camera=packed)
         self._debug.render_count += 1
         return img
+
+    def _camera_inputs(self):
+        """The pose's CameraP and packed camera. They are built (one
+        ``input_builds``) when a value that ``Camera.to_params`` reads
+        differs, as f32, from the last batch's; a repeated pose reuses
+        them and uploads nothing (``uploads`` counts 0, so a traced window
+        of such batches still reads the counter)."""
+        if _pose_key(self.camera) == self._pose_key:
+            profiling.count("uploads", 0)
+            return self._pose
+        # one snapshot gives the key and the tensors, so a camera moved
+        # by another thread meanwhile cannot pair them wrongly
+        snap = self.camera.copy()
+        cam = snap.to_params(self.device)
+        self._pose = cam, _MK.pack_camera(cam, self.device)
+        self._pose_key = _pose_key(snap)
+        profiling.count("input_builds")
+        return self._pose
 
     def trace_ray(self, ray: Ray, depth: int, max_depth: int) -> Vector3:
         """Single-ray radiance estimate by the lax integrator's ``trace``,

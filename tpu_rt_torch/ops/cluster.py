@@ -437,48 +437,30 @@ def _checked(cl: ClusteredScene, what: str) -> ClusteredScene:
     return ClusteredScene(*(t.contiguous() for t in cl))
 
 
-def _prepare(scene, cam, *, width, height, spp, max_depth, cluster_size,
-             n_active, mesh, n_tri_active, prebuilt, tri_prebuilt,
-             pre_ordered, nee, n_lights_max, lights, tile_mask, rows,
-             row_offset, **_):
-    """Validate a call (a band's rows and first row are multiples of 32);
-    build and order the sphere tables, and the triangle tables of a mesh,
-    unless given; with ``nee`` the light table, unless given; pack the
-    camera; put the tile mask on the tables' device. Returns (sphere
-    tables, triangle tables or None, light table or None, camera (16,),
-    blocks_x, blocks_y, band rows, first row, mask or None)."""
-    for name, val in (("width", width), ("height", height), ("spp", spp),
-                      ("max_depth", max_depth)):
-        if int(val) < 1:
-            raise ValueError(f"{name} must be >= 1, got {val}")
-    out_rows, row0 = mk.band(width, height, rows, row_offset)
-    if row0 % SUBLANES or (rows is not None and out_rows % SUBLANES):
-        raise ValueError(f"band rows={rows} and row_offset={row_offset} "
-                         f"must be multiples of {SUBLANES}")
-    cl = prebuilt if prebuilt is not None else build_clusters(
-        scene, cluster_size=cluster_size, n_active=n_active)
-    if not (pre_ordered and prebuilt is not None):
-        cl = order_clusters(cl, cam.position)
+class CheckedTables(NamedTuple):
+    """The cluster kernel's tables as :func:`check_tables` returns them:
+    the sphere tables, the triangle tables or None, the NEE light table
+    (:func:`light_table`) or None."""
+
+    spheres: ClusteredScene
+    tris: ClusteredScene | None
+    lights: torch.Tensor | None
+
+
+def check_tables(cl: ClusteredScene, tri: ClusteredScene | None = None,
+                 lights: torch.Tensor | None = None) -> CheckedTables:
+    """Raise unless the tables (and the light table) have the dtypes and
+    shapes the kernel reads, on one device; returns them contiguous. A
+    caller rendering many batches from one camera position checks its
+    ordered tables once and passes them as ``tables=`` (``RayTracer``
+    does, per position and NEE flag)."""
     cl = _checked(cl, "sphere")
-    tri = None
-    if mesh is not None or tri_prebuilt is not None:
-        tri = tri_prebuilt if tri_prebuilt is not None else (
-            build_tri_clusters(mesh, cluster_size=cluster_size,
-                               n_active=n_tri_active))
-        if not (pre_ordered and tri_prebuilt is not None):
-            tri = order_clusters(tri, cam.position)
+    if tri is not None:
         tri = _checked(tri, "triangle")
         if tri.attr.device != cl.attr.device:
             raise ValueError("the triangle tables lie on "
                              f"{tri.attr.device}, the sphere tables on "
                              f"{cl.attr.device}")
-    if not nee:
-        lights = None
-    elif lights is None:
-        if scene is None:
-            raise ValueError("nee needs the scene or lights= from "
-                             "light_table(scene)")
-        lights = light_table(scene, n_lights_max)
     if lights is not None:
         n = lights.numel() - 1
         if (lights.dtype != torch.float32 or lights.dim() != 1 or n % 8
@@ -489,11 +471,67 @@ def _prepare(scene, cam, *, width, height, spp, max_depth, cluster_size,
                 f"{MAX_LIGHTS} on {cl.attr.device}, got {lights.dtype} "
                 f"{tuple(lights.shape)} on {lights.device}")
         lights = lights.contiguous()
+    return CheckedTables(cl, tri, lights)
+
+
+def _prepare(scene, cam, *, width, height, spp, max_depth, cluster_size,
+             n_active, mesh, n_tri_active, prebuilt, tri_prebuilt,
+             pre_ordered, nee, n_lights_max, lights, tile_mask, rows,
+             row_offset, tables, packed_camera, **_):
+    """Validate a call (a band's rows and first row are multiples of 32);
+    unless ``tables`` (:func:`check_tables`) are given: build and order the
+    sphere tables, and the triangle tables of a mesh, unless given, with
+    ``nee`` the light table, unless given, and check them; pack the camera
+    unless ``packed_camera`` is given; put the tile mask on the tables'
+    device. Returns (sphere tables, triangle tables or None, light table or
+    None, camera (16,), blocks_x, blocks_y, band rows, first row, mask or
+    None)."""
+    for name, val in (("width", width), ("height", height), ("spp", spp),
+                      ("max_depth", max_depth)):
+        if int(val) < 1:
+            raise ValueError(f"{name} must be >= 1, got {val}")
+    out_rows, row0 = mk.band(width, height, rows, row_offset)
+    if row0 % SUBLANES or (rows is not None and out_rows % SUBLANES):
+        raise ValueError(f"band rows={rows} and row_offset={row_offset} "
+                         f"must be multiples of {SUBLANES}")
+    if tables is None:
+        cl = prebuilt if prebuilt is not None else build_clusters(
+            scene, cluster_size=cluster_size, n_active=n_active)
+        if not (pre_ordered and prebuilt is not None):
+            cl = order_clusters(cl, cam.position)
+        tri = None
+        if mesh is not None or tri_prebuilt is not None:
+            tri = tri_prebuilt if tri_prebuilt is not None else (
+                build_tri_clusters(mesh, cluster_size=cluster_size,
+                                   n_active=n_tri_active))
+            if not (pre_ordered and tri_prebuilt is not None):
+                tri = order_clusters(tri, cam.position)
+        if not nee:
+            lights = None
+        elif lights is None:
+            if scene is None:
+                raise ValueError("nee needs the scene or lights= from "
+                                 "light_table(scene)")
+            lights = light_table(scene, n_lights_max)
+        tables = check_tables(cl, tri, lights)
+    elif not isinstance(tables, CheckedTables):
+        raise TypeError(f"tables must be the cluster engine's CheckedTables, "
+                        f"got {type(tables).__name__}")
+    elif ((tables.tris is None) != (mesh is None and tri_prebuilt is None)
+            or (nee and tables.lights is None)):
+        raise ValueError(
+            f"tables do not fit this call: triangle tables "
+            f"{tables.tris is not None} with a mesh "
+            f"{mesh is not None or tri_prebuilt is not None}, a light table "
+            f"{tables.lights is not None} with nee={bool(nee)}")
+    cl, tri = tables.spheres, tables.tris
+    dev = cl.attr.device
     blocks_x, blocks_y = -(-width // LANES), -(-out_rows // SUBLANES)
-    return (cl, tri, lights,
-            mk._pack_camera(cam).to(cl.attr.device).contiguous(),
+    return (cl, tri, tables.lights if nee else None,
+            mk.pack_camera(cam, dev) if packed_camera is None
+            else mk._check_camera(packed_camera, dev),
             blocks_x, blocks_y, out_rows, row0,
-            mk.tile_mask_on(tile_mask, blocks_x * blocks_y, cl.attr.device))
+            mk.tile_mask_on(tile_mask, blocks_x * blocks_y, dev))
 
 
 def _table_rows(cl: ClusteredScene) -> torch.Tensor:
@@ -1083,6 +1121,8 @@ def render_cluster_reference(
     n_lights_max: int = DEFAULT_LIGHTS,
     lights: torch.Tensor | None = None,
     with_visits: bool = False,
+    tables: CheckedTables | None = None,
+    packed_camera: torch.Tensor | None = None,
 ):
     """The plain PyTorch version of the cluster kernel, on any device.
 
@@ -1133,6 +1173,8 @@ def render_cluster(
     n_lights_max: int = DEFAULT_LIGHTS,
     lights: torch.Tensor | None = None,
     with_visits: bool = False,
+    tables: CheckedTables | None = None,
+    packed_camera: torch.Tensor | None = None,
 ):
     """Render one batch of ``spp`` samples of a large scene through the
     cluster engine.
@@ -1158,7 +1200,12 @@ def render_cluster(
     ``enable_dof``, ``stratify`` and ``nee`` are the megakernel's (see
     ``render_megakernel``); NEE samples the light table ``lights``
     (:func:`light_table` of the scene with ``n_lights_max`` rows, built
-    here when None).
+    here when None). ``tables`` (:func:`check_tables` of the ordered
+    tables and light table; then neither ``scene``, ``prebuilt`` nor
+    ``lights`` is read) and ``packed_camera`` (``ops/megakernel.py:
+    pack_camera`` of ``cam``) pass the kernel's inputs checked once per
+    camera position and packed once per pose; without them each call
+    checks and packs its own.
 
     ``rows``/``row_offset`` (multiples of 32) render the band of ``rows``
     image rows from frame row ``row_offset`` as a (rows, width, 3) image;
@@ -1178,7 +1225,8 @@ def render_cluster(
     """
     kw = {k: v for k, v in locals().items() if k not in ("scene", "cam",
                                                          "seed")}
-    dev = (prebuilt.attr if prebuilt is not None else scene.center).device
+    given = tables.spheres if isinstance(tables, CheckedTables) else prebuilt
+    dev = (given.attr if given is not None else scene.center).device
     if dev.type == "cpu":
         return render_cluster_reference(scene, cam, seed, **kw)
     if dev.type != "cuda":

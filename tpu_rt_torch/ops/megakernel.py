@@ -30,6 +30,8 @@ CUDA kernel for scenes on a CUDA device; there is no other path.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -116,6 +118,26 @@ def _pack_camera(cam: CameraP) -> torch.Tensor:
     ]).to(torch.float32)
 
 
+def pack_camera(cam: CameraP, device) -> torch.Tensor:
+    """The kernels' packed camera (:func:`_pack_camera`), contiguous on
+    ``device``. It depends on the pose alone: a caller rendering many
+    batches of one pose packs it once and passes it as ``packed_camera=``
+    (``RayTracer`` does)."""
+    return _pack_camera(cam).to(device).contiguous()
+
+
+def _check_camera(packed: torch.Tensor, device) -> torch.Tensor:
+    """Raise unless ``packed`` is a packed camera the kernels can read on
+    ``device``; returns it."""
+    if (packed.shape != (16,) or packed.dtype != torch.float32
+            or not packed.is_contiguous() or packed.device != device):
+        raise ValueError(
+            f"packed_camera must be pack_camera(cam, {device}): (16,) "
+            f"contiguous float32, got {packed.dtype} {tuple(packed.shape)} "
+            f"on {packed.device}")
+    return packed
+
+
 def _pack_tris(mesh, n_tri_active):
     """The kernel's (n_tris, 21) f32 triangle table: v0, e1, e2, the face
     normal, albedo, metallic, roughness, emission, ior, for the first
@@ -176,26 +198,42 @@ def tile_mask_on(tile_mask, n_tiles, device):
     return mask.reshape(n_tiles).contiguous()
 
 
-def _prepare(scene: SphereScene, cam: CameraP, n_active, width, height,
-             spp, max_depth, rows, row_offset, nee=False, lights=None,
-             tile_mask=None):
-    """Validate a call and pack the kernel's inputs on the scene's device:
-    with ``nee``, the light cdf (``lights``, else built here) in attribute
-    column 15 and the light count as a 4th background word. Returns
-    (attr, camera, background, band rows, row offset, n_tiles, mask or
-    None)."""
-    for name, val in (("width", width), ("height", height), ("spp", spp),
-                      ("max_depth", max_depth)):
-        if int(val) < 1:
-            raise ValueError(f"{name} must be >= 1, got {val}")
-    out_rows, row_offset = band(width, height, rows, row_offset)
+class SceneTables(NamedTuple):
+    """The megakernel's inputs that depend on the scene alone
+    (:func:`scene_tables`), each f32 and contiguous on the scene's device.
+
+    attr:        (n_spheres, 16) attribute table (:func:`attribute_matrix`
+                 of the first n_spheres rows; with NEE the light cdf in
+                 column 15)
+    background:  (3,), or with NEE (4,): the light count appended
+    tris:        (n_tris, 21) triangle table (:func:`_pack_tris`), or None
+                 without a mesh
+    """
+
+    attr: torch.Tensor
+    background: torch.Tensor
+    tris: torch.Tensor | None
+
+
+def _n_spheres(scene: SphereScene, n_active) -> int:
     n_spheres = scene.capacity if n_active is None else max(1, int(n_active))
     if n_spheres > min(MAX_SPHERES, scene.capacity):
         raise ValueError(f"n_active={n_spheres} exceeds the scene bucket "
                          f"({scene.capacity}) or the kernel's {MAX_SPHERES}")
+    return n_spheres
+
+
+def scene_tables(scene: SphereScene, n_active: int | None = None, *,
+                 nee: bool = False, lights: torch.Tensor | None = None,
+                 mesh=None, n_tri_active: int | None = None) -> SceneTables:
+    """The kernel's scene inputs of the first ``n_active`` spheres (default:
+    the whole bucket): with ``nee``, the light cdf (``lights``, else built
+    here) in attribute column 15 and the light count as a 4th background
+    word; with a ``mesh``, its first ``n_tri_active`` triangles. A caller
+    rendering many batches of one scene builds them once and passes them
+    as ``tables=`` (``RayTracer`` does, per scene, mesh and NEE flag)."""
+    n_spheres = _n_spheres(scene, n_active)
     dev = scene.device
-    n_tiles = -(-width * out_rows // TILE)
-    mask = tile_mask_on(tile_mask, n_tiles, dev)
     cdf = None
     bg = scene.background
     if nee:
@@ -207,12 +245,61 @@ def _prepare(scene: SphereScene, cam: CameraP, n_active, width, height,
                 f"on {dev}, got {tuple(lights.shape)} on {lights.device}")
         cdf = lights[:-1]
         bg = torch.cat([bg, lights[-1:]])
+    tris = _pack_tris(mesh, n_tri_active)
+    if tris is not None and tris.device != dev:
+        raise ValueError(f"the mesh lies on {tris.device}, the scene on "
+                         f"{dev}")
     # the kernel reads f32, contiguous, on the scene's device
     attr = attribute_matrix(scene, cdf)[:n_spheres].to(
         torch.float32).contiguous()
-    cam_packed = _pack_camera(cam).to(dev).contiguous()
-    bg = bg.to(torch.float32).contiguous()
-    return attr, cam_packed, bg, out_rows, row_offset, n_tiles, mask
+    return SceneTables(attr, bg.to(torch.float32).contiguous(), tris)
+
+
+def _check_tables(tables, scene: SphereScene, n_active, nee, mesh):
+    """Raise unless ``tables`` are :func:`scene_tables` of a scene like
+    ``scene`` with this sphere count, NEE flag and mesh or none."""
+    if not isinstance(tables, SceneTables):
+        raise TypeError(f"tables must be the megakernel's SceneTables, got "
+                        f"{type(tables).__name__}")
+    want = ((_n_spheres(scene, n_active), 16), (4,) if nee else (3,))
+    if ((tables.attr.shape, tables.background.shape) != want
+            or (tables.tris is None) != (mesh is None)
+            or any(t.dtype != torch.float32 or not t.is_contiguous()
+                   or t.device != scene.device
+                   for t in tables if t is not None)):
+        raise ValueError(
+            f"tables do not fit this call: attr {tuple(tables.attr.shape)} "
+            f"and background {tuple(tables.background.shape)} (want "
+            f"{want}), {'a' if tables.tris is not None else 'no'} triangle "
+            f"table for {'a' if mesh is not None else 'no'} mesh, on "
+            f"{tables.attr.device} (scene on {scene.device})")
+
+
+def _prepare(scene: SphereScene, cam: CameraP, n_active, width, height,
+             spp, max_depth, rows, row_offset, nee=False, lights=None,
+             tile_mask=None, mesh=None, n_tri_active=None, tables=None,
+             packed_camera=None):
+    """Validate a call and gather the kernel's inputs on the scene's
+    device: ``tables`` (:func:`scene_tables`, else built here from
+    ``lights`` and the mesh) and ``packed_camera`` (:func:`pack_camera`,
+    else packed here). Returns (tables, camera, band rows, row offset,
+    n_tiles, mask or None)."""
+    for name, val in (("width", width), ("height", height), ("spp", spp),
+                      ("max_depth", max_depth)):
+        if int(val) < 1:
+            raise ValueError(f"{name} must be >= 1, got {val}")
+    out_rows, row_offset = band(width, height, rows, row_offset)
+    dev = scene.device
+    if tables is None:
+        tables = scene_tables(scene, n_active, nee=nee, lights=lights,
+                              mesh=mesh, n_tri_active=n_tri_active)
+    else:
+        _check_tables(tables, scene, n_active, nee, mesh)
+    packed_camera = (pack_camera(cam, dev) if packed_camera is None
+                     else _check_camera(packed_camera, dev))
+    n_tiles = -(-width * out_rows // TILE)
+    mask = tile_mask_on(tile_mask, n_tiles, dev)
+    return tables, packed_camera, out_rows, row_offset, n_tiles, mask
 
 
 def _finish(img, segs, n_pix, n_tiles, with_stats):
@@ -758,6 +845,8 @@ def render_megakernel_reference(
     lights: torch.Tensor | None = None,
     tile_mask=None,
     with_visits: bool = False,
+    tables: SceneTables | None = None,
+    packed_camera: torch.Tensor | None = None,
 ):
     """The plain PyTorch version of the megakernel, on any device.
 
@@ -765,15 +854,14 @@ def render_megakernel_reference(
     [0, 1] (the linear mean with ``gamma=False``), plus the real-pixel
     segment count when ``with_stats``, plus with ``with_visits`` the
     counts of :func:`megakernel_visits_reference`."""
-    attr, cam_packed, bg, out_rows, row_offset, n_tiles, mask = _prepare(
+    tables, cam_packed, out_rows, row_offset, n_tiles, mask = _prepare(
         scene, cam, n_active, width, height, spp, max_depth, rows, row_offset,
-        nee, lights, tile_mask)
-    tris = _pack_tris(mesh, n_tri_active)
+        nee, lights, tile_mask, mesh, n_tri_active, tables, packed_camera)
     img, segs, vis = _trace_plain(
-        attr, tris, cam_packed, bg, seed, width, height, spp, max_depth,
-        jitter, n_tiles, bool(enable_refraction), bool(enable_dof),
-        bool(stratify), bool(nee), bool(gamma), out_rows, row_offset, mask,
-        bool(with_visits))
+        tables.attr, tables.tris, cam_packed, tables.background, seed, width,
+        height, spp, max_depth, jitter, n_tiles, bool(enable_refraction),
+        bool(enable_dof), bool(stratify), bool(nee), bool(gamma), out_rows,
+        row_offset, mask, bool(with_visits))
     return _with_visits(_finish(img.reshape(out_rows, width, 3), segs,
                                 width * out_rows, n_tiles, with_stats), vis)
 
@@ -822,6 +910,8 @@ def render_megakernel(
     lights: torch.Tensor | None = None,
     tile_mask=None,
     with_visits: bool = False,
+    tables: SceneTables | None = None,
+    packed_camera: torch.Tensor | None = None,
 ):
     """Render one batch of ``spp`` samples through the megakernel.
 
@@ -841,6 +931,11 @@ def render_megakernel(
     spheres, whose light cdf ``lights`` (:func:`light_cdf`, built here when
     None) a caller rendering many frames builds once; each shadow ray
     counts as one more segment.
+
+    ``tables`` (:func:`scene_tables` of this scene, sphere count, NEE flag
+    and mesh; then ``lights`` is not read) and ``packed_camera``
+    (:func:`pack_camera` of ``cam``) pass the kernel's inputs built once
+    per scene and per pose; without them each call builds its own.
 
     ``rows``/``row_offset`` render the band of ``rows`` image rows from
     global row ``row_offset`` as a (rows, width, 3) image, as
@@ -872,19 +967,18 @@ def render_megakernel(
             mesh=mesh, n_tri_active=n_tri_active,
             enable_refraction=enable_refraction, enable_dof=enable_dof,
             stratify=stratify, nee=nee, gamma=gamma, lights=lights,
-            tile_mask=tile_mask, with_visits=with_visits)
+            tile_mask=tile_mask, with_visits=with_visits, tables=tables,
+            packed_camera=packed_camera)
     if dev.type != "cuda":
         raise ValueError(f"render_megakernel runs on cpu or cuda, not {dev}")
 
     with torch.cuda.device(dev):
         with profiling.span("prepare"):
-            attr, cam_packed, bg, out_rows, row_offset, n_tiles, mask = (
+            tables, cam_packed, out_rows, row_offset, n_tiles, mask = (
                 _prepare(scene, cam, n_active, width, height, spp, max_depth,
-                         rows, row_offset, nee, lights, tile_mask))
-            tris = _pack_tris(mesh, n_tri_active)
-            if tris is not None and tris.device != dev:
-                raise ValueError(f"the mesh lies on {tris.device}, the scene "
-                                 f"on {dev}")
+                         rows, row_offset, nee, lights, tile_mask, mesh,
+                         n_tri_active, tables, packed_camera))
+            attr, bg, tris = tables
             lib = build.load()
             n_pix = width * out_rows
             out = torch.empty((out_rows, width, 3), dtype=torch.float32,

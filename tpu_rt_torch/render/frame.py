@@ -104,6 +104,8 @@ def render(
     lights: torch.Tensor | None = None,
     use_bvh: bool = False,
     diffuse_sampling: str = "ball",
+    tables=None,
+    packed_camera: torch.Tensor | None = None,
 ):
     """Render one batch of ``spp`` samples; returns (height, width, 3) f32
     on the scene's device (plus the traced segment count with
@@ -137,6 +139,11 @@ def render(
     tables built once per scene (and mesh) and ordered once per camera
     position (``ops/cluster.py``); without them the cluster engine builds
     and orders its tables in every call.
+    ``tables``/``packed_camera`` pass the kernel's inputs built once per
+    scene (or camera position) and per pose, for the engine that resolves
+    (``ops/megakernel.py:scene_tables`` or ``ops/cluster.py:check_tables``,
+    and ``ops/megakernel.py:pack_camera``); without them the kernel's
+    wrapper builds them in every call. The lax engine reads neither.
     """
     resolved = select_engine(scene, mode, enable_refraction, gamma, mesh,
                              engine)
@@ -160,7 +167,8 @@ def render(
             diffuse_sampling=diffuse_sampling, stratify=stratify)
     flags = dict(enable_refraction=enable_refraction, enable_dof=enable_dof,
                  stratify=stratify, nee=nee, gamma=gamma, lights=lights,
-                 tile_mask=tile_mask)
+                 tile_mask=tile_mask, tables=tables,
+                 packed_camera=packed_camera)
     if n_active is None and prebuilt is None:
         n_active = quantize_count(int(scene.valid.sum()), scene.capacity)
     if tri_prebuilt is not None and resolved != "cluster":

@@ -11,7 +11,9 @@ timing a CPU run.
 :func:`span` and :func:`count` are the one place the port traces itself:
 a span is a range named ``tpu_rt_torch.<phase>`` on the profiler's host
 clock, entered only while a ``torch.profiler`` records, and :func:`counts`
-snapshots the counters (``uploads``: host data copied to a device).
+snapshots the counters (``uploads``: host data copied to a device;
+``input_builds``: kernel inputs a RayTracer built, a pose's camera or a
+scene's tables).
 """
 
 from __future__ import annotations
@@ -178,23 +180,41 @@ def cuda_frame_ms(fn: Callable[[int], object], frames: int = 7, *,
     return [events[i].elapsed_time(events[i + 1]) for i in range(frames)]
 
 
+# device activities issued in each trace's warm-up step, which the profiler
+# discards: on the card it has lost the first records of a trace, more of
+# them the longer the process has run (the first 1-12 of 10-15, between 60
+# and 170 s), and a window of RayTracer batches holds only a few
+WARMUP_ACTIVITIES = 1024
+
+
 def _device_events(fn: Callable[[int], object], frames: int, device):
     """The CUDA kernel events of a ``torch.profiler`` trace of ``frames``
-    chained calls ``fn(i)``, after one warm-up call."""
+    chained calls ``fn(i)``, after one warm-up call. The trace opens with a
+    warm-up step of :data:`WARMUP_ACTIVITIES` tiny fills, discarded, and
+    records the frames in its one active step."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     device = torch.device(device)
     if device.type != "cuda":
         raise RuntimeError(f"the profiler traces CUDA here, not {device}")
     fn(-1)
+    pad = torch.empty(1, device=device)
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(WARMUP_ACTIVITIES):
+            pad.zero_()
+        torch.cuda.synchronize(device)
+        prof.step()
         for i in range(frames):
             fn(i)
         torch.cuda.synchronize(device)
-    return [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        prof.step()
+    # the active step's range, mirrored on the device, is no device work
+    return [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+            and not ev.name.startswith("ProfilerStep")]
 
 
 def device_ms_by_kernel(fn: Callable[[int], object], frames: int = 5, *,
