@@ -38,12 +38,12 @@ from . import reference, scenes
 NUMBERS = ("acc_gap", "display_gap", "segments_gap", "samples_gap")
 
 
-def reference_unit(sc: reference.Spheres, cell, plan, unit):
+def reference_unit(sc: reference.Scene, cell, plan, unit):
     """The reference's (P, 3) accumulator of ``unit`` over its tiles, the
     pixels' x and y, and the segments of its first batch."""
     tr = plan.traffic
     cam = reference.pack_camera(unit.camera, tr["width"] / tr["height"],
-                                sc.center.device, sc.dtype)
+                                sc.device, sc.dtype)
     seeds = [reference.batch_seed(plan.tracer_seed, f) for f in unit.frames]
     return reference.render_unit(
         sc, cam, cell.config["engine"], seeds, unit.tiles, width=tr["width"],
@@ -79,8 +79,8 @@ def acc_gap(acc_prog, ref_acc, x, y) -> float:
 def judge(cell, plan, units, port_segments: int, device) -> dict:
     """The numbers compared, each as {"value", "limit"}."""
     tr = plan.traffic
-    sc = reference.Spheres(scenes.scene_arrays(cell.config),
-                           cell.config["engine"], device)
+    sc = reference.Scene(scenes.scene_arrays(cell.config),
+                         cell.config["engine"], device)
     acc_g, disp_g, seg_g, samp_g = 0.0, 0, None, 0
     want = tr["batches_per_unit"] * tr["spp"]
     for k, unit in enumerate(units):
@@ -110,8 +110,8 @@ def control(cell, plan, units, device, dtype=torch.bfloat16) -> dict:
     tr = plan.traffic
     arrays = scenes.scene_arrays(cell.config)
     engine = cell.config["engine"]
-    exact = reference.Spheres(arrays, engine, device)
-    low = reference.Spheres(arrays, engine, device, dtype)
+    exact = reference.Scene(arrays, engine, device)
+    low = reference.Scene(arrays, engine, device, dtype)
     gaps = {"acc_gap": 0.0, "segments_gap": 0.0}
     for k, unit in enumerate(units):
         ref_acc, _, _, ref_segs = reference_unit(exact, cell, plan, unit)

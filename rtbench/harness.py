@@ -5,8 +5,10 @@ from the benchmark's own loop, without its thread and sleeps:
 ``RayTracer.render_device`` -> ``render.frame.accumulate`` ->
 ``render.display.display_stack(acc, exposure, as_uint8=True)`` pulled to
 the host, with ``RayTracer.set_camera`` before each view of a ``view``
-mix. The program is imported when a run starts, never when this module
-is.
+mix. A configuration's triangle mesh is built with
+``ops/triangle.py:make_mesh`` and handed to ``RayTracer.set_mesh`` before
+the first batch. The program is imported when a run starts, never when
+this module is.
 """
 
 from __future__ import annotations
@@ -75,6 +77,21 @@ class Reservoir:
         return j if j < self.k else None
 
 
+def build_mesh(mesh: dict, device):
+    """The program's TriangleMesh (``ops/triangle.py:make_mesh``) of a
+    recipe's faces (``scenes.MESH_FIELDS``) on ``device``: face f is
+    vertices 3f, 3f + 1, 3f + 2, with its own materials."""
+    from tpu_rt_torch.ops.triangle import make_mesh
+
+    verts = mesh["vertices"]
+    f = verts.shape[0]
+    return make_mesh(verts.reshape(-1, 3), np.arange(3 * f).reshape(f, 3),
+                     albedo=mesh["albedo"], metallic=mesh["metallic"],
+                     roughness=mesh["roughness"], emission=mesh["emission"],
+                     ior=mesh["ior"], object_id=mesh["object_id"],
+                     device=device)
+
+
 class Program:
     """The system under test, one RayTracer on one device."""
 
@@ -86,10 +103,19 @@ class Program:
         self.api, self.frame, self.display = api, frame, display
         self.kernels = (megakernel.render_megakernel, cluster.render_cluster)
         self.traffic, self.device, self.plan = plan.traffic, device, plan
-        self.scene = self._scene(scenes.scene_arrays(cell.config))
+        arrays = scenes.scene_arrays(cell.config)
+        self.scene = self._scene(arrays)
+        self.mesh, self.n_tris, self.n_tri_active = None, 0, None
+        if arrays["mesh"] is not None:
+            self.mesh = build_mesh(arrays["mesh"], device)
+            self.n_tris = int(arrays["mesh"]["vertices"].shape[0])
+            self.n_tri_active = frame.quantize_count(self.n_tris,
+                                                     self.mesh.capacity)
         self.rt = api.RayTracer(seed=plan.tracer_seed,
                                 nee=bool(self.traffic["nee"]), device=device)
         self.rt.set_scene(self.scene)
+        if self.mesh is not None:
+            self.rt.set_mesh(self.mesh)
         self.rt.set_camera(self.camera(plan.camera(0)))
         self.frames = 0  # render_device calls so far
         self._host = None  # the pulled display, reused
@@ -155,7 +181,8 @@ class Program:
     def segments(self, frame: int, cam: dict, tile_mask=None) -> int:
         """The program's own count of the segments that RayTracer batch
         ``frame`` at camera ``cam`` traces (over the tiles of
-        ``tile_mask``), by its counting call."""
+        ``tile_mask``), by its counting call, with the RayTracer's scene
+        and mesh."""
         tr = self.traffic
         arrays = self.scene.to_arrays(device=self.device)
         c = self.camera(cam)
@@ -167,7 +194,8 @@ class Program:
             reference.batch_seed(self.plan.tracer_seed, frame),
             width=tr["width"], height=tr["height"], spp=tr["spp"],
             max_depth=tr["max_depth"], with_stats=True, n_active=n_active,
-            nee=bool(tr["nee"]), enable_dof=False, tile_mask=tile_mask)
+            nee=bool(tr["nee"]), enable_dof=False, tile_mask=tile_mask,
+            mesh=self.mesh, n_tri_active=self.n_tri_active)
         return int(segs)
 
 
@@ -307,9 +335,10 @@ def measure(cell: Cell, seed: int, seconds: float, trace_on: bool,
     # the program's own count of a batch's segments, for the rooflines
     segs = prog.segments(prog.frames, plan.camera(warm))
     n_pix = tr["width"] * tr["height"]
-    n_prims = len(prog.scene.spheres)
-    ops = roofline.batch_ops(segs, n_pix, tr["spp"], n_prims, bool(tr["nee"]))
-    nbytes = roofline.batch_bytes(n_pix, n_prims)
+    n_spheres, n_tris = len(prog.scene.spheres), prog.n_tris
+    ops = roofline.batch_ops(segs, n_pix, tr["spp"], n_spheres,
+                             bool(tr["nee"]), n_tris)
+    nbytes = roofline.batch_bytes(n_pix, n_spheres, n_tris)
     setup_s = time.perf_counter() - t_process
     if fault is not None:
         fault(prog)
@@ -320,7 +349,7 @@ def measure(cell: Cell, seed: int, seconds: float, trace_on: bool,
     peak = int(torch.cuda.max_memory_allocated(device)) if cuda else 0
     engine = cell.config["engine"]
     n_tiles, _ = reference.tile_grid(engine, tr["width"], tr["height"])
-    sc = reference.Spheres(scenes.scene_arrays(cell.config), engine, device)
+    sc = reference.Scene(scenes.scene_arrays(cell.config), engine, device)
     for unit in w.kept:
         cam = reference.pack_camera(unit.camera, tr["width"] / tr["height"],
                                     device)

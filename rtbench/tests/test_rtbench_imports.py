@@ -29,10 +29,17 @@ sys.path.insert(0, {str(ROOT)!r})
 import torch
 from rtbench import reference, scenes, spec
 config = spec.load_json(spec.HERE / "configs" / "demo9.json")
-sc = reference.Spheres(scenes.scene_arrays(config), "pallas", "cpu")
+sc = reference.Scene(scenes.scene_arrays(config), "pallas", "cpu")
 cam = reference.pack_camera(config["camera"], 2.0, "cpu")
 reference.render_unit(sc, cam, "pallas", [1, 2], [0], width=128, height=64,
                       spp=1, max_depth=2)
+terrain = scenes.scene_arrays({{"scene": {{"kind": "terrain", "n": 13,
+                                         "extent": 12.0, "seed": 1}}}})
+sc = reference.Scene(terrain, "cluster", "cpu")
+cam = reference.pack_camera({{"position": [0, 3.5, 0], "target": [0, 1, -10],
+                             "fov": 45.0}}, 2.0, "cpu")
+reference.render_unit(sc, cam, "cluster", [1], [0], width=128, height=64,
+                      spp=1, max_depth=2, nee=True)
 print(json.dumps(sorted(sys.modules)))
 """
 

@@ -1,5 +1,6 @@
 """The benchmark's metric arithmetic on known inputs."""
 
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -35,6 +36,60 @@ def test_search_and_batch_ops():
     assert roofline.batch_bytes(10, 9) == 9 * 64 + 64 + 120
     assert roofline.bound_s(67e12, 0) == (1.0, "operations")
     assert roofline.bound_s(0, 3.35e12) == (1.0, "bytes")
+
+
+def _search_before(n_prims):
+    """search_ops before triangles were counted, kept to pin it."""
+    n = max(1, int(n_prims))
+    levels = math.ceil(math.log2(n)) if n > 1 else 0
+    return min(n * 24, levels * 26 + 2 * 24)
+
+
+def _batch_ops_before(segments, n_pix, spp, n_prims, nee):
+    rays = n_pix * spp
+    search = _search_before(n_prims)
+
+    def cost(shadow):
+        path = segments - shadow
+        return (path * search + max(path - rays, 0) * 62
+                + shadow * (search + 120) + rays * 33 + n_pix * 15)
+
+    return min(cost(0), cost(segments // 2)) if nee else cost(0)
+
+
+# (n_pix, spp, spheres, nee) of demo9.still, spheres10k.still and
+# demo9.still-nee
+CELL_INPUTS = [(1920 * 1080, 256, 9, False), (1920 * 1080, 256, 10000, False),
+               (1920 * 1080, 256, 9, True)]
+
+
+def test_sphere_scenes_count_as_before_triangles():
+    for n_pix, spp, n, nee in CELL_INPUTS:
+        rays = n_pix * spp
+        for segs in (rays, rays + 1, 2 * rays + 12345, 5 * rays + 7,
+                     int(2.61 * rays), 8 * rays):
+            want = _batch_ops_before(segs, n_pix, spp, n, nee)
+            assert roofline.batch_ops(segs, n_pix, spp, n, nee) == want
+            assert roofline.batch_ops(segs, n_pix, spp, n, nee, 0) == want
+        assert roofline.batch_bytes(n_pix, n) == roofline.batch_bytes(
+            n_pix, n, 0) == n * 64 + 64 + n_pix * 12
+    for n in list(range(0, 300)) + [1023, 1024, 1025, 10000, 10**5, 10**6]:
+        assert roofline.search_ops(n) == roofline.search_ops(n, 0) == \
+            _search_before(n)
+
+
+def test_triangles_in_the_search_and_the_bytes():
+    assert roofline.TRI_TEST_OPS == 52
+    # the terrain: 3 spheres and 10,082 triangles, a hierarchy of 14
+    # levels over 10,085 primitives and two triangle tests at its leaf
+    assert roofline.search_ops(3, 10082) == 14 * 26 + 2 * 52 == 468
+    # the Cornell box: 2 spheres, 12 triangles; a flat sweep of 2 x 24 +
+    # 12 x 52 = 672 costs more than 4 levels and 2 triangle tests
+    assert roofline.search_ops(2, 12) == 4 * 26 + 2 * 52 == 208
+    assert roofline.search_ops(0, 1) == 52 and roofline.search_ops(1, 1) == 76
+    assert roofline.batch_ops(100, 10, 2, 2, False, 12) == (
+        100 * 208 + 80 * 62 + 20 * 33 + 10 * 15)
+    assert roofline.batch_bytes(10, 3, 100) == 3 * 64 + 100 * 64 + 64 + 120
 
 
 def _timeline():

@@ -38,7 +38,7 @@ def _scene(rows, background=(0.25, 0.25, 0.25), engine="pallas"):
               "roughness": rows[:, 8], "emission": rows[:, 9:12],
               "ior": np.full(len(rows), 1.5, np.float32),
               "background": np.asarray(background, np.float32)}
-    return ref.Spheres(arrays, engine, "cpu")
+    return ref.Scene(arrays, engine, "cpu")
 
 
 def test_nearest_hit_occlusion_and_ties():
@@ -118,23 +118,161 @@ def test_camera_basis_by_hand():
     assert float(cam[15]) == pytest.approx(math.sqrt(40), rel=1e-7)
 
 
-def test_grouped_search_equals_every_pair(monkeypatch):
+def _search_scene(kind):
+    """Spheres (the random field), triangles (a terrain and its three
+    spheres) or both, past DENSE_MAX of each."""
     from rtbench import scenes
 
-    arrays = scenes.random_spheres(600, 1, 30.0, 0.1)
+    field = scenes.random_spheres(600, 1, 30.0, 0.1)
+    land = scenes.terrain(13, 12.0, 1)
+    if kind == "spheres":
+        arrays = dict(field)
+    elif kind == "triangles":
+        arrays = dict(land)
+    else:
+        arrays = {k: np.concatenate([field[k], land[k]])
+                  for k in scenes.FIELDS}
+        arrays["mesh"] = land["mesh"]
     arrays["background"] = np.zeros(3, np.float32)
-    sc = ref.Spheres(arrays, "cluster", "cpu")
+    return ref.Scene(arrays, "cluster", "cpu")
+
+
+@pytest.mark.parametrize("kind", ["spheres", "triangles", "both"])
+def test_grouped_search_equals_every_pair(monkeypatch, kind):
+    sc = _search_scene(kind)
     g = torch.Generator().manual_seed(0)
     n = 4000
     o = [torch.rand(n, generator=g) * 60 - 30, torch.rand(n, generator=g) * 6,
          torch.rand(n, generator=g) * 40 - 34]
     d = torch.randn(3, n, generator=g) * torch.tensor([[1.0], [0.2], [1.0]])
+    d[1] -= 0.1  # towards the terrain
     d = list(d / torch.sqrt((d * d).sum(0)))
     t_edge = torch.rand(n, generator=g) * 20
     grouped = sc.nearest(o, d), sc.occluded(o, d, t_edge)
     monkeypatch.setattr(ref, "DENSE_MAX", 10**9)
     dense = sc.nearest(o, d), sc.occluded(o, d, t_edge)
-    assert int((grouped[0][1] >= 0).sum()) > n // 10
+    hits = grouped[0][1][grouped[0][1] >= 0]
+    assert hits.numel() > n // 10
+    if kind != "spheres":
+        assert int((hits >= sc.n_spheres).sum()) > n // 40
     assert torch.equal(grouped[0][0], dense[0][0])
     assert torch.equal(grouped[0][1], dense[0][1])
     assert torch.equal(grouped[1], dense[1])
+
+def _mesh_scene(spheres, faces, engine="pallas", background=(0.25,) * 3,
+                emission=None, albedo=0.5):
+    """Sphere rows as ``_scene`` takes them, beside triangles (F, 3, 3)."""
+    rows = np.asarray(spheres, np.float32).reshape(-1, 12)
+    v = np.asarray(faces, np.float32).reshape(-1, 3, 3)
+    f = v.shape[0]
+    mesh = {"vertices": v, "albedo": np.full((f, 3), albedo, np.float32),
+            "metallic": np.zeros(f, np.float32),
+            "roughness": np.full(f, 0.5, np.float32),
+            "emission": (np.zeros((f, 3), np.float32) if emission is None
+                         else np.asarray(emission, np.float32)),
+            "ior": np.full(f, 1.5, np.float32),
+            "object_id": np.zeros(f, np.int32)}
+    arrays = {"center": rows[:, 0:3], "radius": rows[:, 3],
+              "albedo": rows[:, 4:7], "metallic": rows[:, 7],
+              "roughness": rows[:, 8], "emission": rows[:, 9:12],
+              "ior": np.full(len(rows), 1.5, np.float32),
+              "background": np.asarray(background, np.float32),
+              "mesh": mesh}
+    return ref.Scene(arrays, engine, "cpu")
+
+
+# two triangles that share the edge y = 0, z = -5 (above, below), and the
+# same two in the other order
+UPPER = [[-1, 0, -5], [1, 0, -5], [0, 1, -5]]
+LOWER = [[-1, 0, -5], [1, 0, -5], [0, -1, -5]]
+
+
+def _rays(*dirs):
+    d = torch.tensor(dirs, dtype=torch.float32)
+    d = d / torch.sqrt((d * d).sum(1, keepdim=True))
+    z = torch.zeros(d.shape[0])
+    return (z, z, z), tuple(d.unbind(1))
+
+
+def test_triangle_hit_miss_back_face_and_ties():
+    far = [90, 90, 90, 1, .5, .5, .5, 0, 0, 0, 0, 0]  # off every ray
+    sc = _mesh_scene([far], [UPPER, LOWER])
+    o, d = _rays([0, 0.5, -5], [0, 3, -5], [0, 0, -1], [0, 0, 1])
+    t, i = sc.nearest(o, d)
+    # a hit inside the upper triangle, a miss above it, a ray along the
+    # shared edge (both give t = 5 with v = 0: the first triangle wins),
+    # and a ray away from both
+    assert i.tolist() == [1, -1, 1, -1]
+    assert t[2].item() == 5.0 and t[1].item() == ref.T_MAX
+    assert sc.face_normal(i)[0].tolist() == [True, False, True, False]
+    swapped = _mesh_scene([far], [LOWER, UPPER])
+    assert swapped.nearest(o, d)[1].tolist() == [2, -1, 1, -1]
+    # a sphere whose root is also 5 wins over both triangles
+    tie = [0, 0, -6, 1, .5, .5, .5, 0, 0, 0, 0, 0]
+    both = _mesh_scene([far, tie], [UPPER, LOWER])
+    t, i = both.nearest(o, d)
+    assert t[2].item() == 5.0 and i[2].item() == 1
+    # seen from behind (the triangle wound the other way) it is still hit
+    back = _mesh_scene([far], [[UPPER[0], UPPER[2], UPPER[1]]])
+    assert back.nearest(o, d)[1].tolist() == [1, -1, 1, -1]
+
+
+def test_a_triangle_blocks_a_shadow_ray():
+    far = [90, 90, 90, 1, .5, .5, .5, 0, 0, 0, 0, 0]
+    sc = _mesh_scene([far], [UPPER])
+    o, d = _rays([0, 0.5, -5], [0, 0.5, -5], [0, 3, -5])
+    edge = torch.tensor([6.0, 4.9, 100.0])
+    assert sc.occluded(o, d, edge).tolist() == [True, False, False]
+
+
+@pytest.mark.parametrize("engine", ref.ENGINES)
+def test_a_back_face_shades_with_its_normal_turned_to_the_ray(engine):
+    # a diffuse triangle whose face normal points away from the camera;
+    # a black sphere fills the space behind it. Turned to the ray, the
+    # normal sends every bounce back to the camera's side, to the
+    # background (1): each path carries 0.5 x 1. Unturned, every bounce
+    # would end in the black sphere.
+    big = [[-50, -50, -5], [0, 50, -5], [50, -50, -5]]
+    black = [0, 0, -1000, 990, 0, 0, 0, 0, 0, 0, 0, 0]
+    sc = _mesh_scene([black], [big], engine, background=(1, 1, 1))
+    cam = ref.pack_camera({"position": [0, 0, 0], "target": [0, 0, -1],
+                           "fov": 45.0}, 2.0, "cpu")
+    mean, *_ = ref.render_tiles(sc, cam, engine, 99, [0], width=128,
+                                height=64, spp=2, max_depth=2)
+    assert torch.all(mean == np.sqrt(np.float32(0.5)))
+
+
+def _lights(emissions, engine, radius=0.5):
+    rows = [[3 * k, 0, -5, radius, .5, .5, .5, 0, 0, *e]
+            for k, e in enumerate(emissions)]
+    return _scene(rows, engine=engine)
+
+
+def test_light_tables_by_hand():
+    u = torch.tensor([1e-6, 0.3, 0.6, 0.999])
+    # twelve spheres, the first dark and the others emissive: the
+    # megakernel draws among all eleven lights, the cluster engine among
+    # the first eight (spheres 1-8) alone
+    em = [(0, 0, 0)] + [(k, 1, 1) for k in range(1, 12)]
+    for engine, n in (("pallas", 11), ("cluster", 8)):
+        sc = _lights(em, engine)
+        assert sc.n_lights.item() == n
+        cx, *_, er, _, _ = sc.pick_light(u)
+        want = [1 + int(np.ceil(x * n) - 1) for x in u.tolist()]
+        assert er.tolist() == want
+        assert cx.tolist() == [3.0 * k for k in want]
+    # none: no light, every draw picks the zero row
+    for engine in ref.ENGINES:
+        sc = _lights([(0, 0, 0)] * 3, engine)
+        assert sc.n_lights.item() == 0
+        assert all(torch.all(p == 0) for p in sc.pick_light(u))
+    # one light behind a dark sphere: the cluster table puts it first and
+    # holds its emission in float32 (1/3 is not a bfloat16), the dark
+    # sphere after it with radius 0
+    sc = _lights([(0, 0, 0), (1 / 3, 2, 2)], "cluster")
+    assert sc.n_lights.item() == 1
+    assert sc.lights[:, 3].tolist() == [0.5, 0.0]
+    cx, _, _, r, er, _, _ = sc.pick_light(u)
+    assert cx.tolist() == [3.0] * 4 and r.tolist() == [0.5] * 4
+    assert er.tolist() == [np.float32(1 / 3)] * 4
+    assert sc.shading[1, 5].item() != np.float32(1 / 3)  # bfloat16 shading

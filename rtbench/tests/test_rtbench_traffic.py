@@ -1,13 +1,14 @@
 """Every cell of BENCHMARK.json, and every traffic mix, run at a tiny size
 through the program's plain path on the CPU and judged by the comparison:
-sound runs are correct, the window produced whole units."""
+sound runs are correct, the window produced whole units. So are tiny
+terrains on either engine, with and without NEE."""
 
 import json
 import time
 
 import pytest
 
-from conftest import ROOT, tiny_cell
+from conftest import ROOT, make_cell, tiny_cell
 
 CELLS = [w["name"] for w in
          json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
@@ -35,6 +36,27 @@ def test_tiny_run_is_correct(name):
     if cell.traffic["kind"] == "view":
         assert len(w.first_s) == len(w.view_s) == w.units >= 1
         assert all(0.0 < f <= v for f, v in zip(w.first_s, w.view_s))
+
+
+@pytest.mark.parametrize("mix", ["still", "still-nee"])
+@pytest.mark.parametrize("grid", [8, 13])
+def test_tiny_mesh_run_is_correct(grid, mix):
+    """A terrain through RayTracer.set_mesh (8: K1-tri, 98 triangles; 13:
+    K2-tri, 288), judged by the limits of spheres10k.still."""
+    import dataclasses
+
+    from rtbench import check, harness
+
+    cell = dataclasses.replace(
+        tiny_cell(f"terrain10k.{mix}", grid),
+        limits=make_cell("spheres10k.still").limits)
+    run, plan = harness.measure(cell, 2**31 + 501, 0.3, False, "cpu",
+                                time.perf_counter())
+    checks = check.judge(cell, plan, run.window.kept, run.port_segments,
+                         "cpu")
+    assert check.correct(checks), checks
+    if cell.config["engine"] == "pallas":
+        assert checks["acc_gap"]["value"] == 0.0
 
 
 def test_plan_is_drawn_from_the_seed():
