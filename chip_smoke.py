@@ -1227,13 +1227,15 @@ def main() -> int:
         (n_tiles, 2, 7) counts): per segment, for path and shadow rays, the
         slab tests by level and the primitive tests; ns per visit (slab or
         primitive test) at the kernel's time; and the lanes a warp-issued
-        primitive test carries on average (32: no divergence)."""
+        primitive test carries on average (32: no divergence): sphere tests
+        without a mesh, triangle tests with one (the warp column's)."""
         tot = visits.sum(dim=0).tolist()
         n = max(segs, 1)
         per = {kind: {c: v / n for c, v in zip(cluster_mod.VISIT_COLS, row)}
                for kind, row in zip(cluster_mod.VISIT_KINDS, tot)}
         tests = sum(sum(row[:6]) for row in tot)
-        prims = sum(row[4] + row[5] for row in tot)
+        tris = sum(row[5] for row in tot)
+        prims = tris if tris else sum(row[4] for row in tot)
         warps = sum(row[6] for row in tot)
         return {"visits_per_segment": per,
                 "ns_per_visit": k_ms * 1e6 / max(tests, 1),

@@ -7,9 +7,12 @@ FMA microkernel (K3) against its plain version and the measured f32 rate
 against the theoretical; the denoiser bank and the first-hit AOVs on the
 card against the CPU; the megakernel's per-sample threads at spp that do
 and do not divide a warp, and its counting instantiation against the plain
-version's counts; the interactive runtime's session on the card against
-its hand-driven chain, and the Qt GUI (against tests/pyqt5_stub/) receiving
-a real 640x480 frame from the card; the lax engine's threefry bits, LBVH
+version's counts; the cluster kernel's warp walk of the triangle table on
+the terrain in every triangle instantiation, from above and half sky, and
+its refusal of triangle rows off a 16-byte boundary; the interactive
+runtime's session on the card against its hand-driven chain, and the Qt
+GUI (against tests/pyqt5_stub/) receiving a real 640x480 frame from the
+card; the lax engine's threefry bits, LBVH
 hits and renders on the card against the CPU's; render_sharded over a mesh
 of cuda:0 entries against its kernels' and plain versions' bands, and its
 lax engine against the CPU's; the port's spans, upload counter and
@@ -712,12 +715,80 @@ def test_cluster_visit_counts_match_walk_reference(dev, case):
     assert vis.shape == ref.shape == (8, 2, 7)
     assert torch.equal(vis[..., :6], ref[..., :6]), (
         vis.sum(0).tolist(), ref.sum(0).tolist())
-    # the warps issue at least 1/32 of their lanes' primitive tests
-    lanes = vis[..., 4:6].sum(-1).sum(0)
+    # the warps issue at least 1/32 of their lanes' primitive tests: the
+    # sphere tests without a mesh, the triangle tests with one
+    lanes = vis[..., 5 if mesh is not None else 4].sum(0)
     warps = vis[..., 6].sum(0)
     assert bool((warps * 32 >= lanes).all()) and bool((warps <= lanes).all())
     if flags.get("nee"):
         assert int(vis[:, 1, 4:6].sum()) > 0
+
+
+# the triangle walk's builds: each <kTris = true> instantiation, and the
+# NEE one under a tile mask, in a band of rows and counting its visits
+TRI_WALK_BUILDS = {
+    "plain": {},
+    "flags": dict(enable_refraction=True, enable_dof=True, stratify=True),
+    "nee": dict(nee=True),
+    "nee_flags": dict(nee=True, enable_refraction=True, enable_dof=True,
+                      stratify=True),
+    "nee_masked": dict(nee=True, tile_mask=np.array([1, 0, 0, 1, 1, 0, 1, 0],
+                                                    np.int32)),
+    "nee_band": dict(nee=True, rows=64, row_offset=32),
+    "nee_counting": dict(nee=True, with_visits=True),
+}
+# the terrain seen from above (every primary ray hits it) and from the
+# cell's pose (about half the frame is sky: those paths end at the first
+# bounce and their lanes serve in the walk's teams)
+TRI_WALK_VIEWS = {"ground": dict(position=(0, 10, -4), target=(0, 0, -10)),
+                  "half_sky": TERRAIN_POSE}
+
+
+@pytest.mark.parametrize("view", list(TRI_WALK_VIEWS))
+@pytest.mark.parametrize("build", list(TRI_WALK_BUILDS))
+def test_cluster_triangle_walk_matches_plain(dev, build, view):
+    """The warp's walk of the triangle table (csrc/cluster.cu team_walk) on
+    the 10,082-triangle terrain under its 3 spheres at 256x128, 8 spp,
+    depth 4, through every triangle instantiation: image and segments bit
+    for bit against the plain version's brute-force sweep."""
+    spheres, mesh = terrain_mesh(n=72, seed=1, device=dev)
+    cam = tpu_rt_torch.make_camera(aspect=2.0, aperture=0.1, device=dev,
+                                   **TRI_WALK_VIEWS[view])
+    kw = dict(width=256, height=128, spp=8, max_depth=4, mesh=mesh,
+              with_stats=True, **TRI_WALK_BUILDS[build])
+    before = render_cluster.launches
+    a, seg_a = render_cluster(spheres, cam, 2**31 - 5, **kw)[:2]
+    kw.pop("with_visits", None)
+    b, seg_b = render_cluster_reference(spheres, cam, 2**31 - 5, **kw)
+    torch.cuda.synchronize(dev)
+    assert render_cluster.launches == before + 1
+    assert torch.equal(a, b), int((a != b).sum())
+    assert int(seg_a) == int(seg_b)
+    assert float(a.max()) > 0
+
+
+def test_cluster_triangle_rows_off_16_bytes_are_refused(dev):
+    """The triangle walk reads its cluster boxes 16 bytes at a time, so the
+    launcher refuses a triangle table whose rows do not start on a 16-byte
+    boundary (a view one word into a buffer) instead of faulting; the same
+    rows on the boundary render."""
+    from tpu_rt_torch.core.scenes import TIE_CAM, tie_scene
+
+    spheres, mesh = tie_scene(device=dev)
+    cam = tpu_rt_torch.make_camera(**TIE_CAM, device=dev)
+    tri = order_clusters(build_tri_clusters(mesh, cluster_size=8),
+                         cam.position)
+    buf = torch.empty(tri.attr.numel() + 1, dtype=tri.attr.dtype, device=dev)
+    off = buf[1:].view(tri.attr.shape)
+    off.copy_(tri.attr)
+    kw = dict(prebuilt=order_clusters(build_clusters(spheres, cluster_size=8),
+                                      cam.position),
+              pre_ordered=True, width=128, height=32, spp=1, max_depth=2)
+    render_cluster(None, cam, 7, tri_prebuilt=tri, **kw)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        render_cluster(None, cam, 7, tri_prebuilt=tri._replace(attr=off),
+                       **kw)
+    torch.cuda.synchronize(dev)
 
 
 @pytest.mark.parametrize("gamma", [True, False])

@@ -38,17 +38,33 @@
 //     samples, in sample order, to each pixel's running sum (0.0f before
 //     the first, kept in the output between chunks), as one thread looping
 //     over all the samples would, and the last chunk's writes the mean;
-//   * near to far for each ray, at every level: a level keeps a bit mask of
-//     its children still to visit; each round slab-tests the masked
-//     children against the ray's running best t (dropping those it no
-//     longer crosses) and descends into the one of least entry t, the
-//     lower index on equal entries, so a bounce or shadow ray that starts
-//     on a surface visits what lies near its origin first. The super-super
+//   * the sphere table near to far for each ray, one lane per ray, at
+//     every level: a level keeps a bit mask of its children still to
+//     visit; each round slab-tests the masked children against the ray's
+//     running best t (dropping those it no longer crosses) and descends
+//     into the one of least entry t, the lower index on equal entries, so
+//     a bounce or shadow ray that starts on a surface visits what lies
+//     near its origin first. The super-super
 //     level does this for each chunk of 32 super-supers in storage order.
 //     Under each cluster a fourth level, of the port's own, holds a box per
 //     8 rows (ops/cluster.py:group_boxes, padded to stay conservative), so
 //     a ray tests the rows of the groups it crosses, not all C: at terrain
 //     10k that cut the triangle tests per segment from 339 to 45;
+//   * the triangle table's rows by the warp (warp_walk): a lane's own walk
+//     left 9.7 of 32 lanes in each warp-issued triangle test at terrain
+//     10k, so in the triangle instantiations every lane runs every bounce
+//     (alive in place of break) and the warp meets before the triangle
+//     walk. Each lane walks its ray's boxes as above, but each loop of the
+//     walk runs while any lane has a round left in it, so the lanes meet
+//     at every round of the group level; there teams of 8 lanes test the
+//     chosen groups, 4 a pass, a row a lane, and hand each ray its least
+//     (t, key), so a ray visits what it visited before. Lanes whose paths
+//     have ended serve in the teams. The triangle instantiations ask for 4
+//     blocks an SM (64 registers; at 80, 3 blocks, a terrain batch took
+//     14% longer). NEE's shadow rays are gathered the same way:
+//     shade_hit stores a diffuse lane's ray and its three products
+//     (ClusterNee::defer), and after it returns the warp walks the stored
+//     rays and the lane adds its products where nothing blocks the ray;
 //   * the winner is the least (t, key) over everything the search tests:
 //     key = class << 28 | storage index, class 0 sphere globals, 1 sphere
 //     rows, 2 triangle globals, 3 triangle rows. It is the dense sweep's
@@ -57,7 +73,8 @@
 //     version bit for bit; the winner's row is found from its key after the
 //     search and unpacked once (bf16 pairs: << 16 and & 0xFFFF0000);
 //   * shadow rays (NEE) are any-hit: they return at the first primitive
-//     with t in [1e-3, t_edge), globals included;
+//     with t in [1e-3, t_edge), globals included (in the triangle walk at
+//     the first group with one);
 //   * the super-super and super boxes of both tables are staged into
 //     shared memory when they fit (32 KB: 113 super-supers, 460k
 //     primitives at C = 64; past it they are read from device memory
@@ -110,9 +127,9 @@
 //     writes zeros to its pixels (the caller zeroed its segment slot). It
 //     is one branch, not a template instantiation.
 //
-// Not done here, and left to later work: warp-cooperative traversal (one
-// box or primitive per lane), and staging cluster blocks into shared
-// memory with cp.async or TMA.
+// Not done here, and left to later work: the warp's tests for the sphere
+// table, and staging cluster blocks into shared memory with cp.async or
+// TMA.
 
 #include "path_common.cuh"
 
@@ -128,12 +145,14 @@ constexpr int kMaxLights = 64; // rows of the NEE light table
 constexpr int kLightCols = 8;  // cx cy cz r*lw er eg eb cdf
 constexpr int kBoxWords = 8;   // lo xyz, hi xyz, flag, 0
 // staged boxes of both tables, at most: with the static arrays (10.4 KB at
-// most) under the 48 KB a block takes without opting in
+// most) under the 48 KB a block takes without opting in; with a mesh the
+// triangle walk's 2 KB of results follow them
 constexpr int kStageBytes = 32 * 1024;
 constexpr int kKeyShift = 28;  // key = class << 28 | storage index
 // visit counters per ray kind (path, shadow): slab tests at the
 // super-super, super, cluster and group levels, sphere and triangle tests
-// (globals included), and the primitive tests the warps issue
+// (globals included), and the primitive tests the warps issue (the
+// triangle tests in the triangle instantiations)
 constexpr int kVisitCols = 7;
 constexpr int kGroup = 8;  // primitives under one group box
 constexpr int kVisitCounts = 2 * kVisitCols;
@@ -172,6 +191,27 @@ __device__ __forceinline__ float slab(const float* b, const Ray& r,
   const float exit = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
                            fminf(fmaxf(tz0, tz1), best_t));
   return exit >= enter ? enter : -1.f;
+}
+
+// slab of a box in device memory on a 16-byte boundary (the triangle
+// walk's cluster and group boxes), read as two 16-byte words: the same
+// arithmetic, so the same entry t, in 2 load instructions in place of 7.
+__device__ __forceinline__ float slab_v(const float* b, const Ray& r,
+                                        float best_t) {
+  // lo xyz and hi x, then hi yz, the flag and 0
+  const float4 w0 = __ldg(reinterpret_cast<const float4*>(b));
+  const float4 w1 = __ldg(reinterpret_cast<const float4*>(b) + 1);
+  const float tx0 = (w0.x - r.ox) * r.ix;
+  const float tx1 = (w0.w - r.ox) * r.ix;
+  const float ty0 = (w0.y - r.oy) * r.iy;
+  const float ty1 = (w1.x - r.oy) * r.iy;
+  const float tz0 = (w0.z - r.oz) * r.iz;
+  const float tz1 = (w1.y - r.oz) * r.iz;
+  const float enter = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                            fmaxf(fminf(tz0, tz1), 1e-3f));
+  const float exit = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                           fminf(fmaxf(tz0, tz1), best_t));
+  return w1.z > 0.f && exit >= enter ? enter : -1.f;
 }
 
 template <bool kReadOnly>
@@ -282,15 +322,20 @@ struct Table {
 // The next child to visit in a round of a level: slab-tests the children
 // whose bit is set in ``m`` (boxes at ``boxes + i * kBoxWords``) against
 // best_t, clears those the ray no longer crosses, and returns the one of
-// least entry t (the lowest index on equal entries), or -1.
-template <bool kLdg>
+// least entry t (the lowest index on equal entries), or -1. kVec: the
+// boxes lie in device memory on 16-byte boundaries (slab_v).
+template <bool kLdg, bool kVec = false>
 __device__ __forceinline__ int next_child(const float* boxes, uint32_t& m,
                                           const Ray& r, float best_t) {
   int c = -1;
   float ec = 0.f;
   for (uint32_t b = m; b != 0u; b &= b - 1u) {
     const int i = __ffs(b) - 1;
-    const float e = slab<kLdg>(boxes + i * kBoxWords, r, best_t);
+    float e;
+    if constexpr (kVec)
+      e = slab_v(boxes + i * kBoxWords, r, best_t);
+    else
+      e = slab<kLdg>(boxes + i * kBoxWords, r, best_t);
     if (e < 0.f) {
       m &= ~(1u << i);
     } else if (c < 0 || e < ec) {
@@ -302,15 +347,18 @@ __device__ __forceinline__ int next_child(const float* boxes, uint32_t& m,
 }
 
 // The globals of one table, in storage order (class cls). Any-hit returns
-// true at the first hit.
-template <bool kTri, bool kAny, bool kCount>
+// true at the first hit. kWarp false counts the tests but not as tests the
+// warps issued (the sphere tests of the triangle kernels, whose warp column
+// counts triangle tests).
+template <bool kTri, bool kAny, bool kCount, bool kWarp = true>
 __device__ __forceinline__ bool sweep_globals(const Table& T, int cls,
                                               const Path& p, Best& best,
                                               const Visits<kCount>& vis) {
   constexpr int kind = kAny ? 1 : 0;
   constexpr int col = kind * kVisitCols + (kTri ? 5 : 4);
   for (int g = 0; g < T.n_global; ++g) {
-    vis.prim(col, kind);
+    if constexpr (kWarp) vis.prim(col, kind);
+    else vis.add(col, 1);
     const int key = (cls << kKeyShift) | g;
     if constexpr (kTri) {
       if (test_triangle<false, kAny>(T.glob + g * kCols, 1, p, best, key))
@@ -323,13 +371,13 @@ __device__ __forceinline__ bool sweep_globals(const Table& T, int cls,
   return false;
 }
 
-// One table's hierarchy (class cls), near to far: super-supers in chunks
-// of 32 (storage order between chunks), then their supers, then their
-// clusters (box from the last row of the cluster's block), then the
-// cluster's groups of 8 rows (chunks of 32 groups), each level by rounds
-// of next_child; a group's 8 rows are tested in storage order. Any-hit
-// returns true at the first hit.
-template <bool kTri, bool kAny, bool kCount>
+// The sphere table's hierarchy (class cls), one lane per ray, near to far:
+// super-supers in chunks of 32 (storage order between chunks), then their
+// supers, then their clusters (box from the last row of the cluster's
+// block), then the cluster's groups of 8 rows (chunks of 32 groups), each
+// level by rounds of next_child; a group's 8 rows are tested in storage
+// order. Any-hit returns true at the first hit. kWarp as sweep_globals.
+template <bool kAny, bool kCount, bool kWarp = true>
 __device__ __forceinline__ bool walk(const Table& T, int cls, const Ray& r,
                                      const Path& p, Best& best,
                                      const Visits<kCount>& vis) {
@@ -392,16 +440,10 @@ __device__ __forceinline__ bool walk(const Table& T, int cls, const Ray& r,
               mg &= ~(1u << g);
               const int j0 = (gb + g) * kGroup;
               for (int j = j0; j < j0 + kGroup; ++j) {
-                vis.prim(c0 + (kTri ? 5 : 4), kind);
-                if constexpr (kTri) {
-                  if (test_triangle<true, kAny>(blk + j, C, p, best,
-                                                key0 + j))
-                    return true;
-                } else {
-                  if (test_sphere<true, kAny>(blk + j, C, p, best,
-                                              key0 + j))
-                    return true;
-                }
+                if constexpr (kWarp) vis.prim(c0 + 4, kind);
+                else vis.add(c0 + 4, 1);
+                if (test_sphere<true, kAny>(blk + j, C, p, best, key0 + j))
+                  return true;
               }
             }
           }
@@ -412,19 +454,204 @@ __device__ __forceinline__ bool walk(const Table& T, int cls, const Ray& r,
   return false;
 }
 
+// ---- the triangle table's walk: each lane its own boxes, the warp the rows ----
+//
+// Each lane walks its ray's triangle hierarchy as the sphere walk does,
+// near to far by rounds of next_child at every level, but every loop of the
+// walk runs while any lane of the warp has a round left in it, so the
+// lanes meet at each round of the group level. There the warp tests the
+// groups its lanes chose, 4 at a time: team t of kTeam lanes takes the
+// t-th choosing lane's ray and group, a row a lane; the least (t, key) of
+// the team (a selection, so exact), or whether a row blocks the ray, goes
+// back to that lane, which merges it into its best and walks on. So a ray
+// visits what the sphere walk's rule visits, and lanes whose paths have
+// ended serve in the teams.
+constexpr int kTeam = 8;  // lanes that test one group's rows together
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+__device__ __forceinline__ uint32_t low_bits(int n) {
+  return n >= 32 ? 0xffffffffu : (1u << n) - 1u;
+}
+
+// The rows of the groups the lanes in ``chose`` chose (``grp`` in cluster
+// ``k``), a pass of 32 / kTeam teams at a time; each such lane merges its
+// group's result into ``best`` (nearest-hit) or learns whether a row
+// blocks its ray (any-hit: returned). ``res``: the warp's 32 results.
+template <bool kAny, bool kCount>
+__device__ __forceinline__ bool test_groups(const Table& T, int cls,
+                                            const Path& p, Best& best,
+                                            uint32_t chose, int k, int grp,
+                                            Best* res,
+                                            const Visits<kCount>& vis) {
+  constexpr int c0 = (kAny ? 1 : 0) * kVisitCols;
+  const int lane = threadIdx.x & 31;
+  const int j = lane % kTeam;
+  const int tbase = lane - j;  // the team's first lane
+  const int block_words = (T.C * kCols / kLanes + 1) * kLanes;
+  for (uint32_t wait = chose; wait != 0u;) {
+    uint32_t m = wait;
+    for (int q = 0; q < lane / kTeam; ++q) m &= m - 1u;
+    const bool has = m != 0u;
+    const int src = has ? __ffs(m) - 1 : lane;
+    for (int q = 0; q < 32 / kTeam; ++q) wait &= wait - 1u;
+    Path tp{};
+    tp.ox = __shfl_sync(kFullWarp, p.ox, src);
+    tp.oy = __shfl_sync(kFullWarp, p.oy, src);
+    tp.oz = __shfl_sync(kFullWarp, p.oz, src);
+    tp.dx = __shfl_sync(kFullWarp, p.dx, src);
+    tp.dy = __shfl_sync(kFullWarp, p.dy, src);
+    tp.dz = __shfl_sync(kFullWarp, p.dz, src);
+    const int tk = __shfl_sync(kFullWarp, k, src);
+    const int row = __shfl_sync(kFullWarp, grp, src) * kGroup + j;
+    const int* const rp = T.attr + (size_t)tk * block_words + row;
+    if constexpr (kAny) {
+      Best edge{__shfl_sync(kFullWarp, best.t, src), -1};
+      const bool hit = has && test_triangle<true, true>(rp, T.C, tp, edge, 0);
+      const bool any = (__ballot_sync(kFullWarp, hit) >> tbase) & 0xffu;
+      if (has && j == 0) res[src] = Best{0.f, any ? 1 : 0};
+    } else {
+      Best c{__int_as_float(0x7f800000), 0x7fffffff};  // none: (inf, max)
+      if (has)
+        test_triangle<true, false>(rp, T.C, tp, c,
+                                   (cls << kKeyShift) | (tk * T.C + row));
+      // the team's least t, then its first lane at that t: the least key
+      float t_min = c.t;
+      for (int o = 1; o < kTeam; o <<= 1)
+        t_min = fminf(t_min, __shfl_xor_sync(kFullWarp, t_min, o));
+      const uint32_t at =
+          (__ballot_sync(kFullWarp, c.t == t_min) >> tbase) & 0xffu;
+      const int key = __shfl_sync(kFullWarp, c.key, tbase + __ffs(at) - 1);
+      if (has && j == 0) res[src] = Best{t_min, key};
+    }
+    if (has && j == 0) vis.add(c0 + 5, kGroup);
+    if (lane == 0) vis.add(c0 + 6, 1);
+  }
+  __syncwarp();
+  bool blocked = false;
+  if ((chose >> lane) & 1u) {
+    const Best g = res[lane];
+    if constexpr (kAny) {
+      blocked = g.key != 0;
+    } else if (better(g.t, g.key, best)) {
+      best = g;
+    }
+  }
+  __syncwarp();  // every lane has read its result before the next pass
+  return blocked;
+}
+
+// The walk of the triangle table (class cls) for the rays of the lanes with
+// ``want``, every lane of the warp taking part (call it converged): ``r``/
+// ``p`` are each lane's ray, ``best`` its running best. Nearest-hit: best
+// becomes the least (t, key) over best and every row the walk tests.
+// Any-hit (best t = t_edge): returns whether a row has t in [1e-3,
+// best.t). ``res``: the warp's 32 results in shared memory. Counts the slab
+// tests as walk() does, a group's 8 rows as 8 triangle tests (any-hit too)
+// and each pass of the teams as one warp-issued test.
+template <bool kAny, bool kCount>
+__device__ __forceinline__ bool warp_walk(const Table& T, int cls,
+                                          const Ray& r, const Path& p,
+                                          Best& best, bool want, Best* res,
+                                          const Visits<kCount>& vis) {
+  constexpr int c0 = (kAny ? 1 : 0) * kVisitCols;
+  const int C = T.C;
+  const int G = C / kGroup;
+  const int block_words = (C * kCols / kLanes + 1) * kLanes;
+  const int box_word = C * kCols;  // the cluster box: first word of the last row
+  bool walking = want;  // false once an any-hit ray is blocked
+  for (int base = 0; base < T.n_ss; base += 32) {
+    uint32_t ms = walking ? low_bits(T.n_ss - base) : 0u;
+    while (__any_sync(kFullWarp, ms != 0u)) {
+      int a = -1;
+      if (ms != 0u) {
+        vis.add(c0 + 0, __popc(ms));
+        a = next_child<false>(T.ss + base * kBoxWords, ms, r, best.t);
+        if (a >= 0) ms &= ~(1u << a);
+      }
+      const int s0 = (base + a) * kFanout;  // its first super
+      uint32_t mp = a >= 0 ? 0xffu : 0u;
+      while (__any_sync(kFullWarp, mp != 0u)) {
+        int s = -1;
+        if (mp != 0u) {
+          vis.add(c0 + 1, __popc(mp));
+          s = next_child<false>(T.super + s0 * kBoxWords, mp, r, best.t);
+          if (s >= 0) mp &= ~(1u << s);
+        }
+        const int k0 = (s0 + s) * kFanout;  // its first cluster
+        uint32_t mc = s >= 0 ? 0xffu : 0u;
+        while (__any_sync(kFullWarp, mc != 0u)) {
+          int c = -1;
+          if (mc != 0u) {
+            vis.add(c0 + 2, __popc(mc));
+            // the cluster boxes lie block_words apart, in the blocks' last
+            // rows
+            float ec = 0.f;
+            for (uint32_t b = mc; b != 0u; b &= b - 1u) {
+              const int i = __ffs(b) - 1;
+              const float e = slab_v(
+                  reinterpret_cast<const float*>(
+                      T.attr + (size_t)(k0 + i) * block_words + box_word),
+                  r, best.t);
+              if (e < 0.f) {
+                mc &= ~(1u << i);
+              } else if (c < 0 || e < ec) {
+                c = i;
+                ec = e;
+              }
+            }
+            if (c >= 0) mc &= ~(1u << c);
+          }
+          const int k = c >= 0 ? k0 + c : 0;
+          const float* gbox = T.group + (size_t)k * G * kBoxWords;
+          for (int gb = 0; gb < G; gb += 32) {
+            uint32_t mg = walking && c >= 0 ? low_bits(G - gb) : 0u;
+            while (__any_sync(kFullWarp, mg != 0u)) {
+              int g = -1;
+              if (mg != 0u) {
+                vis.add(c0 + 3, __popc(mg));
+                g = next_child<true, true>(gbox + gb * kBoxWords, mg, r,
+                                           best.t);
+                if (g >= 0) mg &= ~(1u << g);
+              }
+              if (test_groups<kAny>(T, cls, p, best,
+                                    __ballot_sync(kFullWarp, g >= 0), k,
+                                    gb + g, res, vis)) {
+                walking = false;  // blocked: the walk stops here
+                ms = mp = mc = mg = 0u;
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+  return want && !walking;
+}
+
+// A diffuse lane's shadow ray, held for the warp's walk (triangle kernels):
+// origin, direction, t_edge and the three products shade_hit formed.
+struct ShadowRay {
+  bool on;
+  float ox, oy, oz, dx, dy, dz, t_edge;
+  float cr, cg, cb;
+};
+
 // The cluster engine's NEE light table and shadow test: the pick reads the
-// shared-memory light rows; a shadow ray is blocked when the globals or a
-// walk of either hierarchy, with best t fixed at t_edge, finds a hit
-// (pallas_cluster.py:1498-1506); it stops at the first.
+// shared-memory light rows. Without a mesh a shadow ray is blocked when the
+// globals or a walk of the sphere hierarchy, with best t fixed at t_edge,
+// finds a hit (pallas_cluster.py:1498-1506); it stops at the first. With a
+// mesh (kDeferred) shade_hit stores the ray in ``shadow`` and the kernel
+// traces it: the sphere parts in its lane, the triangle walk with the warp.
 template <bool kTris, bool kCount>
 struct ClusterNee {
+  static constexpr bool kDeferred = kTris;
   const float* lights;  // n_lights_max rows of kLightCols
   int n_lights_max;
   float n_lights;
   Table sph;
-  Table tri;
   Visits<kCount> vis;  // the block's counters (kCount)
   int segs;
+  ShadowRay shadow;  // kDeferred: the ray of this bounce, if any
 
   // the first row whose cdf reaches u (pallas_cluster.py:1433-1442)
   __device__ __forceinline__ Light pick(float u) const {
@@ -443,15 +670,74 @@ struct ClusterNee {
     s.dx = dx; s.dy = dy; s.dz = dz;
     Best best{t_edge, -1};
     if (sweep_globals<false, true>(sph, 0, s, best, vis)) return true;
-    if constexpr (kTris) {
-      if (sweep_globals<true, true>(tri, 2, s, best, vis)) return true;
-    }
     const Ray r{hx, hy, hz, safe_inv(dx), safe_inv(dy), safe_inv(dz)};
-    if (walk<false, true>(sph, 1, r, s, best, vis)) return true;
-    if constexpr (kTris) return walk<true, true>(tri, 3, r, s, best, vis);
+    if (walk<true>(sph, 1, r, s, best, vis)) return true;
     return false;
   }
+
+  __device__ __forceinline__ void defer(float hx, float hy, float hz,
+                                        float dx, float dy, float dz,
+                                        float t_edge, float cr, float cg,
+                                        float cb) {
+    shadow = ShadowRay{true, hx, hy, hz, dx, dy, dz, t_edge, cr, cg, cb};
+  }
 };
+
+// The winner's shading attributes, from its key, in a kernel with a mesh.
+// (The sphere-only kernels keep this code inline in their bounce loop: as
+// a call it changed their compiled code.)
+__device__ __forceinline__ Surface winner_surface(
+    const Best& best, const Path& p, const int* glob, const int* tglob,
+    const int* attr, const int* tattr, int C, int tri_C) {
+  // the winner's packed row from its key (generic loads: shared or
+  // global); its materials are 5 bf16-pair words, at word 5 of a sphere
+  // row and word 11 of a triangle row
+  const int cls = best.key >> kKeyShift;
+  const int idx = best.key & ((1 << kKeyShift) - 1);
+  const bool is_tri = cls >= 2;
+  const int* row;
+  int ws;
+  if ((cls & 1) == 0) {  // a global
+    row = (is_tri ? tglob : glob) + idx * kCols;
+    ws = 1;
+  } else {
+    ws = is_tri ? tri_C : C;
+    row = (is_tri ? tattr : attr) +
+          (size_t)(idx / ws) * ((ws * kCols / kLanes + 1) * kLanes) +
+          idx % ws;
+  }
+  const int* m = row + (is_tri ? 11 : 5) * ws;
+  const uint32_t p0 = (uint32_t)m[0];
+  const uint32_t p1 = (uint32_t)m[ws];
+  const uint32_t p2 = (uint32_t)m[2 * ws];
+  const uint32_t p3 = (uint32_t)m[3 * ws];
+  const uint32_t p4 = (uint32_t)m[4 * ws];
+  float cx, cy, cz, ir;
+  if (is_tri) {
+    // the bf16 face normal, encoded as the TPU kernel does
+    const uint32_t n0 = (uint32_t)row[9 * ws];
+    const uint32_t n1 = (uint32_t)row[10 * ws];
+    const float nx = __uint_as_float(n0 << 16);
+    const float ny = __uint_as_float(n0 & 0xFFFF0000u);
+    const float nz = __uint_as_float(n1 << 16);
+    ir = (p.dx * nx + p.dy * ny + p.dz * nz) < 0.f ? 1.f : -1.f;
+    cx = (p.ox + p.dx * best.t) - nx;
+    cy = (p.oy + p.dy * best.t) - ny;
+    cz = (p.oz + p.dz * best.t) - nz;
+  } else {
+    cx = __int_as_float(row[0]);
+    cy = __int_as_float(row[ws]);
+    cz = __int_as_float(row[2 * ws]);
+    ir = __int_as_float(row[4 * ws]);
+  }
+  return Surface{
+      cx, cy, cz, ir,
+      __uint_as_float(p0 << 16), __uint_as_float(p0 & 0xFFFF0000u),
+      __uint_as_float(p1 << 16), __uint_as_float(p1 & 0xFFFF0000u),
+      __uint_as_float(p2 << 16),
+      __uint_as_float(p3 << 16), __uint_as_float(p3 & 0xFFFF0000u),
+      __uint_as_float(p4 << 16), __uint_as_float(p2 & 0xFFFF0000u)};
+}
 
 struct Pixel {
   int x, y;
@@ -475,8 +761,10 @@ __device__ __forceinline__ Pixel pixel_of(int blocks_x, int row0) {
 // One (pixel, sample) per thread: sample s0 + blockIdx.y of the frame.
 // Writes the sample's radiance to scratch plane (blockIdx.y, channel),
 // indexed by the thread's place in the grid.
+// The triangle instantiations ask for 4 blocks an SM (64 registers); the
+// others for no minimum (0), as they always have.
 template <bool kTris, bool kFlags, bool kNee, bool kCount>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, kTris ? 4 : 0)
 cluster_kernel(const int* __restrict__ glob_g, int n_global,
                const float* __restrict__ ss_boxes, int n_ss,
                const float* __restrict__ super_boxes,
@@ -560,7 +848,7 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
   Visits<kCount> vis{counts};
   ClusterNee<kTris, kCount> nee{
       lights, n_lights_max,
-      kNee ? lights[n_lights_max * kLightCols] : 0.f, sph, tri, vis, 0};
+      kNee ? lights[n_lights_max * kLightCols] : 0.f, sph, vis, 0};
 
   // per-tile, per-sample stream seed (int32 wrap in the JAX kernel)
   const uint32_t seed_s = seed + (uint32_t)tile * (uint32_t)spp + (uint32_t)s;
@@ -570,78 +858,141 @@ cluster_kernel(const int* __restrict__ glob_g, int n_global,
                                pix_mix, s, sm);
   int seg_count = 0;
 
-  for (int k = 1; k <= max_depth; ++k) {
-    ++seg_count;  // only live paths reach this point
-
-    Best best{kTMax, -1};
-    // ---- globals: dense sweeps from shared memory ----
-    sweep_globals<false, false>(sph, 0, p, best, vis);
-    if constexpr (kTris) sweep_globals<true, false>(tri, 2, p, best, vis);
-
-    // ---- the hierarchies, spheres then triangles ----
-    const Ray r{p.ox, p.oy, p.oz, safe_inv(p.dx), safe_inv(p.dy),
+  if constexpr (kTris) {
+    // every lane runs every bounce (alive in place of break), so that the
+    // warp tests the triangles together; lanes whose paths have ended serve
+    // in its teams. This warp's results lie past the staged boxes.
+    const int stage_words =
+        stage ? sph_words + n_tri_ss * (1 + kFanout) * kBoxWords : 0;
+    Best* const res =
+        reinterpret_cast<Best*>(boxes + stage_words) + (threadIdx.x & ~31u);
+    bool alive = true;
+    for (int k = 1; k <= max_depth; ++k) {
+      Best best{kTMax, -1};
+      Ray r{};
+      if (alive) {
+        ++seg_count;
+        sweep_globals<false, false, kCount, false>(sph, 0, p, best, vis);
+        sweep_globals<true, false>(tri, 2, p, best, vis);
+        r = Ray{p.ox, p.oy, p.oz, safe_inv(p.dx), safe_inv(p.dy),
                 safe_inv(p.dz)};
-    walk<false, false>(sph, 1, r, p, best, vis);
-    if constexpr (kTris) walk<true, false>(tri, 3, r, p, best, vis);
+        walk<false, kCount, false>(sph, 1, r, p, best, vis);
+      }
+      warp_walk<false>(tri, 3, r, p, best, alive, res, vis);
+      if (alive) {
+        if (best.key < 0) {  // miss: background, path ends
+          p.cr = p.cr + p.tr * bg[0];
+          p.cg = p.cg + p.tg * bg[1];
+          p.cb = p.cb + p.tb * bg[2];
+          alive = false;
+        } else {
+          alive = shade_hit<kFlags, kNee>(
+              p, winner_surface(best, p, glob, tglob, attr, tattr, C, tri_C),
+              best.t, k, pix_mix, bounce_salt(sm.primary, refr, kNee, k),
+              refr, false, &nee, (best.key >> kKeyShift) >= 2);
+        }
+      }
+      if constexpr (kNee) {  // this bounce's shadow rays
+        const ShadowRay sh = nee.shadow;
+        nee.shadow.on = false;
+        Path s{};
+        Ray sr{};
+        Best sb{};
+        bool blocked = false;
+        if (sh.on) {
+          s.ox = sh.ox; s.oy = sh.oy; s.oz = sh.oz;
+          s.dx = sh.dx; s.dy = sh.dy; s.dz = sh.dz;
+          sb = Best{sh.t_edge, -1};
+          blocked = sweep_globals<false, true, kCount, false>(sph, 0, s, sb,
+                                                             vis) ||
+                    sweep_globals<true, true>(tri, 2, s, sb, vis);
+          sr = Ray{sh.ox, sh.oy, sh.oz, safe_inv(sh.dx), safe_inv(sh.dy),
+                   safe_inv(sh.dz)};
+          blocked = blocked ||
+                    walk<true, kCount, false>(sph, 1, sr, s, sb, vis);
+        }
+        blocked = warp_walk<true>(tri, 3, sr, s, sb, sh.on && !blocked, res,
+                                  vis) ||
+                  blocked;
+        if (sh.on && !blocked) {
+          p.cr = p.cr + sh.cr;
+          p.cg = p.cg + sh.cg;
+          p.cb = p.cb + sh.cb;
+        }
+      }
+    }
+  } else {
+    for (int k = 1; k <= max_depth; ++k) {
+      ++seg_count;  // only live paths reach this point
 
-    if (best.key < 0) {  // miss: background, path ends
-      p.cr = p.cr + p.tr * bg[0];
-      p.cg = p.cg + p.tg * bg[1];
-      p.cb = p.cb + p.tb * bg[2];
-      break;
+      Best best{kTMax, -1};
+      // ---- globals: dense sweeps from shared memory ----
+      sweep_globals<false, false>(sph, 0, p, best, vis);
+
+      // ---- the hierarchy ----
+      const Ray r{p.ox, p.oy, p.oz, safe_inv(p.dx), safe_inv(p.dy),
+                  safe_inv(p.dz)};
+      walk<false>(sph, 1, r, p, best, vis);
+
+      if (best.key < 0) {  // miss: background, path ends
+        p.cr = p.cr + p.tr * bg[0];
+        p.cg = p.cg + p.tg * bg[1];
+        p.cb = p.cb + p.tb * bg[2];
+        break;
+      }
+      // the winner's packed row from its key (generic loads: shared or
+      // global); its materials are 5 bf16-pair words, at word 5 of a sphere
+      // row and word 11 of a triangle row
+      const int cls = best.key >> kKeyShift;
+      const int idx = best.key & ((1 << kKeyShift) - 1);
+      const bool is_tri = kTris && cls >= 2;
+      const int* row;
+      int ws;
+      if ((cls & 1) == 0) {  // a global
+        row = (is_tri ? tglob : glob) + idx * kCols;
+        ws = 1;
+      } else {
+        ws = is_tri ? tri_C : C;
+        row = (is_tri ? tattr : attr) +
+              (size_t)(idx / ws) * ((ws * kCols / kLanes + 1) * kLanes) +
+              idx % ws;
+      }
+      const int* m = row + (is_tri ? 11 : 5) * ws;
+      const uint32_t p0 = (uint32_t)m[0];
+      const uint32_t p1 = (uint32_t)m[ws];
+      const uint32_t p2 = (uint32_t)m[2 * ws];
+      const uint32_t p3 = (uint32_t)m[3 * ws];
+      const uint32_t p4 = (uint32_t)m[4 * ws];
+      float cx, cy, cz, ir;
+      if (is_tri) {
+        // the bf16 face normal, encoded as the TPU kernel does
+        const uint32_t n0 = (uint32_t)row[9 * ws];
+        const uint32_t n1 = (uint32_t)row[10 * ws];
+        const float nx = __uint_as_float(n0 << 16);
+        const float ny = __uint_as_float(n0 & 0xFFFF0000u);
+        const float nz = __uint_as_float(n1 << 16);
+        ir = (p.dx * nx + p.dy * ny + p.dz * nz) < 0.f ? 1.f : -1.f;
+        cx = (p.ox + p.dx * best.t) - nx;
+        cy = (p.oy + p.dy * best.t) - ny;
+        cz = (p.oz + p.dz * best.t) - nz;
+      } else {
+        cx = __int_as_float(row[0]);
+        cy = __int_as_float(row[ws]);
+        cz = __int_as_float(row[2 * ws]);
+        ir = __int_as_float(row[4 * ws]);
+      }
+      const Surface surf{
+          cx, cy, cz, ir,
+          __uint_as_float(p0 << 16), __uint_as_float(p0 & 0xFFFF0000u),
+          __uint_as_float(p1 << 16), __uint_as_float(p1 & 0xFFFF0000u),
+          __uint_as_float(p2 << 16),
+          __uint_as_float(p3 << 16), __uint_as_float(p3 & 0xFFFF0000u),
+          __uint_as_float(p4 << 16), __uint_as_float(p2 & 0xFFFF0000u)};
+      if (!shade_hit<kFlags, kNee>(p, surf, best.t, k, pix_mix,
+                                   bounce_salt(sm.primary, refr, kNee, k),
+                                   refr, false, &nee, is_tri))
+        break;
     }
-    // the winner's packed row from its key (generic loads: shared or
-    // global); its materials are 5 bf16-pair words, at word 5 of a sphere
-    // row and word 11 of a triangle row
-    const int cls = best.key >> kKeyShift;
-    const int idx = best.key & ((1 << kKeyShift) - 1);
-    const bool is_tri = kTris && cls >= 2;
-    const int* row;
-    int ws;
-    if ((cls & 1) == 0) {  // a global
-      row = (is_tri ? tglob : glob) + idx * kCols;
-      ws = 1;
-    } else {
-      ws = is_tri ? tri_C : C;
-      row = (is_tri ? tattr : attr) +
-            (size_t)(idx / ws) * ((ws * kCols / kLanes + 1) * kLanes) +
-            idx % ws;
-    }
-    const int* m = row + (is_tri ? 11 : 5) * ws;
-    const uint32_t p0 = (uint32_t)m[0];
-    const uint32_t p1 = (uint32_t)m[ws];
-    const uint32_t p2 = (uint32_t)m[2 * ws];
-    const uint32_t p3 = (uint32_t)m[3 * ws];
-    const uint32_t p4 = (uint32_t)m[4 * ws];
-    float cx, cy, cz, ir;
-    if (is_tri) {
-      // the bf16 face normal, encoded as the TPU kernel does
-      const uint32_t n0 = (uint32_t)row[9 * ws];
-      const uint32_t n1 = (uint32_t)row[10 * ws];
-      const float nx = __uint_as_float(n0 << 16);
-      const float ny = __uint_as_float(n0 & 0xFFFF0000u);
-      const float nz = __uint_as_float(n1 << 16);
-      ir = (p.dx * nx + p.dy * ny + p.dz * nz) < 0.f ? 1.f : -1.f;
-      cx = (p.ox + p.dx * best.t) - nx;
-      cy = (p.oy + p.dy * best.t) - ny;
-      cz = (p.oz + p.dz * best.t) - nz;
-    } else {
-      cx = __int_as_float(row[0]);
-      cy = __int_as_float(row[ws]);
-      cz = __int_as_float(row[2 * ws]);
-      ir = __int_as_float(row[4 * ws]);
-    }
-    const Surface surf{
-        cx, cy, cz, ir,
-        __uint_as_float(p0 << 16), __uint_as_float(p0 & 0xFFFF0000u),
-        __uint_as_float(p1 << 16), __uint_as_float(p1 & 0xFFFF0000u),
-        __uint_as_float(p2 << 16),
-        __uint_as_float(p3 << 16), __uint_as_float(p3 & 0xFFFF0000u),
-        __uint_as_float(p4 << 16), __uint_as_float(p2 & 0xFFFF0000u)};
-    if (!shade_hit<kFlags, kNee>(p, surf, best.t, k, pix_mix,
-                                 bounce_salt(sm.primary, refr, kNee, k),
-                                 refr, false, &nee, is_tri))
-      break;
   }
 
   // this sample's radiance, plane (blockIdx.y, channel), coalesced by
@@ -738,6 +1089,7 @@ extern "C" {
 // `group_boxes` (64 n_ss, C/8, 8) f32 (ops/cluster.py:group_boxes); the
 // `t`-prefixed triangle tables have the same layout (n_tri_ss 0 and null
 // pointers: no mesh); `cam` (16,) and `bg` (3,) f32, all on the device;
+// `tattr` and `tgroup_boxes` on 16-byte boundaries;
 // with `nee`, `lights` is the (8 n_lights_max + 1,) f32 light table
 // (ops/cluster.py:light_table). A band of `rows` rows from frame row `row0`
 // (both multiples of 32 unless the band is the whole frame) of the frame of
@@ -749,7 +1101,8 @@ extern "C" {
 // then the counting instantiation runs and adds, per tile, for path and
 // then shadow rays, the slab tests at the super-super, super, cluster and
 // group levels, the sphere and triangle tests, and the primitive tests the
-// warps issued. `refract`, `dof`, `stratify` and `nee` switch the optional flags
+// warps issued (without a mesh sphere tests, with one triangle tests).
+// `refract`, `dof`, `stratify` and `nee` switch the optional flags
 // on; `gamma` 0 stores the linear mean. Allocates nothing and does not
 // synchronise. Returns cudaGetLastError() of the launches.
 int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
@@ -784,6 +1137,10 @@ int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
       (rows != height && rows % kSublanes != 0) || scratch == nullptr ||
       group_boxes == nullptr)
     return (int)cudaErrorInvalidValue;
+  // the triangle walk reads its cluster and group boxes 16 bytes at a time
+  if (n_tri_ss > 0 && (reinterpret_cast<uintptr_t>(tattr) |
+                       reinterpret_cast<uintptr_t>(tgroup_boxes)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   // the storage index of a key: below 2^28 rows a table
   if ((long long)n_ss * kFanout * kFanout * cluster_size >= (1LL << kKeyShift) ||
       (long long)n_tri_ss * kFanout * kFanout * tri_cluster_size >=
@@ -804,7 +1161,9 @@ int tpurt_cluster_launch(const int* glob, int n_global, const float* ss_boxes,
   const size_t stage_bytes =
       (size_t)(n_ss + n_tri_ss) * (1 + kFanout) * kBoxWords * sizeof(float);
   const int stage = stage_bytes <= (size_t)kStageBytes;
-  const size_t shmem = stage ? stage_bytes : 0;
+  // with a mesh, the triangle walk's results follow
+  const size_t team_bytes = tris ? (size_t)kBlock * sizeof(Best) : 0;
+  const size_t shmem = (stage ? stage_bytes : 0) + team_bytes;
   cudaStream_t st = (cudaStream_t)stream;
 #define TPURT_CLUSTER_ARGS                                                   \
   glob, n_global, ss_boxes, n_ss, super_boxes, attr, cluster_size,         \

@@ -120,6 +120,21 @@ struct Light {
 // The light table of the kernels without NEE: never called.
 struct NoNee {};
 
+// Whether a light table defers its shadow rays (a member kDeferred that is
+// true): shade_hit then hands a diffuse lane's shadow ray and its three
+// products to nee->defer instead of tracing it, and the kernel traces the
+// stored rays and adds the products of the unblocked ones after shade_hit
+// returns. Other tables (NoNee, K1's, the sphere-only cluster kernels')
+// trace it inside shade_hit through nee->occluded.
+template <class Nee, class = void>
+struct Defers {
+  static constexpr bool value = false;
+};
+template <class Nee>
+struct Defers<Nee, decltype(void(Nee::kDeferred))> {
+  static constexpr bool value = Nee::kDeferred;
+};
+
 // The winner of a nearest-hit search: centre, 1/radius, shading attributes.
 // (A megakernel triangle winner carries its face normal in cx..cz and the
 // sign that turns it against the ray in ir; see shade_hit's face_normal.)
@@ -251,7 +266,10 @@ __device__ __forceinline__ Path primary_ray(const Camera& c, float px,
 // a light ``nee->pick(u)``, samples the cone it subtends, and adds
 // tr * albedo * cos * Le * (solid angle) * n_lights / pi unless the light
 // is behind the surface, encloses the hit, or ``nee->occluded`` finds a
-// primitive before the light's entry t less 1e-3. Each diffuse lane adds
+// primitive before the light's entry t less 1e-3 (a table that defers
+// receives the ray, t_edge and the three products through ``nee->defer``;
+// the caller adds the products unless the ray is blocked, and nothing
+// touches p.c in between, so the sums round as here). Each diffuse lane adds
 // one segment to ``nee->segs`` (its shadow ray, traced or not).
 template <bool kFlags, bool kNee = false, class Nee = NoNee>
 __device__ __forceinline__ bool shade_hit(Path& p, const Surface& w, float t,
@@ -427,7 +445,14 @@ __device__ __forceinline__ bool shade_hit(Path& p, const Surface& w, float t,
       const float ndl = nx * ldx + ny * ldy + nz * ldz;
       // the light's own entry root is t_light, so the strict margin
       // keeps it from occluding itself
-      if (light_ok && !inside && ndl > 0.0f && nee->n_lights > 0.0f &&
+      if constexpr (Defers<Nee>::value) {
+        if (light_ok && !inside && ndl > 0.0f && nee->n_lights > 0.0f) {
+          const float scale = ndl * weight * (nee->n_lights * kInvPi);
+          nee->defer(hx, hy, hz, ldx, ldy, ldz, t_light - 1e-3f,
+                     p.tr * w.ar * scale * L.er, p.tg * w.ag * scale * L.eg,
+                     p.tb * w.ab * scale * L.eb);
+        }
+      } else if (light_ok && !inside && ndl > 0.0f && nee->n_lights > 0.0f &&
           !nee->occluded(hx, hy, hz, ldx, ldy, ldz, t_light - 1e-3f)) {
         const float scale = ndl * weight * (nee->n_lights * kInvPi);
         p.cr = p.cr + p.tr * w.ar * scale * L.er;

@@ -667,7 +667,8 @@ def chunk_samples(spp: int, n_tiles: int) -> int:
 
 #: the visit counts per ray kind: slab tests at the super-super, super,
 #: cluster and group levels, sphere and triangle tests (globals included),
-#: and the primitive tests the warps issued (the kernel's alone)
+#: and the primitive tests the warps issued (the kernel's alone; sphere
+#: tests without a mesh, triangle tests with one)
 VISIT_COLS = ("ss", "super", "cluster", "group", "sphere", "tri", "warp")
 VISIT_KINDS = ("path", "shadow")
 N_WALK_COLS = 6  # the columns walk_visits_reference counts too
@@ -780,11 +781,12 @@ class _WalkState:
     def slab_ray(self, idx):
         return tuple(x[idx, None] for x in self.o + self.inv)
 
-    def test(self, idx, rows, tri, key0):
+    def test(self, idx, rows, tri, key0, whole=False):
         """Test rays ``idx`` against their rows ``rows`` (n, m, fields),
         keys key0 (n,) + column, in order; count the tests. Nearest-hit
         takes the least (t, key); any-hit stops each ray at its first
-        hit."""
+        hit, counting the rows up to it, or all of them (``whole``: rows
+        the warp tests together)."""
         o, d = self.rays(idx)
         ok, t = (_tri_hits if tri else _sphere_hits)(o, d, rows)
         col = 5 if tri else 4
@@ -793,7 +795,8 @@ class _WalkState:
             hit = ok & (t < self.best_t[idx, None])
             anyh = hit.any(dim=1)
             first = hit.to(torch.int8).argmax(dim=1)
-            self.visits[idx, col] += torch.where(anyh, first + 1, m)
+            self.visits[idx, col] += (m if whole else
+                                      torch.where(anyh, first + 1, m))
             self.done[idx[anyh]] = True
             return
         self.visits[idx, col] += m
@@ -842,7 +845,7 @@ def _walk_table(st: _WalkState, tab: ClusteredScene, tri: bool):
         k = parent[idx]
         rows = geo.reshape(K, C // GROUP, GROUP, nf)[k, g]
         st.test(idx, rows, tri,
-                ((cls + 1) << KEY_SHIFT) + k * C + g * GROUP)
+                ((cls + 1) << KEY_SHIFT) + k * C + g * GROUP, whole=tri)
 
     def level(idx, boxes, col, descend):
         """Rays ``idx`` walk the children whose boxes are ``boxes`` (n, m,
@@ -893,7 +896,9 @@ def walk_visits_reference(cl: ClusteredScene, tri: ClusteredScene | None,
     """The cluster kernel's search for rays (o, d: triples of (R,) f32), in
     the kernel's own visit order, with its visit counts: the sphere globals,
     the triangle globals, the sphere walk and the triangle walk, each level
-    near to far by rounds with the running best t (csrc/cluster.cu walk).
+    near to far by rounds with the running best t (csrc/cluster.cu walk,
+    warp_walk); the triangle walk's groups are tested whole (any-hit
+    too: the warp tests a group's 8 rows at once).
     Nearest-hit keeps the least (t, key) (key = class << 28 | storage
     index), which is :func:`dense_nearest`'s winner whatever the order;
     with ``t_edge`` (R,) the rays are shadow rays, any-hit below t_edge,
@@ -1232,7 +1237,8 @@ def render_cluster(
     the (n_tiles, 2, 7) int64 visit counts: per screen block (row-major),
     for path rays and then shadow rays, the columns of
     :data:`VISIT_COLS` (slab tests per level, sphere and triangle tests,
-    the primitive tests the warps issued); the image and segments, from
+    the primitive tests the warps issued: sphere tests without a mesh,
+    triangle tests with one); the image and segments, from
     the counting instantiation, equal the timed one's.
     """
     kw = {k: v for k, v in locals().items() if k not in ("scene", "cam",
